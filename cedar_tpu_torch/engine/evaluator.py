@@ -13,7 +13,7 @@ TieredPolicyStores.is_authorized), with:
     first-match kernel);
   * packed fast path: without interpreter fallback the tier walk runs ON
     THE DEVICE and the readback is one uint32 word per request (the words
-    path: match_groups_kernel + tier_walk_kernel);
+    path: one match_words_kernel launch per chunk);
   * diagnostics: exact matched-policy sets. The verdict word's multi/err
     bits flag the rows whose word cannot carry every reason; only those
     rows fetch their per-rule bitsets (match_bits_arrays), from which the
@@ -97,19 +97,20 @@ def _bits_rule_indices(bits_row: np.ndarray, n_rules: int) -> np.ndarray:
 
 
 class _CompiledSet:
-    """Immutable device-resident compiled policy set (the swap unit): W
-    int8 [L, R], thresh / rule_group / rule_policy int32 [R] and the
-    activation table act_rows uint8 [V, L] on the device, plus the host
-    metadata the decoders read. Build it with
-    engine/weights.py compiled_set_from_numpy."""
+    """Immutable device-resident compiled policy set (the swap unit): the
+    K-major rule plane Wt int8 [R, L], thresh / rule_group / rule_policy
+    int32 [R] and the activation table act_rows uint8 [V, L] on the
+    device, plus the host metadata the decoders read, and the TMA maps of
+    the plane that the match kernels encode once (``plane_maps``). Build it
+    with engine/weights.py compiled_set_from_numpy."""
 
     def __init__(
-        self, *, W, thresh, rule_group, rule_policy, act_rows, n_tiers,
+        self, *, Wt, thresh, rule_group, rule_policy, act_rows, n_tiers,
         has_gate, n_rules, policy_meta, device, packed=None,
     ):
         self.packed = packed
         self.device = torch.device(device)
-        self.L, self.R = W.shape
+        self.R, self.L = Wt.shape
         self.n_tiers = n_tiers
         self.has_gate = has_gate
         self.n_groups = n_groups_of(n_tiers, has_gate)
@@ -120,11 +121,18 @@ class _CompiledSet:
         self.rule_policy = rule_policy
         self.fallback = list(packed.fallback) if packed is not None else []
         dev = self.device
-        self.W_dev = torch.from_numpy(W).to(dev)
+        self.Wt_dev = torch.from_numpy(Wt).to(dev)
         self.thresh_dev = torch.from_numpy(thresh).to(dev)
         self.rule_group_dev = torch.from_numpy(rule_group).to(dev)
         self.rule_policy_dev = torch.from_numpy(rule_policy).to(dev)
         self.act_rows_dev = torch.from_numpy(act_rows).to(dev)
+        self.plane_maps: dict = {}
+
+    @property
+    def W_dev(self) -> torch.Tensor:
+        """The plane as the match functions take it: W [L, R], the
+        transposed view of Wt_dev (no copy)."""
+        return self.Wt_dev.t()
 
 
 class TorchPolicyEngine:
@@ -312,8 +320,8 @@ class TorchPolicyEngine:
         """Device-match pre-encoded feature codes: codes [n, S], extras
         [n, E] (padded with >= L). Returns (words, full):
 
-          * plain: words [n] uint32 from match_groups_kernel +
-            tier_walk_kernel, full None;
+          * plain: words [n] uint32 from one match_words_kernel launch
+            per chunk, full None;
           * want_full: words None, full the ([n, G] first, [n, G] last)
             int32 pair from match_groups_kernel alone — never a words
             launch; the caller walks the tiers on the host.
@@ -333,7 +341,7 @@ class TorchPolicyEngine:
             if want_full:
                 first, last = cuda_match.match_groups(
                     lit, cs.W_dev, cs.thresh_dev, cs.rule_group_dev,
-                    cs.rule_policy_dev, cs.n_groups,
+                    cs.rule_policy_dev, cs.n_groups, plane_maps=cs.plane_maps,
                 )
                 first_parts.append(first[:m].cpu().numpy())
                 last_parts.append(last[:m].cpu().numpy())
@@ -341,6 +349,7 @@ class TorchPolicyEngine:
                 words = cuda_match.match_words(
                     lit, cs.W_dev, cs.thresh_dev, cs.rule_group_dev,
                     cs.rule_policy_dev, cs.n_tiers, cs.has_gate,
+                    plane_maps=cs.plane_maps,
                 )
                 words_parts.append(words_to_numpy(words[:m]))
         if want_full:

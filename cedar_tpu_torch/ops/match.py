@@ -2,9 +2,11 @@
 expansion, and the plain versions of the fused match kernels.
 
 The policy set is a matrix W [L, R] over literals x rules (+1 required-true,
--1 required-false) with per-rule positive-literal counts `thresh`. A request
-batch arrives as feature codes (rows of the activation table) plus a few
-raw literal ids ("extras"); the match:
+-1 required-false) with per-rule positive-literal counts `thresh`. The
+engine stores it K-major, Wt [R, L] (engine/weights.py), and hands these
+functions the view W = Wt.t(); every function here takes W of any
+strides. A request batch arrives as feature codes (rows of the
+activation table) plus a few raw literal ids ("extras"); the match:
 
   1. expands them into a {0,1} literal matrix lit [B, L] int8
      (`lit_matrix_codes`);
@@ -16,7 +18,8 @@ raw literal ids ("extras"); the match:
      packed verdict word per request (`tier_walk`).
 
 Steps 2-4 are what the hand-written CUDA kernels compute on the card
-(ops/cuda_match.py, csrc/match.cu). The functions here are their plain
+(ops/cuda_match.py, csrc/match.cu: match_groups_kernel for steps 2-3,
+match_words_kernel for 2-4 in one launch). The functions here are their plain
 versions: every CPU tensor takes them, and chip_smoke.py holds the kernels
 against them on the card. Scores are computed in float32, which is exact:
 lit entries are 0/1, W entries are +/-1, and |score| <= L << 2**24. (An
@@ -142,8 +145,8 @@ def first_match_ref(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the first-match kernel (csrc/match.cu
     match_groups_kernel; the port of pallas_first_match): lit [B, L] int8,
-    W [L, R] int8, thresh/group/policy [R] int32 -> (first, last) [B, G]
-    int32."""
+    W [L, R] int8 (any strides), thresh/group/policy [R] int32 -> (first,
+    last) [B, G] int32."""
     return group_reduce(sat_matrix(lit, W, thresh), group, policy, n_groups)
 
 
@@ -160,8 +163,9 @@ def tier_walk(
     n_tiers: int,
     has_gate: bool = False,
 ) -> torch.Tensor:
-    """Plain version of tier_walk_kernel: first/last [B, G] -> packed
-    verdict words [B] (int32 bit pattern). First tier with any explicit
+    """Plain version of the tier walk in match_words_kernel's epilogue (and
+    the want_full path's host walk): first/last [B, G] -> packed verdict
+    words [B] (int32 bit pattern). First tier with any explicit
     signal (reason or error) wins, like TieredPolicyStores; err only
     alongside a permit/forbid; multi only in the deciding group; gate bit
     from group n_tiers * 3. `last` may be None (multi never set). The word
@@ -212,9 +216,8 @@ def match_words_ref(
     n_tiers: int,
     has_gate: bool = False,
 ) -> torch.Tensor:
-    """Plain version of the words path (match_groups_kernel followed by
-    tier_walk_kernel; the port of pallas_match_words): -> words [B] int32
-    bit pattern."""
+    """Plain version of match_words_kernel (the port of
+    pallas_match_words): -> words [B] int32 bit pattern."""
     first, last = first_match_ref(
         lit, W, thresh, group, policy, n_groups_of(n_tiers, has_gate)
     )

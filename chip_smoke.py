@@ -6,27 +6,43 @@
 Phases, each a hard failure with a nonzero exit:
 
   1. card: name and power limit (nvidia-smi).
-  2. build: the match kernels from cedar_tpu_torch/csrc with nvcc (sm_90a).
-  3. kernel parity: match_groups_kernel and tier_walk_kernel against their
-     plain PyTorch versions on the card, bit for bit, on random sparse rule
-     sets at L = 1024, R = 10240 (B in 8 / 128 / 1024 / 4096, G in 3 /
-     4 with gate / 9 for three tiers, plus a ragged B = 100, R = 10000).
+  2. build: the match kernels from cedar_tpu_torch/csrc with nvcc (sm_90a);
+     prints ptxas's register and spill lines and the count of
+     warpgroup-MMA instructions (IGMMA) in the library's SASS, which must
+     be above 0 (the kernels run on the tensor cores).
+  3. kernel parity: match_groups_kernel and match_words_kernel against
+     their plain PyTorch versions on the card, bit for bit, on random
+     sparse rule sets at L = 1024, R = 10240 (B in 8 / 128 / 1024 / 4096,
+     G in 3 / 4 with gate / 9 for three tiers), plus ragged B, L and R
+     (B = 100, 65 and 1, L = 1000 and 200, R = 10000 and 1000).
   4. serving path: a synthesized 10k-policy corpus loaded on the card;
      SubjectAccessReview bodies answered through the port's authorizer
-     (launch counts reset just before, read just after); every decision
-     and reason set held against the port's interpreter (0 flips);
-     decisions/s and batch latency at batch 1 / 128 / 4096. Both kernels
-     are then held against their plain versions, bit for bit, on the
-     serving plane itself: the padded batch just served and the
-     batch-4096 traffic at B = 4096 and 128.
+     (launch counts reset just before, read just after: one
+     match_words_kernel launch per chunk, no match_groups_kernel); every
+     decision and reason set held against the port's interpreter (0
+     flips); decisions/s and batch latency at batch 1 / 128 / 4096. Both
+     kernels are then held against their plain versions, bit for bit, on
+     the serving plane itself: the padded batch just served (its 512
+     bucket) and rows of the batch-4096 traffic at B = 4096, 128, 32, 8
+     and 1 (the buckets the timed batches and small requests take; below
+     128 rows each is its own lit box of B rounded up to 8).
   5. want_full path: a set with interpreter-fallback policies (the
-     coverage corpus' blowup family) served through the first-match
-     kernel (counts reset just before, read just after), 0 flips; both
-     kernels held against their plain versions on that plane and batch.
+     coverage corpus' blowup family) served through match_groups_kernel
+     (counts reset just before, read just after; match_words_kernel never
+     launched), 0 flips; both kernels held against their plain versions on
+     that plane and batch.
   6. diagnostics: a request matching two permits comes back through
      resolve_flagged with both reasons.
-  7. timing: each kernel at the serving plane's shape and at L = 1024,
-     beside its plain version, its bound and a library yardstick.
+  7. timing: each kernel at the serving plane's shape (B = 4096, 128 and
+     1) and at L = 1024 (B = 4096 and 128), beside its plain version, its
+     bound and two library yardsticks (float32 torch.matmul, and
+     torch._int_mm, the same int8 contraction without the epilogue, where
+     its shape rules allow: B > 16). A kernel's "ms" is its wrapper called
+     back to back (the host's cost per call included where it is the
+     slower side); "device_ms" the same calls replayed from a CUDA graph.
+     Then a rule-tile probe: match_groups_kernel's device time at B = 4096
+     on both planes with the tile forced to 64, 128 and 256 rules (the
+     choice cuda_match.rule_tile makes from the grid size).
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -37,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -80,6 +97,50 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sass_gmma_count(lib_path) -> dict:
+    """Warpgroup-MMA instructions in the built library's SASS, by opcode
+    (IGMMA is the integer one), from the toolkit's cuobjdump."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    ops = {}
+    for line in out.stdout.splitlines():
+        for tok in line.replace(";", " ").split():
+            if "GMMA" in tok:
+                op = tok.split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+    return ops
+
+
+def graph_ms(torch, fn, iters: int) -> float:
+    """Device time of one fn() with the host out of the way: `iters` calls
+    captured in one CUDA graph and replayed once (CUDA events). fn's
+    allocations come from the graph's pool; its launches are counted once,
+    at capture."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / INT8_OPS_PER_S * 1e3
@@ -91,7 +152,11 @@ def random_plane(torch, rng, L, R, G, n_pad=0):
     occasional negation) so a row matches a handful of rules: groups with
     no, one and several matched policies all occur. The last n_pad columns
     are padding (thresh 1e9, policy INT32_MAX). On the card as the kernels
-    take them."""
+    take them: W is the [L_pad, R] view of the K-major plane Wt [R, L_pad]
+    (L padded to a multiple of 64 with zero columns, as for a hand-built
+    plane)."""
+    from cedar_tpu_torch.engine.weights import k_major_plane
+
     W = np.zeros((L, R), np.int8)
     n_pos = rng.choice([1, 2, 3], size=R, p=[0.05, 0.6, 0.35])
     for k in range(3):
@@ -109,12 +174,16 @@ def random_plane(torch, rng, L, R, G, n_pad=0):
         group[-n_pad:] = 0
         policy[-n_pad:] = INT32_MAX
     dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
-    return dev(W), dev(thresh), dev(group), dev(policy)
+    return dev(k_major_plane(W)).t(), dev(thresh), dev(group), dev(policy)
 
 
 def random_lit(torch, rng, B, L, active=24):
+    """[B, L_pad] literal matrix: `active` literals below L per row, zero
+    tail."""
+    from cedar_tpu_torch.engine.weights import padded_literals
+
     idx = rng.integers(0, L, size=(B, active))
-    lit = np.zeros((B, L), np.int8)
+    lit = np.zeros((B, padded_literals(L)), np.int8)
     np.put_along_axis(lit, idx, 1, axis=1)
     return torch.from_numpy(lit).cuda()
 
@@ -163,7 +232,7 @@ def main() -> None:
             "source": "cedar_tpu_torch/csrc/match.cu",
             "replaces": "cedar_tpu/ops/pallas_match.py:276",
         },
-        "tier_walk_kernel": {
+        "match_words_kernel": {
             "route": "cuda",
             "source": "cedar_tpu_torch/csrc/match.cu",
             "replaces": "cedar_tpu/ops/pallas_match.py:361",
@@ -182,20 +251,29 @@ def main() -> None:
     print(f"build: {lib.relative_to(cuda_match.BUILD_ROOT.parent.parent)} "
           f"in {time.monotonic() - t0:.2f} s", flush=True)
     for line in cuda_match.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "ptxas info" in line and ("Compiling entry" in line or "Used" in line) \
+                or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    gmma = sass_gmma_count(lib)
+    print(f"sass: warpgroup-MMA instructions {json.dumps(gmma)}", flush=True)
+    if gmma.get("IGMMA", 0) < 1:
+        fail("the built library has no IGMMA instruction: the kernels do not use "
+             "the int8 tensor cores")
 
     # ---- 3. kernel parity (launches here are not main-path launches)
-    err = {"match_groups_kernel": 0, "tier_walk_kernel": 0}
+    err = {"match_groups_kernel": 0, "match_words_kernel": 0}
 
-    def parity(label, lit, W, th, grp, pol, T, gate, need_mix):
+    n_sm = cuda_match.sm_count(0)
+
+    def parity(label, lit, W, th, grp, pol, T, gate, need_mix, maps=None):
         """Both kernels against their plain versions on the same inputs,
-        bit for bit; folds the error into err and fails on any difference."""
+        bit for bit; folds the error into err and fails on any difference.
+        maps: the plane's TMA map cache, as the engine passes it."""
         G = plain.n_groups_of(T, gate)
         (B, L), R = lit.shape, W.shape[1]
-        f_k, l_k = cuda_match.match_groups(lit, W, th, grp, pol, G)
+        f_k, l_k = cuda_match.match_groups(lit, W, th, grp, pol, G, plane_maps=maps)
         f_p, l_p = plain.first_match_ref(lit, W, th, grp, pol, G)
-        w_k = cuda_match.tier_walk_words(f_k, l_k, T, gate)
+        w_k = cuda_match.match_words(lit, W, th, grp, pol, T, gate, plane_maps=maps)
         w_p = plain.tier_walk(f_p, l_p, T, gate)
         torch.cuda.synchronize()
         e_g = max(
@@ -205,10 +283,11 @@ def main() -> None:
         # words compared as the uint32 values they encode
         e_w = int(((w_k.long() & 0xFFFFFFFF) - (w_p.long() & 0xFFFFFFFF)).abs().max())
         err["match_groups_kernel"] = max(err["match_groups_kernel"], e_g)
-        err["tier_walk_kernel"] = max(err["tier_walk_kernel"], e_w)
+        err["match_words_kernel"] = max(err["match_words_kernel"], e_w)
         matched = int((f_p != INT32_MAX).sum())
         multi = int(((f_p != l_p) & (f_p != INT32_MAX)).sum())
-        print(f"parity {label} B={B} L={L} R={R} G={G}: groups err {e_g}, words err {e_w} "
+        print(f"parity {label} B={B} L={L} R={R} G={G} rule tile "
+              f"{cuda_match.rule_tile(B, R, n_sm)}: groups err {e_g}, words err {e_w} "
               f"({B * G - matched} empty / {matched - multi} single / {multi} multi "
               "groups)", flush=True)
         if e_g or e_w:
@@ -219,7 +298,8 @@ def main() -> None:
 
     cases = [(B, 1024, 10240, T, gate) for B in (8, 128, 1024, 4096)
              for T, gate in ((1, False), (1, True), (3, False))]
-    cases += [(100, 1024, 10000, 1, True), (100, 1000, 10000, 3, False)]
+    cases += [(100, 1024, 10000, 1, True), (100, 1000, 10000, 3, False),
+              (65, 1000, 10000, 1, True), (1, 200, 1000, 1, False)]
     t0 = time.monotonic()
     for B, L, R, T, gate in cases:
         G = plain.n_groups_of(T, gate)
@@ -238,9 +318,11 @@ def main() -> None:
         fail(f"engine chose {engine.device}, not cuda")
     stats = engine.load(tiers)
     cs = engine.compiled_set
-    if cs.W_dev.device.type != "cuda" or cs.W_dev.dtype != torch.int8:
-        fail("compiled plane is not an int8 tensor on the card")
-    print(f"serving: {args.policies} policies -> L={cs.L} R={cs.R} rules={cs.n_rules} "
+    if cs.Wt_dev.device.type != "cuda" or cs.Wt_dev.dtype != torch.int8 \
+            or not cs.Wt_dev.is_contiguous() or tuple(cs.Wt_dev.shape) != (cs.R, cs.L):
+        fail("compiled plane is not a K-major int8 tensor [R, L] on the card")
+    print(f"serving: {args.policies} policies -> L={cs.L} R={cs.R} "
+          f"rules={cs.n_rules} "
           f"G={cs.n_groups} fallback={len(cs.fallback)}; corpus+load "
           f"{time.monotonic() - t0:.1f} s ({stats['compile_seconds']})", flush=True)
     if cs.fallback:
@@ -280,8 +362,9 @@ def main() -> None:
     print(f"serving launches: {serving_launches}", flush=True)
     if flips:
         fail(f"{flips} decisions differ from the interpreter")
-    if min(serving_launches.values()) < 1:
-        fail(f"a kernel was not launched on the serving path: {serving_launches}")
+    # one batch of fewer than 32768 rows: one words launch, nothing else
+    if serving_launches != {"match_groups_kernel": 0, "match_words_kernel": 1}:
+        fail(f"the serving path should launch match_words_kernel once: {serving_launches}")
     if allow == 0 or allow == len(bodies):
         fail("serving traffic did not exercise both allow and non-allow answers")
 
@@ -299,19 +382,21 @@ def main() -> None:
             eng._to_device(c), eng._to_device(e), c_s.act_rows_dev)
 
     # parity at the serving plane's shapes: the padded batch phase 4 served
-    # (its bucket), and the batch-4096 traffic timed below at B 4096 / 128
+    # (its bucket), and rows of the batch-4096 traffic at every bucket the
+    # timed batches below and small requests take
     serve_plane = (cs.W_dev, cs.thresh_dev, cs.rule_group_dev, cs.rule_policy_dev,
                    cs.n_tiers, cs.has_gate)
     items300 = [record_to_cedar_resource(get_authorizer_attributes(json.loads(b)))
                 for b in bodies]
     _, _, lit300 = engine_lit(engine, cs, items300, pad=True)
-    parity("serving", lit300, *serve_plane, need_mix=False)
+    parity("serving", lit300, *serve_plane, need_mix=False, maps=cs.plane_maps)
     big = corpus.sar_bodies(4096, seed=args.seed + 2)
     items4096 = [record_to_cedar_resource(get_authorizer_attributes(json.loads(b)))
                  for b in big]
     codes, extras, serve_lit = engine_lit(engine, cs, items4096, pad=False)
-    for B in (4096, 128):
-        parity("serving", serve_lit[:B].contiguous(), *serve_plane, need_mix=False)
+    for B in (4096, 128, 32, 8, 1):
+        parity("serving", serve_lit[:B].contiguous(), *serve_plane, need_mix=False,
+               maps=cs.plane_maps)
 
     perf = {}
     for batch, reps in ((1, 20), (128, 5), (4096, 2)):
@@ -407,12 +492,13 @@ def main() -> None:
         fail(f"want_full path: {fb_flips} answers differ from the interpreter")
     if words_calls:
         fail("want_full path took the words-only launch")
-    if full_launches["match_groups_kernel"] < 1:
-        fail("want_full path did not launch match_groups_kernel")
+    if full_launches["match_groups_kernel"] < 1 or full_launches["match_words_kernel"]:
+        fail(f"want_full path should launch match_groups_kernel only: {full_launches}")
     fcs = fb_engine.compiled_set
     _, _, fb_lit = engine_lit(fb_engine, fcs, items, pad=True)
     parity("want_full", fb_lit, fcs.W_dev, fcs.thresh_dev, fcs.rule_group_dev,
-           fcs.rule_policy_dev, fcs.n_tiers, fcs.has_gate, need_mix=False)
+           fcs.rule_policy_dev, fcs.n_tiers, fcs.has_gate, need_mix=False,
+           maps=fcs.plane_maps)
 
     # ---- 6. diagnostics: two permits match one request
     src = """
@@ -441,56 +527,101 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     S = cs.packed.table.n_slots
     print(f"serving lit: [{serve_lit.shape[0]}, {serve_lit.shape[1]}] from {S} slots, "
           f"{float(serve_lit.float().sum(1).mean()):.1f} active literals per row", flush=True)
+    # each plane with its TMA map cache, as the engine keeps it
     planes = {"serving": (serve_lit, cs.W_dev, cs.thresh_dev, cs.rule_group_dev,
-                          cs.rule_policy_dev, cs.n_tiers, cs.has_gate)}
+                          cs.rule_policy_dev, cs.n_tiers, cs.has_gate, (4096, 128, 1),
+                          cs.plane_maps)}
     W1, th1, g1, p1 = random_plane(torch, rng, 1024, 10240, 3, n_pad=10240 // 20)
-    planes["L1024"] = (random_lit(torch, rng, 4096, 1024), W1, th1, g1, p1, 1, False)
+    planes["L1024"] = (random_lit(torch, rng, 4096, 1024), W1, th1, g1, p1, 1, False,
+                       (4096, 128), {})
     shapes = {k: [] for k in kinds}
-    for plane_name, (lit_all, W, th, grp, pol, T, gate) in planes.items():
+    for plane_name, (lit_all, W, th, grp, pol, T, gate, batches, maps) in planes.items():
         G = plain.n_groups_of(T, gate)
+        L, R = W.shape
         Wf = W.float()
-        for B in (4096, 128):
+        for B in batches:
             lit = lit_all[:B].contiguous()
             litf = lit.float()
-            L, R = W.shape
-            f_k, l_k = cuda_match.match_groups(lit, W, th, grp, pol, G)
             iters = 20 if B == 4096 else 100
-            ms = time_ms(torch, lambda: cuda_match.match_groups(lit, W, th, grp, pol, G), iters)
-            plain_ms = time_ms(torch, lambda: plain.first_match_ref(lit, W, th, grp, pol, G), 5)
             lib_ms = time_ms(torch, lambda: torch.matmul(litf, Wf), iters)
-            b_ms, b_by = bound_ms(B * L + L * R + 3 * 4 * R + 2 * 4 * B * G, 2.0 * B * L * R)
-            shapes["match_groups_kernel"].append({
-                "plane": plane_name, "B": B, "L": L, "R": R, "G": G, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms,
-            })
-            ms = time_ms(torch, lambda: cuda_match.tier_walk_words(f_k, l_k, T, gate), 200)
-            plain_ms = time_ms(torch, lambda: plain.tier_walk(f_k, l_k, T, gate), 20)
-            b_ms, b_by = bound_ms(2 * 4 * B * G + 4 * B, 0)
-            shapes["tier_walk_kernel"].append({
-                "plane": plane_name, "B": B, "L": L, "R": R, "G": G, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None,
-            })
+            # the same int8 contraction, without the epilogue; cuBLASLt's
+            # rules: more than 16 rows
+            int_mm_ms = None
+            if B > 16:
+                try:
+                    int_mm_ms = time_ms(torch, lambda: torch._int_mm(lit, W), iters)
+                except RuntimeError as e:
+                    print(f"torch._int_mm refused B={B} L={L} R={R}: {e}", flush=True)
+            rows = {
+                "match_groups_kernel": (
+                    lambda: cuda_match.match_groups(lit, W, th, grp, pol, G, plane_maps=maps),
+                    lambda: plain.first_match_ref(lit, W, th, grp, pol, G),
+                    2 * 4 * B * G,
+                ),
+                "match_words_kernel": (
+                    lambda: cuda_match.match_words(lit, W, th, grp, pol, T, gate,
+                                                   plane_maps=maps),
+                    lambda: plain.match_words_ref(lit, W, th, grp, pol, T, gate),
+                    4 * B,
+                ),
+            }
+            for k, (kernel_fn, plain_fn, out_bytes) in rows.items():
+                ms = time_ms(torch, kernel_fn, iters)
+                device_ms = graph_ms(torch, kernel_fn, iters)
+                plain_ms = time_ms(torch, plain_fn, 5 if B == 4096 else 20)
+                # lit, the plane and the rule columns read once, the
+                # output written once; 2 ops per multiply-add
+                b_ms, b_by = bound_ms(B * L + L * R + 3 * 4 * R + out_bytes, 2.0 * B * L * R)
+                shapes[k].append({
+                    "plane": plane_name, "B": B, "L": L, "R": R, "G": G,
+                    "rule_tile": cuda_match.rule_tile(B, R, n_sm), "ms": ms, "device_ms": device_ms,
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib_ms, "library_int_mm_ms": int_mm_ms,
+                })
+    # the rule-tile choice: each tile forced in turn (rule_tile replaced
+    # for the probe only; these launches are not main-path launches)
+    real_tile = cuda_match.rule_tile
+    tiles = {}
+    try:
+        for plane_name, (lit_all, W, th, grp, pol, T, gate, _, maps) in planes.items():
+            G = plain.n_groups_of(T, gate)
+            for bn in (64, 128, 256):
+                cuda_match.rule_tile = lambda B, R, n, bn=bn: bn  # noqa: E731
+                tiles[f"{plane_name} B=4096 tile {bn}"] = graph_ms(
+                    torch, lambda: cuda_match.match_groups(
+                        lit_all, W, th, grp, pol, G, plane_maps=maps), 20)
+    finally:
+        cuda_match.rule_tile = real_tile
+    print(f"rule-tile probe, match_groups_kernel device ms ({card}): "
+          + json.dumps(tiles), flush=True)
+
+    # each kernel's launches on its own path: the serving path's words
+    # launch, the want_full path's first-match launch
+    own_path = {"match_groups_kernel": full_launches, "match_words_kernel": serving_launches}
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": serving_launches[k],
+            "launches": own_path[k][k],
+            "launches_serving": serving_launches[k],
             "launches_want_full": full_launches[k],
             "max_abs_err": err[k],
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+            "library_int_mm_ms": head["library_int_mm_ms"],
             "shape": {d: head[d] for d in ("B", "L", "R", "G")},
             "shapes": shapes[k],
         })
     for k in kinds:
         for s in shapes[k]:
-            print(f"time {k} {s['plane']} B={s['B']} L={s['L']} R={s['R']}: "
-                  f"{s['ms']:.4f} ms (plain {s['plain_ms']:.4f}, bound {s['bound_ms']:.4f} "
-                  f"by {s['bound_by']}, library {s['library_ms']})", flush=True)
+            print(f"time {k} {s['plane']} B={s['B']} L={s['L']} R={s['R']} "
+                  f"(rule tile {s['rule_tile']}): {s['ms']:.4f} ms, device {s['device_ms']:.4f} "
+                  f"ms (plain "
+                  f"{s['plain_ms']:.4f}, bound {s['bound_ms']:.4f} by {s['bound_by']}, "
+                  f"float32 matmul {s['library_ms']:.4f}, int8 _int_mm "
+                  f"{s['library_int_mm_ms']})", flush=True)
 
     card = card_line()
     print(card, flush=True)

@@ -142,9 +142,22 @@ def test_tier_walk_equals_jax_tier_walk(T, gate):
     if gate:
         ref = ref | ((jnp.asarray(first)[:, T * 3] != INT32_MAX).astype(jnp.uint32) << 27)
     ref = np.asarray(ref)
-    for fn in (tmatch.tier_walk, cuda_match.tier_walk_words):
-        out = fn(*_torch(first, last), T, gate)
-        np.testing.assert_array_equal(tmatch.words_to_numpy(out), ref)
+    out = tmatch.tier_walk(*_torch(first, last), T, gate)
+    np.testing.assert_array_equal(tmatch.words_to_numpy(out), ref)
+    # the same rows through the words entry point (the tier walk fused
+    # after the match): literal b is row b's own, and each nonempty
+    # (row, group) gets one rule for its first and one for its last policy
+    rows, groups = np.nonzero(first != INT32_MAX)
+    pols = np.concatenate([first[rows, groups], last[rows, groups]])
+    rows, groups = np.tile(rows, 2), np.tile(groups, 2)
+    W = np.zeros((B, rows.size), np.int8)
+    W[rows, np.arange(rows.size)] = 1
+    lit = np.eye(B, dtype=np.int8)
+    thresh = np.ones(rows.size, np.int32)
+    words = cuda_match.match_words(
+        *_torch(lit, W, thresh, groups.astype(np.int32), pols.astype(np.int32)), T, gate
+    )
+    np.testing.assert_array_equal(tmatch.words_to_numpy(words), ref)
 
 
 def test_word_with_bit31_survives_int32_transport():
@@ -236,4 +249,5 @@ def test_cuda_wrappers_reject_mixed_devices_and_bad_dtypes():
     cuda_match.reset_launch_counts()
     first, last = cuda_match.match_groups(lit, W, r + 1, r, r, 3)
     assert first.shape == (4, 3) and (first == INT32_MAX).all()
-    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "tier_walk_kernel": 0}
+    cuda_match.match_words(lit, W, r + 1, r, r, 1)
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 0}
