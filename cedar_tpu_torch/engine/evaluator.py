@@ -16,8 +16,13 @@ TieredPolicyStores.is_authorized), with:
     path: one match_words_kernel launch per chunk);
   * diagnostics: exact matched-policy sets. The verdict word's multi/err
     bits flag the rows whose word cannot carry every reason; only those
-    rows fetch their per-rule bitsets (match_bits_arrays), from which the
-    host recovers every determining policy.
+    rows fetch their per-rule bitsets (compacted in the same launch for
+    small batches, want_bits; match_bits_arrays otherwise), from which the
+    host recovers every determining policy;
+  * asynchronous launches: match_arrays_launch enqueues the H2D copies
+    (from pinned staging buffers on the card), the kernels and the D2H
+    copies and returns a finish() that materializes them, so the native
+    fast path (engine/fastpath.py) encodes chunk k+1 while chunk k runs.
 
 Devices: constructed with ``device=None`` the engine runs on CUDA and
 raises when CUDA is absent; only an explicit ``device="cpu"`` selects the
@@ -53,16 +58,24 @@ from ..ops.match import (
     POLICY_NONE,
     WORD_ERR,
     WORD_MULTI,
+    compact_flagged_bits,
+    flagged_rows,
     lit_matrix_codes,
     match_rules_codes_bits,
     n_groups_of,
-    words_to_numpy,
 )
 from .weights import compiled_set_from_numpy, packed_arrays
 
 _BATCH_BUCKETS = (1, 8, 32, 128, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 # rows per device launch; larger batches run as several launches
 _PIPELINE_SB = 32768
+# chunk size of the fast path's encode/device overlap (engine/fastpath.py
+# _RawFastPath._CHUNK aliases it)
+SERVING_CHUNK = 16384
+# above this many rows the fast path skips the in-launch diagnostics
+# compaction (want_bits) and fetches flagged rows' bitsets afterwards
+# (engine/fastpath.py _BITS_INCALL_MAX aliases it)
+BITS_INCALL_MAX = 4096
 
 
 def _round_bucket(n: int, buckets) -> int:
@@ -96,6 +109,144 @@ def _bits_rule_indices(bits_row: np.ndarray, n_rules: int) -> np.ndarray:
     return np.nonzero(bits[:n_rules])[0]
 
 
+class _StagingPool:
+    """Reusable host staging buffers for bucket-padded (codes, extras)
+    batches. On the card each buffer is a pinned (page-locked) tensor seen
+    through the numpy view the C++ encoder writes into (the view's base is
+    the tensor), so the H2D copy is a non_blocking copy from the pinned
+    memory itself; on the CPU a plain numpy array.
+
+    A buffer goes back to the pool only after the outputs of the launch
+    that read it have materialized (finish(), or the fast path's deferred
+    resolve): released at launch time, a later batch could overwrite rows
+    an in-flight H2D copy is still reading. A buffer whose release is
+    skipped (an exception unwound past finish) is simply garbage-collected:
+    the pool keeps no record of outstanding buffers, so it can neither leak
+    nor hand one out twice.
+
+    Occupancy: acquire/release keep an outstanding-buffer count and its
+    peak; a peak above one batch's buffer count shows that a second batch's
+    staging overlapped the first's device work (stats())."""
+
+    # free buffers kept per (shape, dtype); the working set is a handful of
+    # bucket shapes
+    _MAX_PER_KEY = 8
+
+    def __init__(self, pinned: bool):
+        self._pinned = pinned
+        self._free: dict = {}  # (shape, dtype str) -> [ndarray]
+        self._lock = threading.Lock()
+        self._outstanding = 0
+        self._peak_outstanding = 0
+        self._acquires = 0
+        self._overlapped_acquires = 0
+
+    def acquire(self, shape, dtype) -> np.ndarray:
+        key = (tuple(shape), np.dtype(dtype).str)
+        with self._lock:
+            self._acquires += 1
+            if self._outstanding > 0:
+                self._overlapped_acquires += 1
+            self._outstanding += 1
+            self._peak_outstanding = max(self._peak_outstanding, self._outstanding)
+            bufs = self._free.get(key)
+            if bufs:
+                return bufs.pop()
+        # the caller fills every row (payload and padding): no zeroing
+        if self._pinned:
+            tdtype = torch.from_numpy(np.empty(0, dtype=dtype)).dtype
+            return torch.empty(tuple(shape), dtype=tdtype, pin_memory=True).numpy()
+        return np.empty(shape, dtype=dtype)
+
+    def release(self, *arrays) -> None:
+        with self._lock:
+            self._outstanding = max(0, self._outstanding - len(arrays))
+            for a in arrays:
+                bufs = self._free.setdefault((a.shape, a.dtype.str), [])
+                if len(bufs) < self._MAX_PER_KEY:
+                    bufs.append(a)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "pinned": self._pinned,
+                "outstanding": self._outstanding,
+                "peak_outstanding": self._peak_outstanding,
+                "acquires": self._acquires,
+                "overlapped_acquires": self._overlapped_acquires,
+            }
+
+
+class _Readback:
+    """Device tensors -> host numpy arrays without blocking the launch:
+    on the card each tensor is copied non_blocking into a pinned host
+    buffer and one CUDA event is recorded after the copies on the current
+    stream; arrays() waits on that event before the host reads anything.
+    On the CPU the tensors already are the host arrays."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._event = None
+        if tensors and tensors[0].device.type == "cuda":
+            host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+            for h, t in zip(host, tensors):
+                h.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            tensors = host
+        self._host = list(tensors)
+
+    def arrays(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        return [h.numpy() for h in self._host]
+
+
+class _WordPacker:
+    """One D2H copy for the verdict words of every chunk of a batch.
+
+    The fast path launches a batch as several chunks; each registers its
+    device words with add(). flush(), once every chunk has launched, cats
+    them on the device (a single chunk skips the cat) and starts one
+    non_blocking copy into a pinned host buffer (_Readback); view() waits
+    on its event and hands each chunk its rows as a view of that one host
+    buffer, as uint32."""
+
+    def __init__(self):
+        self._parts: list = []  # device word tensors
+        self._offsets: list = []
+        self._readback: Optional[_Readback] = None
+        self._host: Optional[np.ndarray] = None
+
+    @property
+    def parts(self) -> int:
+        return len(self._parts)
+
+    def add(self, words_dev: torch.Tensor) -> int:
+        """Register one chunk's device words; returns its part id."""
+        if self._readback is not None:
+            raise RuntimeError("_WordPacker: add() after flush()")
+        self._offsets.append(
+            self._offsets[-1] + self._parts[-1].shape[0] if self._parts else 0
+        )
+        self._parts.append(words_dev)
+        return len(self._parts) - 1
+
+    def flush(self) -> None:
+        """Start the packed copy. Idempotent."""
+        if self._readback is not None or not self._parts:
+            return
+        packed = self._parts[0] if len(self._parts) == 1 else torch.cat(self._parts)
+        self._readback = _Readback([packed])
+
+    def view(self, part: int, m: int) -> np.ndarray:
+        """Rows [0, m) of `part` (uint32), once the copy has landed."""
+        self.flush()
+        if self._host is None:
+            self._host = self._readback.arrays()[0].view(np.uint32)
+        lo = self._offsets[part]
+        return self._host[lo : lo + m]
+
+
 class _CompiledSet:
     """Immutable device-resident compiled policy set (the swap unit): the
     K-major rule plane Wt int8 [R, L], thresh / rule_group / rule_policy
@@ -127,12 +278,23 @@ class _CompiledSet:
         self.rule_policy_dev = torch.from_numpy(rule_policy).to(dev)
         self.act_rows_dev = torch.from_numpy(act_rows).to(dev)
         self.plane_maps: dict = {}
+        self._W_f32: Optional[torch.Tensor] = None
 
     @property
     def W_dev(self) -> torch.Tensor:
         """The plane as the match functions take it: W [L, R], the
         transposed view of Wt_dev (no copy)."""
         return self.Wt_dev.t()
+
+    @property
+    def W_f32(self) -> torch.Tensor:
+        """W [L, R] in float32 (a view of one [R, L] copy made at first
+        use): the plane the diagnostics bitsets are scored on (the
+        in-launch compaction and match_bits_arrays), so no call converts
+        the whole int8 plane again. Four bytes per cell on the device."""
+        if self._W_f32 is None:
+            self._W_f32 = self.Wt_dev.to(torch.float32).t()
+        return self._W_f32
 
 
 class TorchPolicyEngine:
@@ -149,6 +311,8 @@ class TorchPolicyEngine:
         # rows whose diagnostics came from rule bitsets (resolve_flagged
         # and the want_full multi rows) since construction
         self.flagged_rows = 0
+        # host staging buffers of the fast path and of padded launches
+        self._staging = _StagingPool(pinned=self.device.type == "cuda")
 
     # ------------------------------------------------------------ lifecycle
 
@@ -281,19 +445,27 @@ class TorchPolicyEngine:
             out[i] = self._finalize_sets(cs, groups, None, None)
         return out
 
-    def _pad_to_bucket(self, chunk_c, chunk_e, pad_L: int):
+    def _pad_to_bucket(self, chunk_c, chunk_e, pad_L: int, held: Optional[list] = None):
         """Pad a (codes, extras) chunk up to the next batch bucket. Codes
         pad with 0 (the all-zero activation row), extras with L, so padding
-        rows activate nothing."""
-        m = chunk_c.shape[0]
-        B = _round_bucket(m, _BATCH_BUCKETS)
-        if B == m:
-            return chunk_c, chunk_e
-        pc = np.zeros((B, chunk_c.shape[1]), dtype=chunk_c.dtype)
-        pe = np.full((B, chunk_e.shape[1]), pad_L, dtype=chunk_e.dtype)
-        pc[:m] = chunk_c
-        pe[:m] = chunk_e
-        return pc, pe
+        rows activate nothing. An array already at its bucket passes
+        through when it is contiguous. With `held`, copies come from the
+        staging pool (pinned on the card) and are appended to it, for the
+        caller to release once the launch's outputs have materialized."""
+        B = _round_bucket(chunk_c.shape[0], _BATCH_BUCKETS)
+        return self._padded(chunk_c, B, 0, held), self._padded(chunk_e, B, pad_L, held)
+
+    def _padded(self, a: np.ndarray, B: int, fill: int, held: Optional[list]) -> np.ndarray:
+        if a.shape[0] == B and a.flags["C_CONTIGUOUS"]:
+            return a
+        if held is None:
+            out = np.empty((B, a.shape[1]), dtype=a.dtype)
+        else:
+            out = self._staging.acquire((B, a.shape[1]), a.dtype)
+            held.append(out)
+        out[: a.shape[0]] = a
+        out[a.shape[0]:] = fill
+        return out
 
     @staticmethod
     def _check_codes(cs: _CompiledSet, codes_arr: np.ndarray) -> None:
@@ -308,7 +480,17 @@ class TorchPolicyEngine:
             )
 
     def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(self.device)
+        """int32 host array -> the engine's device. The copy is
+        non_blocking: from a staging buffer (pinned memory) it runs
+        asynchronously, so the buffer must stay untouched until the
+        launch's outputs have materialized; from pageable memory CUDA
+        completes it before returning."""
+        t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32))
+        return t.to(self.device, non_blocking=True)
+
+    def staging_stats(self) -> dict:
+        """The staging pool's occupancy counters (_StagingPool.stats)."""
+        return self._staging.stats()
 
     def match_arrays(
         self,
@@ -317,48 +499,116 @@ class TorchPolicyEngine:
         want_full: bool = False,
         cs: Optional[_CompiledSet] = None,
     ):
+        """Launch and materialize in one call (see match_arrays_launch)."""
+        return self.match_arrays_launch(codes_arr, extras_arr, want_full=want_full, cs=cs)()
+
+    def match_arrays_launch(
+        self,
+        codes_arr: np.ndarray,
+        extras_arr: np.ndarray,
+        want_full: bool = False,
+        cs: Optional[_CompiledSet] = None,
+        want_bits: bool = False,
+        word_pack: Optional[_WordPacker] = None,
+        valid_rows: Optional[int] = None,
+    ):
         """Device-match pre-encoded feature codes: codes [n, S], extras
-        [n, E] (padded with >= L). Returns (words, full):
+        [n, E] (padded with >= L). Enqueues every sub-batch of at most
+        32768 rows (H2D, literal expansion, kernel, D2H) without waiting
+        for the device, and returns ``finish()``, which materializes:
 
-          * plain: words [n] uint32 from one match_words_kernel launch
-            per chunk, full None;
-          * want_full: words None, full the ([n, G] first, [n, G] last)
-            int32 pair from match_groups_kernel alone — never a words
-            launch; the caller walks the tiers on the host.
+          * plain: (words [n] uint32, None), one match_words_kernel launch
+            per sub-batch;
+          * want_full: (None, (first [n, G], last [n, G]) int32) from
+            match_groups_kernel alone, never a words launch; the caller
+            walks the tiers on the host;
+          * want_bits: a third element, {row: [ceil(R / 32)] uint32
+            bitset} for the flagged rows (ops/match.py flagged_rows),
+            compacted on the device in the same launch
+            (compact_flagged_bits: at most BITS_TOPK rows per sub-batch)
+            and copied back with the words. Rows past that are absent;
+            the caller fetches theirs with match_bits_arrays.
 
+        `word_pack` (a _WordPacker) registers this launch's words for the
+        batch-wide packed D2H copy: the caller flushes it once every chunk
+        has launched, and finish() reads its rows from the one host
+        buffer. Ignored for want_full and want_bits launches.
+
+        `valid_rows` marks trailing rows as the caller's bucket padding
+        (the fast path's staging buffers arrive padded): the want_bits
+        compaction skips them. Words come back for every row.
+
+        Staging buffers this call acquires (to pad a sub-batch) go back to
+        the pool in finish(), after the outputs have materialized.
         `cs` pins the compiled set the codes were encoded against."""
         cs = cs or self._compiled
         if cs is None:
             raise RuntimeError("TorchPolicyEngine: no policy set loaded")
         self._check_codes(cs, codes_arr)
         n = codes_arr.shape[0]
-        words_parts, first_parts, last_parts = [], [], []
+        use_pack = word_pack is not None and not want_full and not want_bits
+        pack = word_pack if use_pack else _WordPacker()
+        held: list = []
+        outs = []  # (lo, m, words part, full readback, bits readback)
         for lo in range(0, n, _PIPELINE_SB):
             hi = min(lo + _PIPELINE_SB, n)
-            m = hi - lo
-            c, e = self._pad_to_bucket(codes_arr[lo:hi], extras_arr[lo:hi], cs.L)
+            v = hi - lo if valid_rows is None else max(0, min(hi, valid_rows) - lo)
+            c, e = self._pad_to_bucket(codes_arr[lo:hi], extras_arr[lo:hi], cs.L, held)
             lit = lit_matrix_codes(self._to_device(c), self._to_device(e), cs.act_rows_dev)
+            part = full = words = None
             if want_full:
                 first, last = cuda_match.match_groups(
                     lit, cs.W_dev, cs.thresh_dev, cs.rule_group_dev,
                     cs.rule_policy_dev, cs.n_groups, plane_maps=cs.plane_maps,
                 )
-                first_parts.append(first[:m].cpu().numpy())
-                last_parts.append(last[:m].cpu().numpy())
+                full = _Readback([first, last])
             else:
                 words = cuda_match.match_words(
                     lit, cs.W_dev, cs.thresh_dev, cs.rule_group_dev,
                     cs.rule_policy_dev, cs.n_tiers, cs.has_gate,
                     plane_maps=cs.plane_maps,
                 )
-                words_parts.append(words_to_numpy(words[:m]))
-        if want_full:
-            if n == 0:
-                return None, (np.zeros((0, cs.n_groups), np.int32),) * 2
-            return None, (np.concatenate(first_parts), np.concatenate(last_parts))
-        if n == 0:
-            return np.zeros((0,), np.uint32), None
-        return np.concatenate(words_parts), None
+                part = pack.add(words)
+            bits = None
+            if want_bits:
+                flagged = flagged_rows(words, None if full is None else (first, last))
+                bits = _Readback(
+                    compact_flagged_bits(lit, cs.W_f32, cs.thresh_dev, flagged, v)
+                )
+            outs.append((lo, hi - lo, part, full, bits))
+        if not use_pack:
+            pack.flush()
+
+        def finish():
+            words = full = None
+            if not want_full:
+                parts = [pack.view(part, m) for _, m, part, _, _ in outs]
+                if len(parts) == 1:
+                    words = parts[0]
+                else:
+                    words = np.concatenate(parts) if parts else np.zeros((0,), np.uint32)
+            else:
+                fl = [f.arrays() for _, _, _, f, _ in outs]
+                full = tuple(
+                    np.concatenate([a[k][:m] for a, (_, m, _, _, _) in zip(fl, outs)])
+                    if outs else np.zeros((0, cs.n_groups), np.int32)
+                    for k in (0, 1)
+                )
+            bitmap: dict = {}
+            if want_bits:
+                for lo, _, _, _, b in outs:
+                    vals, idx, kbits = b.arrays()
+                    live = vals > 0
+                    for r, row in zip(idx[live].tolist(), kbits[live].view(np.uint32)):
+                        bitmap[lo + r] = row
+            # the outputs have materialized, so the device has consumed
+            # the staged inputs: their buffers may serve the next batch
+            if held:
+                self._staging.release(*held)
+                held.clear()
+            return (words, full, bitmap) if want_bits else (words, full)
+
+        return finish
 
     def match_bits_arrays(
         self,
@@ -366,28 +616,44 @@ class TorchPolicyEngine:
         extras_arr: np.ndarray,
         cs: Optional[_CompiledSet] = None,
     ) -> np.ndarray:
+        """Launch and materialize in one call (see match_bits_arrays_launch)."""
+        return self.match_bits_arrays_launch(codes_arr, extras_arr, cs=cs)()
+
+    def match_bits_arrays_launch(
+        self,
+        codes_arr: np.ndarray,
+        extras_arr: np.ndarray,
+        cs: Optional[_CompiledSet] = None,
+    ):
         """Per-rule satisfaction bitsets [n, ceil(R / 32)] uint32 for the
-        given pre-encoded rows (the diagnostics path; plain tensor plane,
-        as in the JAX package, where it runs in XLA)."""
+        given pre-encoded rows, as a launch and its ``finish()`` (the
+        diagnostics path: plain tensor plane, as in the JAX package, where
+        it runs in XLA). Used for the flagged rows an in-launch compaction
+        does not carry."""
         cs = cs or self._compiled
         if cs is None:
             raise RuntimeError("TorchPolicyEngine: no policy set loaded")
         self._check_codes(cs, codes_arr)
         n = codes_arr.shape[0]
         if n == 0:
-            return np.zeros((0, -(-cs.R // 32)), dtype=np.uint32)
-        out = []
+            empty = np.zeros((0, -(-cs.R // 32)), dtype=np.uint32)
+            return lambda: empty
+        outs = []
         for lo in range(0, n, _PIPELINE_SB):
             hi = min(lo + _PIPELINE_SB, n)
             bits = match_rules_codes_bits(
                 self._to_device(codes_arr[lo:hi]),
                 self._to_device(extras_arr[lo:hi]),
                 cs.act_rows_dev,
-                cs.W_dev,
+                cs.W_f32,
                 cs.thresh_dev,
             )
-            out.append(bits.cpu().numpy().view(np.uint32))
-        return np.concatenate(out)
+            outs.append(_Readback([bits]))
+
+        def finish():
+            return np.concatenate([r.arrays()[0] for r in outs]).view(np.uint32)
+
+        return finish
 
     def _encode_batch_arrays(
         self, cs: _CompiledSet, encoded, B: int

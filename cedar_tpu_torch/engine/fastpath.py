@@ -1,0 +1,669 @@
+"""SAR fast path: raw SubjectAccessReview bytes -> decisions, native end
+to end.
+
+Fuses the C++ encoder (native/) with the device match: the host never
+builds Python entity objects for a well-formed request. Per request the
+host work is one C++ JSON parse and a handful of hash lookups, written
+straight into pinned staging buffers; the device work is one
+match_words_kernel launch per chunk; the readback is 4 bytes per request,
+in one D2H copy for the whole batch.
+
+Semantics are those of the exact Python path (CedarWebhookAuthorizer over
+the engine; the authorizer's gates run inside the C++ encoder in the same
+order as the upstream project's internal/server/authorizer/authorizer.go:38-66).
+Rows the native path cannot prove equivalent re-run through the exact
+Python path:
+
+  * parse quirks and extras overflow: routed per row by the encoder's flag
+    column;
+  * rows whose verdict word carries WORD_GATE: the scope of a policy the
+    native plane cannot evaluate matched (compiler/pack.py packs one gate
+    rule per interpreter-fallback policy and per native-opaque policy), so
+    the word is not authoritative; gated rows re-run batched through
+    engine.evaluate_batch (the want_full path when the set has
+    interpreter-fallback policies).
+
+Nothing else falls back: a native encoder that cannot be built raises, and
+so does a device failure. There is no breaker and no degrade to the
+Python path for a whole batch.
+
+_RawFastPath holds the chunked pipeline: chunk k+1's C++ encode overlaps
+chunk k's device work; clean rows decode once per distinct verdict word;
+flagged (multi/err) rows get their rule bitsets from the launch itself
+(batches of at most BITS_INCALL_MAX rows) or from one deferred cross-chunk
+fetch; gated rows defer to one batched Python re-run. SARFastPath supplies
+the SAR-specific pieces (encode, flag routing, per-row fallback, decode).
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..lang.authorize import ALLOW, DENY, Diagnostics, Reason
+from ..native import (
+    F_EXTRAS_OVERFLOW,
+    F_OK,
+    F_PARSE_ERROR,
+    F_SELF_ALLOW_POLICIES,
+    F_SELF_ALLOW_RBAC,
+    F_SYSTEM_SKIP,
+    NativeEncoder,
+)
+from ..ops.match import WORD_ERR, WORD_GATE, WORD_MULTI
+from ..server.authorizer import (
+    DECISION_ALLOW,
+    DECISION_DENY,
+    DECISION_NO_OPINION,
+    CedarWebhookAuthorizer,
+    _diagnostic_to_reason,
+    record_to_cedar_resource,
+)
+from ..server.sar import get_authorizer_attributes
+from .evaluator import (
+    _BATCH_BUCKETS,
+    BITS_INCALL_MAX,
+    SERVING_CHUNK,
+    TorchPolicyEngine,
+    _round_bucket,
+    _WordPacker,
+)
+
+log = logging.getLogger(__name__)
+
+# (decision, reason, error) results of the encoder's gate flags
+# (authorizer.go:38-57)
+_GATE_RESULTS = {
+    F_SELF_ALLOW_POLICIES: (
+        DECISION_ALLOW,
+        "cedar authorizer is always allowed to access policies",
+        None,
+    ),
+    F_SELF_ALLOW_RBAC: (
+        DECISION_ALLOW,
+        "cedar authorizer is always allowed to read RBAC policies",
+        None,
+    ),
+    F_SYSTEM_SKIP: (DECISION_NO_OPINION, "", None),
+}
+
+# (decision, reason, error): error non-None mirrors the webhook handler's
+# decode-error / evaluation-error response shapes
+Result = Tuple[str, str, Optional[str]]
+
+# the routing classes of a batch's rows (_RawFastPath.routing)
+ROUTES = ("clean_native", "gated", "flagged", "encoder_fallback", "encoder_gate")
+
+
+class _Snapshot(NamedTuple):
+    """Immutable (encoder, compiled set, caches) tuple, read with one
+    attribute load, so a policy hot swap can never pair the old encoder's
+    codes with the new compiled set's activation table, and cache entries
+    never leak across swaps (each snapshot owns its dicts)."""
+
+    encoder: NativeEncoder
+    cs: object  # the _CompiledSet the encoder was built on
+    reason_cache: dict  # policy index -> reason JSON
+    # verdict word -> decoded Result, and feature-row bytes -> flagged-row
+    # Result; verdict diversity is tiny, so decode is one dict hit per word
+    word_cache: dict
+
+
+def _chunk_sizes(n: int, chunk: int, tail: int) -> List[int]:
+    """Pipeline chunk plan for an n-row batch: full `chunk`s, then the
+    remainder, split into equal halves when it exceeds `tail`, so the final
+    device wait (which no later encode hides) is at most a half-chunk. The
+    split happens only when both halves exceed tail // 2 (BITS_INCALL_MAX
+    for the serving constants), so a tail piece never takes the in-launch
+    bits compaction."""
+    sizes = []
+    rem = n
+    while rem > chunk:
+        sizes.append(chunk)
+        rem -= chunk
+    if rem > tail and rem - (rem + 1) // 2 > tail // 2:
+        half = (rem + 1) // 2
+        sizes.extend((half, rem - half))
+    elif rem:
+        sizes.append(rem)
+    return sizes
+
+
+class _RawFastPath:
+    """The chunked raw-bytes pipeline (see the module docstring).
+
+    Subclasses implement `_encode_into`, `_route_flags`, `_fallback_row`,
+    `_run_gated`, `_decode_word_payload` and `_decode_bits_payload`; the
+    snapshot, the chunk overlap, the clean decode and the deferred
+    gated/flagged resolve live here."""
+
+    # rows per pipeline chunk: chunk k's device work runs while the host
+    # encodes chunk k+1
+    _CHUNK = SERVING_CHUNK
+    # the last chunk's device work has no later encode to hide behind, so
+    # a remainder above this is split in two
+    _TAIL_CHUNK = SERVING_CHUNK // 2
+    # chunks of at most this many rows get their flagged rows' bitsets
+    # from the launch itself (want_bits); larger ones fetch them after
+    _BITS_INCALL_MAX = BITS_INCALL_MAX
+
+    def __init__(self, engine: TorchPolicyEngine):
+        self.engine = engine
+        self._snap: Optional[_Snapshot] = None
+        self._build_lock = threading.Lock()
+        # encode / device / decode seconds of the last process_raw call
+        self.last_stage_s: dict = {"encode": 0.0, "device": 0.0, "decode": 0.0}
+        # rows per routing class since construction (ROUTES)
+        self.routing: dict = dict.fromkeys(ROUTES, 0)
+
+    def _current_snapshot(self) -> _Snapshot:
+        """The snapshot for the engine's current compiled set, building the
+        native encoder when the set changed (policy hot swap). Raises when
+        no set is loaded or the encoder cannot be built.
+
+        Interpreter-fallback policies do not disable the native plane:
+        their scopes are packed as gate rules, and rows whose verdict word
+        carries WORD_GATE re-run through the exact Python path."""
+        cs = self.engine.compiled_set
+        if cs is None:
+            raise RuntimeError("fast path: the engine has no policy set loaded")
+        snap = self._snap  # lock-free: one atomic attribute read
+        if snap is not None and snap.cs is cs:
+            return snap
+        with self._build_lock:
+            # re-read under the lock: another thread may have built the
+            # snapshot for a newer set while this one waited
+            cs = self.engine.compiled_set
+            snap = self._snap
+            if snap is None or snap.cs is not cs:
+                if cs.packed is None:
+                    raise RuntimeError(
+                        "fast path: the compiled set carries no encoder plan"
+                    )
+                snap = _Snapshot(NativeEncoder.create(cs.packed), cs, {}, {})
+                self._snap = snap
+        return snap
+
+    # ----------------------------------------------------- subclass surface
+
+    def _encode_into(self, snap: _Snapshot, bodies, codes, extras, counts, flags):
+        """C++ encode of one chunk straight into the caller's (staging)
+        buffers; returns the path's aux payload (None for SAR)."""
+        raise NotImplementedError
+
+    def _route_flags(self, flags, results, bodies, aux) -> np.ndarray:
+        """Fill encoder-gate rows into `results`; return the row indices
+        that need the per-row Python fallback."""
+        raise NotImplementedError
+
+    def _fallback_row(self, body: bytes):
+        """Exact Python path for one raw body."""
+        raise NotImplementedError
+
+    def _run_gated(self, bodies: List[bytes]) -> list:
+        """Exact Python path for gate-flagged rows, batched."""
+        raise NotImplementedError
+
+    def _decode_word_payload(self, snap: _Snapshot, word: int):
+        """Decode (and cache) the shared result of one clean verdict word."""
+        raise NotImplementedError
+
+    def _decode_bits_payload(self, snap: _Snapshot, row_bits):
+        """Decode one rule-bitset row into a result."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------- pipeline
+
+    def process_raw(self, bodies: Sequence[bytes], snap: _Snapshot) -> list:
+        """Evaluate a batch of raw JSON bodies through the native plane.
+
+        Each chunk's C++ encode and asynchronous launch (_prepare_chunk)
+        runs while the previous chunk's device work is in flight; every
+        chunk's verdict words register with one _WordPacker, flushed into
+        a single D2H copy once all chunks have launched; the words then
+        materialize and decode in order (_finish_words), and gated and
+        flagged rows across all chunks resolve in one deferred pass.
+        `last_stage_s` records this call's encode/device/decode split."""
+        self.last_stage_s = {"encode": 0.0, "device": 0.0, "decode": 0.0}
+        pack = _WordPacker()
+        pending = []
+        lo = 0
+        for size in _chunk_sizes(len(bodies), self._CHUNK, self._TAIL_CHUNK):
+            chunk = bodies[lo : lo + size]
+            lo += size
+            pending.append((chunk, self._prepare_chunk(snap, chunk, word_pack=pack)))
+        pack.flush()
+        ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in pending]
+        self._resolve_deferred(snap, ctxs)
+        out: list = []
+        for ctx in ctxs:
+            out.extend(ctx["results"].tolist())
+        return out
+
+    def _record_routing(
+        self, n: int, n_fallback: int, n_ok: int, n_gated: int, n_flagged: int
+    ) -> None:
+        """One chunk's row counts by routing class. The gated share is the
+        early warning for the gate-plane cliff: a hot fallback or opaque
+        scope sends its rows through the Python path."""
+        r = self.routing
+        r["clean_native"] += n_ok - n_gated - n_flagged
+        r["gated"] += n_gated
+        r["flagged"] += n_flagged
+        r["encoder_fallback"] += n_fallback
+        r["encoder_gate"] += n - n_fallback - n_ok
+
+    def _encode_chunk(self, snap: _Snapshot, bodies: Sequence[bytes]):
+        """Host half of a chunk: C++ encode straight into bucket-padded
+        buffers from the engine's staging pool (pinned on the card), so the
+        codes reach the H2D copy with no intermediate copy. The buffers
+        ride the chunk (`held`) and go back to the pool only in the
+        deferred resolve, after every readback of the batch has
+        materialized. If the encode raises, no launch has read them, and
+        they go straight back; an exception after the launch abandons them
+        to the GC: a buffer that might still back an in-flight copy never
+        re-enters the pool."""
+        n = len(bodies)
+        staging = self.engine._staging
+        pad_L = snap.cs.packed.L
+        B = _round_bucket(n, _BATCH_BUCKETS)
+        cap = snap.encoder.DEFAULT_EXTRAS_CAP
+        codes = staging.acquire((B, snap.encoder.n_slots), np.int32)
+        extras = staging.acquire((B, cap), np.int32)
+        held = [codes, extras]
+        counts = np.empty((n,), np.int32)
+        flags = np.empty((n,), np.uint8)
+        try:
+            aux = self._encode_into(snap, bodies, codes, extras, counts, flags)
+        except Exception:
+            staging.release(*held)
+            raise
+        if B != n:
+            # bucket padding: all-zero codes activate nothing, extras >= L
+            # match nothing
+            codes[n:] = 0
+            extras[n:] = pad_L
+        # an object ndarray: clean rows scatter in one fancy-index store
+        results = np.empty(n, dtype=object)
+        py_rows = self._route_flags(flags, results, bodies, aux)
+
+        ok = flags == F_OK
+        n_ok = int(ok.sum())
+        idx = ok_codes = ok_extras = None
+        if n_ok:
+            all_ok = n_ok == n
+            idx = np.arange(n) if all_ok else np.nonzero(ok)[0]
+            # trim the extras to the live width (bucketed): most requests
+            # carry none, and every column costs the literal expansion
+            max_e = int(counts.max(initial=0) if all_ok else counts[idx].max(initial=0))
+            E = 1 if max_e == 0 else min(_round_bucket(max_e, (8, 16, 32, 64, 128, 256)), cap)
+            if all_ok:
+                ok_codes = codes
+                ok_extras = extras[:, :E]
+            else:
+                # compacting to the ok rows copies them out of the pooled
+                # buffers, which then never reach the device
+                ok_codes = codes[idx]
+                ok_extras = extras[idx, :E]
+                staging.release(*held)
+                held = []
+        else:
+            staging.release(*held)
+            held = []
+        return results, py_rows, idx, ok_codes, ok_extras, aux, held
+
+    def _launch_chunk(self, snap: _Snapshot, enc, word_pack=None):
+        """Device half of a chunk: launch the encoded rows' match
+        asynchronously (the readback happens in _finish_words). Small
+        chunks get their flagged rows' bitsets in the same launch;
+        `word_pack` routes the words of larger ones into the batch-wide
+        packed D2H copy."""
+        results, py_rows, idx, ok_codes, ok_extras, aux, held = enc
+        fin = None
+        if idx is not None:
+            fin = self.engine.match_arrays_launch(
+                ok_codes, ok_extras, cs=snap.cs,
+                want_bits=len(idx) <= self._BITS_INCALL_MAX,
+                valid_rows=len(idx),
+                word_pack=word_pack,
+            )
+        return results, py_rows, idx, ok_codes, ok_extras, fin, aux, held
+
+    def _prepare_chunk(self, snap: _Snapshot, bodies: Sequence[bytes], word_pack=None):
+        """Encode one chunk natively and launch its device match; the
+        device runs while the caller prepares the next chunk."""
+        t0 = time.monotonic()
+        pre = self._launch_chunk(snap, self._encode_chunk(snap, bodies), word_pack=word_pack)
+        self.last_stage_s["encode"] += time.monotonic() - t0
+        return pre
+
+    def _finish_words(self, snap: _Snapshot, bodies, pre) -> dict:
+        """Materialize one chunk's verdict words and decode every clean row
+        (one shared result per distinct word). Gate-flagged and multi/err
+        rows are recorded for _resolve_deferred; the bitsets of flagged
+        rows the launch did not carry are fetched now, asynchronously, so
+        the fetch runs while later chunks decode."""
+        results, py_rows, idx, ok_codes, ok_extras, fin, aux, held = pre
+        for i in py_rows:
+            results[i] = self._fallback_row(bodies[i])
+        ctx = {
+            "results": results,
+            "bodies": bodies,
+            "idx": idx,
+            "aux": aux,
+            "ok_codes": ok_codes,
+            "ok_extras": ok_extras,
+            "held": held,
+            "bitmap": None,
+            "gate_rows": [],
+            "flag_rows": [],
+            "flag_keys": {},
+            "flag_cached": {},
+            "bits_rows": [],
+            "bits_fin": None,
+        }
+        if fin is None:
+            self._record_routing(len(bodies), len(py_rows), 0, 0, 0)
+            return ctx
+        t0 = time.monotonic()
+        out = fin()
+        words, bitmap = out[0], (out[2] if len(out) == 3 else None)
+        t1 = time.monotonic()
+        self.last_stage_s["device"] += t1 - t0
+        # the launch returns words for the bucket-padding rows too
+        w = words[: len(idx)]
+        ctx["bitmap"] = bitmap
+        handled = set()
+        if snap.cs.has_gate:
+            ctx["gate_rows"] = np.nonzero((w & WORD_GATE) != 0)[0].tolist()
+            handled.update(ctx["gate_rows"])
+        flagged = np.nonzero((w & (WORD_ERR | WORD_MULTI)) != 0)[0].tolist()
+        ctx["flag_rows"] = [k for k in flagged if k not in handled]
+        handled.update(ctx["flag_rows"])
+        self._record_routing(
+            len(bodies), len(py_rows), len(idx), len(ctx["gate_rows"]), len(ctx["flag_rows"])
+        )
+        # a flagged row's complete reason set is a function of its feature
+        # row (codes + extras determine the rule bitset), so rows whose
+        # feature bytes were resolved before skip the fetch
+        cache = snap.word_cache
+        if len(cache) > 200_000:  # growth bound under adversarial traffic;
+            cache.clear()  # evict before the membership checks below
+        miss = []
+        miss_keys = set()  # dedupe repeats within the chunk too
+        fkeys = ctx["flag_keys"]
+        fc = ctx["flag_cached"]
+        for k in ctx["flag_rows"]:
+            if bitmap and k in bitmap:
+                continue
+            key = ok_codes[k].tobytes() + ok_extras[k].tobytes()
+            fkeys[k] = key
+            cached = cache.get(key)
+            if cached is not None:
+                # keep the value: an eviction before the resolve must not
+                # strand the row
+                fc[k] = cached
+            elif key not in miss_keys:
+                miss.append(k)
+                miss_keys.add(key)
+        if miss:
+            ctx["bits_rows"] = miss
+            ctx["bits_fin"] = self.engine.match_bits_arrays_launch(
+                ok_codes[miss], ok_extras[miss], cs=snap.cs
+            )
+        decode = self._decode_word_payload
+        if not handled:
+            # one result per distinct word, then one fancy-index scatter
+            uniq, inv = np.unique(w, return_inverse=True)
+            payloads = np.empty(len(uniq), dtype=object)
+            for j, word in enumerate(uniq.tolist()):
+                payload = cache.get(word)
+                if payload is None:
+                    payload = decode(snap, word)
+                payloads[j] = payload
+            results[idx] = payloads[inv]
+        else:
+            wl = w.tolist()
+            for k, i in enumerate(idx.tolist()):
+                if k in handled:
+                    continue
+                payload = cache.get(wl[k])
+                if payload is None:
+                    payload = decode(snap, wl[k])
+                results[i] = payload
+        self.last_stage_s["decode"] += time.monotonic() - t1
+        return ctx
+
+    def _resolve_deferred(self, snap: _Snapshot, ctxs: List[dict]) -> None:
+        """Resolve every chunk's gate-flagged and multi/err rows in one
+        pass: one batched Python re-run for the gated rows and one
+        cross-chunk bitset gather for the flagged rows. Then, every device
+        readback of the batch having materialized, the chunks' staging
+        buffers go back to the pool (an exception above skips this on
+        purpose: abandoned buffers are garbage-collected)."""
+        gated = [(ctx, k) for ctx in ctxs for k in ctx["gate_rows"]]
+        if gated:
+            g_res = self._run_gated([ctx["bodies"][int(ctx["idx"][k])] for ctx, k in gated])
+            for (ctx, k), res in zip(gated, g_res):
+                ctx["results"][int(ctx["idx"][k])] = res
+
+        cache = snap.word_cache
+        decode_bits = self._decode_bits_payload
+        key_bits = _gather_flag_bits(self.engine, snap, ctxs)
+        for ctx in ctxs:
+            bm = ctx["bitmap"]
+            fc = ctx["flag_cached"]
+            fkeys = ctx["flag_keys"]
+            for k in ctx["flag_rows"]:
+                if bm and k in bm:
+                    payload = decode_bits(snap, bm[k])
+                elif k in fc:
+                    payload = fc[k]
+                else:
+                    key = fkeys[k]
+                    payload = cache.get(key)
+                    if payload is None:
+                        payload = cache[key] = decode_bits(snap, key_bits[key])
+                ctx["results"][int(ctx["idx"][k])] = payload
+
+        staging = self.engine._staging
+        for ctx in ctxs:
+            if ctx["held"]:
+                staging.release(*ctx["held"])
+                ctx["held"] = []
+
+
+def _gather_flag_bits(engine, snap, ctxs) -> dict:
+    """Materialize each chunk's bitset fetch and return {feature key:
+    bitset row} for every flagged row not covered by an in-launch bitmap
+    or a cached result taken at launch time. Duplicate keys share one
+    entry; rows whose cache entry was evicted between launch and resolve
+    are fetched in one more batched call (never one row at a time)."""
+    key_bits: dict = {}
+    for ctx in ctxs:
+        if ctx["bits_fin"] is not None:
+            bits = ctx["bits_fin"]()
+            fkeys = ctx["flag_keys"]
+            for j, k in enumerate(ctx["bits_rows"]):
+                key_bits[fkeys[k]] = bits[j]
+    sync_rows: list = []
+    for ctx in ctxs:
+        bm = ctx["bitmap"]
+        fc = ctx["flag_cached"]
+        for k in ctx["flag_rows"]:
+            if (bm and k in bm) or k in fc:
+                continue
+            key = ctx["flag_keys"][k]
+            if key in key_bits:
+                continue
+            # claimed here even when the shared cache holds the key now: a
+            # concurrent eviction could clear it before the resolve loop
+            key_bits[key] = None
+            sync_rows.append((ctx, k, key))
+    if not sync_rows:
+        return key_bits
+    E = max(ctx["ok_extras"].shape[1] for ctx, _k, _key in sync_rows)
+    codes_rows = np.stack([ctx["ok_codes"][k] for ctx, k, _ in sync_rows])
+    extras_rows = np.full(
+        (len(sync_rows), E), snap.cs.packed.L, dtype=sync_rows[0][0]["ok_extras"].dtype
+    )
+    for j, (ctx, k, _) in enumerate(sync_rows):
+        row = ctx["ok_extras"][k]
+        extras_rows[j, : row.shape[0]] = row
+    bits = engine.match_bits_arrays(codes_rows, extras_rows, cs=snap.cs)
+    for j, (_ctx, _k, key) in enumerate(sync_rows):
+        key_bits[key] = bits[j]
+    return key_bits
+
+
+class SARFastPath(_RawFastPath):
+    """Batch evaluator over raw SubjectAccessReview JSON bodies."""
+
+    def __init__(self, engine: TorchPolicyEngine, authorizer: CedarWebhookAuthorizer):
+        super().__init__(engine)
+        self.authorizer = authorizer
+
+    def authorize_raw(self, bodies: Sequence[bytes]) -> List[Result]:
+        """Evaluate a batch of raw SAR JSON bodies -> [(decision, reason,
+        error)]. Raises when the native encoder cannot be built or the
+        device fails."""
+        snap = self._current_snapshot()
+        if not self.authorizer.ready():
+            # NoOpinion until every store's initial load completes
+            # (authorizer.go:58-66); the gates still apply, so every row
+            # takes the exact path
+            return [self._python_fallback(b) for b in bodies]
+        return self.process_raw(bodies, snap)
+
+    # --------------------------------------------------------------- hooks
+
+    def _encode_into(self, snap, bodies, codes, extras, counts, flags):
+        snap.encoder.encode_batch_into(bodies, codes, extras, counts, flags)
+        return None
+
+    def _route_flags(self, flags, results, bodies, aux):
+        for flag, res in _GATE_RESULTS.items():
+            for i in np.nonzero(flags == flag)[0]:
+                results[i] = res
+        return np.nonzero((flags == F_PARSE_ERROR) | (flags == F_EXTRAS_OVERFLOW))[0]
+
+    def _fallback_row(self, body: bytes) -> Result:
+        return self._python_fallback(body)
+
+    def _run_gated(self, bodies: List[bytes]) -> List[Result]:
+        return self._gated_batch(bodies)
+
+    def _decode_word_payload(self, snap: _Snapshot, word: int) -> Result:
+        """Decode and cache one clean verdict word (no multi/err/gate bit:
+        those rows are handled apart). The deny-on-error log fires once per
+        distinct word per snapshot, not once per row."""
+        code = (word >> 30) & 0x3
+        pol = word & 0xFFFFFF
+        if code == 1:
+            r: Result = (DECISION_ALLOW, self._reason(snap, pol), None)
+        elif code == 2:
+            r = (DECISION_DENY, self._reason(snap, pol), None)
+        else:
+            if code == 3:
+                log.error(
+                    "Authorize errors: while evaluating policy `%s`: evaluation error",
+                    snap.cs.policy_meta[pol].policy_id,
+                )
+            r = (DECISION_NO_OPINION, "", None)
+        snap.word_cache[word] = r
+        return r
+
+    def _decode_bits_payload(self, snap: _Snapshot, row_bits) -> Result:
+        groups = self.engine._bits_groups(snap.cs, row_bits)
+        decision, diag = self.engine._finalize_sets(snap.cs, groups, None, None)
+        return self._map_decision(decision, diag)
+
+    # ---------------------------------------------------------- python path
+
+    def _python_fallback(self, body: bytes) -> Result:
+        """Exact Python path for one raw body: CedarWebhookAuthorizer.authorize
+        over the parsed SAR, with the webhook handler's decode-error and
+        conversion-error answers; the evaluation itself may raise."""
+        try:
+            sar = json.loads(body)
+        except (ValueError, TypeError, RecursionError) as e:
+            return (
+                DECISION_NO_OPINION,
+                "Encountered decoding error",
+                f"failed parsing request body: {e}",
+            )
+        authz = self.authorizer
+        try:
+            attributes = get_authorizer_attributes(sar)
+            short = authz._short_circuit(attributes)
+            if short is not None:
+                return (*short, None)
+            entities, request = record_to_cedar_resource(attributes)
+        except Exception as e:  # noqa: BLE001 — a malformed request still gets an answer
+            log.exception("fastpath python fallback: request conversion failed")
+            return DECISION_NO_OPINION, "", f"evaluation error: {e}"
+        # an evaluation (device) failure raises to the caller
+        return (*authz._map_verdict(*authz._evaluate(entities, request)), None)
+
+    def _gated_batch(self, bodies: Sequence[bytes]) -> List[Result]:
+        """Exact Python path for gate-flagged rows, with one batched
+        engine.evaluate_batch call. The rows already passed the native
+        gates (self-allow / system-skip fire before encoding) and the
+        caller checked readiness, so what remains is the entity build, the
+        hybrid evaluation and the mapping: per row, authorizer.authorize's
+        semantics. An evaluation failure raises."""
+        results: List[Optional[Result]] = [None] * len(bodies)
+        items = []  # (row, entities, request)
+        for i, body in enumerate(bodies):
+            try:
+                sar = json.loads(body)
+            except (ValueError, TypeError, RecursionError) as e:
+                results[i] = (
+                    DECISION_NO_OPINION,
+                    "Encountered decoding error",
+                    f"failed parsing request body: {e}",
+                )
+                continue
+            try:
+                entities, request = record_to_cedar_resource(get_authorizer_attributes(sar))
+            except Exception as e:  # noqa: BLE001 — always answer
+                log.exception("fastpath gated entity build failed")
+                results[i] = (DECISION_NO_OPINION, "", f"evaluation error: {e}")
+                continue
+            items.append((i, entities, request))
+        if items:
+            verdicts = self.engine.evaluate_batch([(em, req) for _, em, req in items])
+            for (i, _, _), (decision, diag) in zip(items, verdicts):
+                results[i] = self._map_decision(decision, diag)
+        return results  # type: ignore[return-value]
+
+    # -------------------------------------------------------------- helpers
+
+    @staticmethod
+    def _reason(snap: _Snapshot, pol: int) -> str:
+        """Reason JSON of a single-policy match, cached on the snapshot (it
+        depends only on the policy index within that compiled set)."""
+        r = snap.reason_cache.get(pol)
+        if r is None:
+            meta = snap.cs.policy_meta[pol]
+            r = _diagnostic_to_reason(
+                Diagnostics(reasons=[Reason(meta.policy_id, meta.filename, meta.position)])
+            )
+            snap.reason_cache[pol] = r
+        return r
+
+    @staticmethod
+    def _map_decision(decision: str, diag) -> Result:
+        """Cedar decision -> webhook decision (authorizer.go:75-84)."""
+        if decision == ALLOW:
+            return DECISION_ALLOW, _diagnostic_to_reason(diag), None
+        if decision == DENY and diag.reasons:
+            return DECISION_DENY, _diagnostic_to_reason(diag), None
+        if diag.errors:
+            log.error("Authorize errors: %s", diag.errors)
+        return DECISION_NO_OPINION, "", None

@@ -258,6 +258,53 @@ def match_rules_codes_bits(
     return pack_sat_bits(sat_matrix(lit, W, thresh))
 
 
+# flagged-row compaction width: a words launch with want_bits returns the
+# rule bitsets of up to this many flagged rows, fetched with the words in
+# the same readback. Rows past it (overflow) fetch theirs through
+# match_rules_codes_bits.
+BITS_TOPK = 128
+
+
+def flagged_rows(
+    words: Optional[torch.Tensor], full: Optional[Tuple[torch.Tensor, torch.Tensor]]
+) -> torch.Tensor:
+    """[B] bool: the rows whose diagnostics need their rule bitset. With
+    the (first, last) matrices (want_full: the host walks the tiers and
+    merges interpreter verdicts, so ANY group may decide) a row is flagged
+    when some group matched more than one distinct policy; otherwise when
+    its verdict word carries the multi or err bit."""
+    if full is not None:
+        first, last = full
+        return ((first != last) & (first != INT32_MAX)).any(dim=1)
+    return (words & (WORD_ERR | WORD_MULTI)) != 0
+
+
+def compact_flagged_bits(
+    lit: torch.Tensor,
+    W: torch.Tensor,
+    thresh: torch.Tensor,
+    flagged: torch.Tensor,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The rule bitsets of the flagged rows, compacted into a fixed
+    [K, ceil(R / 32)] buffer on the device (K = min(B, BITS_TOPK)): a
+    top-k over a keep-key (B - row for flagged rows, 0 otherwise) selects
+    the first K flagged rows, then only those rows' literal rows are
+    gathered and scored. Returns (vals [K] int32, > 0 where the slot is
+    live; idx [K] int32 row indices; kbits [K, ceil(R / 32)] int32 bit
+    pattern). Rows at or past n_valid (bucket padding) are never selected.
+    No host synchronisation: everything stays on lit's device and stream."""
+    B = flagged.shape[0]
+    K = min(B, BITS_TOPK)
+    iota = torch.arange(B, dtype=torch.int32, device=flagged.device)
+    if n_valid is not None:
+        flagged = flagged & (iota < n_valid)
+    key = torch.where(flagged, B - iota, 0)
+    vals, idx = torch.topk(key, K)
+    kbits = pack_sat_bits(sat_matrix(lit[idx], W, thresh))
+    return vals.to(torch.int32), idx.to(torch.int32), kbits
+
+
 def words_to_numpy(words: torch.Tensor) -> np.ndarray:
     """Device int32 words -> host uint32 verdict words."""
     return words.cpu().numpy().view(np.uint32)

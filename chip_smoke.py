@@ -26,6 +26,25 @@ Phases, each a hard failure with a nonzero exit:
      bucket) and rows of the batch-4096 traffic at B = 4096, 128, 32, 8
      and 1 (the buckets the timed batches and small requests take; below
      128 rows each is its own lit box of B rounded up to 8).
+  4b. fast path: the same corpus served from raw SAR bytes through
+     engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
+     staging, one asynchronous match_words_kernel launch per pipeline
+     chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
+     bodies and 65536 more; launch counts reset before and read after each
+     batch ({words 1, groups 0} up to 16384 rows; at 65536 five words
+     launches: chunks of 16384 x 3 + 8192 x 2); routing counts (encoder_fallback held to the CPU
+     test's count at the defaults); staging stats; every answer held
+     against the authorizer path and, in spawned worker processes, the
+     interpreter (0 flips); decisions/s and batch latency at batch 1 /
+     128 / 4096 / 65536 beside the authorizer path's; the encode / device
+     / decode split of a batch-1, a batch-4096 and a batch-65536 answer
+     (--profile: the device's idle share and top kernels over each). Both kernels held
+     against their plain versions on a native-encoded 16384-row chunk.
+     Gated sub-phase: the corpus plus an interpreter-fallback and a
+     native-opaque policy, traffic that hits their scopes: gated rows re-run
+     through evaluate_batch (match_groups_kernel), the rest take the words
+     launch; 0 flips; both kernels held against their plain versions on
+     that plane.
   5. want_full path: a set with interpreter-fallback policies (the
      coverage corpus' blowup family) served through match_groups_kernel
      (counts reset just before, read just after; match_words_kernel never
@@ -188,6 +207,147 @@ def random_lit(torch, rng, B, L, active=24):
     return torch.from_numpy(lit).cuda()
 
 
+# the policy texts of the JAX package's server fast-path tests that the
+# native plane gates: an interpreter-fallback policy (an alternation
+# product past the lowering's clause ceiling) and a native-opaque one (an
+# extension call on a request value, which only the Python encoder
+# evaluates)
+FALLBACK_POLICY = (
+    'permit (principal in k8s::Group::"joiners", '
+    'action == k8s::Action::"get",\n'
+    "        resource is k8s::Resource)\n"
+    "  when { "
+    + " && ".join(
+        '(resource.resource == "widgets" || resource.name == "10.0.0.1")'
+        for _ in range(12)
+    )
+    + " };\n"
+)
+NATIVE_OPAQUE_POLICY = """
+forbid (principal, action == k8s::Action::"deletecollection",
+        resource is k8s::Resource)
+  when { resource has name && ip(resource.name).isLoopback() };
+"""
+
+# encoder_fallback rows of each fast-path batch at the defaults (--seed 0
+# --policies 10000 --sars 300): tests/test_torch_fastpath.py computes the
+# same counts on the CPU from the same seeded corpus
+EXPECTED_ENCODER_FALLBACK = {"300": 0, "4096": 0, "65536": 0}
+
+
+def gated_policy_set(corpus):
+    """The synth corpus with the two gated policies appended."""
+    from cedar_tpu_torch.lang import PolicySet
+
+    extra = PolicySet.from_source(FALLBACK_POLICY + NATIVE_OPAQUE_POLICY, "gated")
+    return PolicySet(list(corpus.policies) + extra.policies())
+
+
+def gated_bodies(corpus, n: int, seed: int) -> list:
+    """n synth SAR bodies, every eighth replaced by one that hits a gated
+    scope (joiners reading widgets; deletecollection with an ip-like or
+    other name)."""
+    out = corpus.sar_bodies(n, seed=seed)
+    hits = [
+        {"user": "jo", "groups": ["joiners"], "verb": "get", "resource": "widgets", "name": nm}
+        for nm in ("10.0.0.1", "x", "")
+    ] + [
+        {"user": u, "groups": [], "verb": "deletecollection", "resource": "pods", "name": nm}
+        for u in ("sam", "c0-user-1") for nm in ("127.0.0.1", "10.0.0.1", "not-an-ip")
+    ]
+    for k, i in enumerate(range(0, n, 8)):
+        h = hits[k % len(hits)]
+        ra = {"verb": h["verb"], "version": "v1", "resource": h["resource"], "namespace": "c0-ns-0"}
+        if h["name"]:
+            ra["name"] = h["name"]
+        out[i] = json.dumps({
+            "apiVersion": "authorization.k8s.io/v1", "kind": "SubjectAccessReview",
+            "spec": {"user": h["user"], "uid": "u", "groups": h["groups"], "resourceAttributes": ra},
+        }).encode()
+    return out
+
+
+def canon(resp):
+    """A SAR response with its reason list as a set: what must agree
+    between paths (the order of several reasons is not a contract)."""
+    st = dict(resp["status"])
+    if st["reason"]:
+        doc = json.loads(st["reason"])
+        st["reason"] = sorted(
+            json.dumps(r, sort_keys=True) for r in doc.get("reasons", [])
+        )
+    return st
+
+
+_ORACLES: dict = {}
+
+
+def _oracle_init(n_policies: int, seed: int) -> None:
+    """Worker initializer: the port's interpreter over the serving corpus
+    and over its gated twin."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    corpus = synth_corpus(n_policies, seed=seed)
+    for name, ps in (("synth", corpus.tiers()[0]), ("gated", gated_policy_set(corpus))):
+        _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([MemoryStore(name, ps)]))
+
+
+def _oracle_answers(task):
+    from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
+
+    name, bodies = task
+    attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
+    return [canon(sar_response(d, r)) for d, r in _ORACLES[name].authorize_batch(attrs)]
+
+
+def interpreter_answers(tasks: dict, n_policies: int, seed: int) -> dict:
+    """{label: (policy set name, bodies)} -> {label: [canon response]} from
+    the port's interpreter, spread over one spawned worker per core (it
+    takes milliseconds per request at 10k policies); the pool is torn
+    down before returning."""
+    import multiprocessing as mp
+
+    piece = 512
+    work = [(label, i, name, bodies[i:i + piece])
+            for label, (name, bodies) in tasks.items() for i in range(0, len(bodies), piece)]
+    n_workers = max(1, min(os.cpu_count() or 1, len(work)))
+    with mp.get_context("spawn").Pool(
+        n_workers, initializer=_oracle_init, initargs=(n_policies, seed)
+    ) as pool:
+        answers = pool.map(_oracle_answers, [(name, b) for _, _, name, b in work], chunksize=1)
+    out = {label: [] for label in tasks}
+    for (label, _, _, _), ans in zip(work, answers):
+        out[label].extend(ans)
+    return out
+
+
+def profile_answer(torch, fn, label: str) -> None:
+    """One call of fn under torch.profiler: the device's busy and idle
+    share of its wall time and the top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kern = {}  # device-side events only (ops would count twice), summed
+    launches = 0  # by the first 60 characters of their names
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            kern[ev.key[:60]] = kern.get(ev.key[:60], 0.0) + ev.self_device_time_total
+            launches += ev.count
+    busy = sum(kern.values()) / 1e6
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    print(f"profile {label}: wall {wall:.4f} s, device busy {busy:.6f} s, "
+          f"idle share {1 - busy / wall:.4f}, {launches} device kernels and copies; "
+          "top device time (us): "
+          + json.dumps({k: round(v, 1) for k, v in top}), flush=True)
+
+
 def diag_key(decision, diag):
     """Decision and reason set: what must agree with the interpreter
     (error message texts differ by design: the device plane reports
@@ -201,8 +361,10 @@ def main() -> None:
     ap.add_argument("--policies", type=int, default=10000)
     ap.add_argument("--sars", type=int, default=300)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one batch-4096 answer with torch.profiler and "
-                         "print the device's busy and idle share")
+                    help="trace one batch-4096 answer of the authorizer path and "
+                         "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
+                         "with torch.profiler and print the device's busy and "
+                         "idle share")
     args = ap.parse_args()
 
     import torch
@@ -338,15 +500,6 @@ def main() -> None:
         attrs = [get_authorizer_attributes(json.loads(b)) for b in batch]
         return [sar_response(d, r) for d, r in authorizer.authorize_batch(attrs)]
 
-    def canon(resp):
-        st = dict(resp["status"])
-        if st["reason"]:
-            doc = json.loads(st["reason"])
-            st["reason"] = sorted(
-                json.dumps(r, sort_keys=True) for r in doc.get("reasons", [])
-            )
-        return st
-
     flagged0 = engine.flagged_rows
     cuda_match.reset_launch_counts()
     got = answer(authz, bodies)
@@ -402,7 +555,8 @@ def main() -> None:
     for batch, reps in ((1, 20), (128, 5), (4096, 2)):
         lat = []
         for i in range(reps):
-            chunk = big[(i * batch) % 4096:][:batch] if batch < 4096 else big
+            lo = (i * batch) % 4096
+            chunk = big[lo:lo + batch]
             t = time.perf_counter()
             answer(authz, chunk)
             lat.append(time.perf_counter() - t)
@@ -441,24 +595,147 @@ def main() -> None:
     print("batch 4096 split (host clock, s): " + json.dumps(
         {k: round(v, 6) for k, v in split.items()}) + f" total {total:.4f}", flush=True)
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
+        profile_answer(torch, lambda: answer(authz, big), "batch 4096")
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            answer(authz, big)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-        from torch.autograd import DeviceType
+    # ---- 4b. the native fast path: raw SAR bytes -> C++ encoder -> pinned
+    # staging -> one words launch per chunk -> one packed D2H
+    from cedar_tpu_torch.engine.fastpath import SARFastPath, _chunk_sizes
+    from cedar_tpu_torch.native import build as native_build
 
-        kern = {}  # device-side kernel events only (ops would count twice)
-        for ev in prof.key_averages():
-            if ev.device_type == DeviceType.CUDA:
-                kern[ev.key[:60]] = ev.self_device_time_total
-        busy = sum(kern.values()) / 1e6
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
-        print(f"profile batch 4096: wall {wall:.4f} s, device busy {busy:.6f} s, "
-              f"idle share {1 - busy / wall:.4f}; top device time (us): "
-              + json.dumps({k: round(v, 1) for k, v in top}), flush=True)
+    so = native_build.library_path()
+    built = not so.is_file()
+    t0 = time.monotonic()
+    native_build.ensure_built()
+    cmd = " ".join(native_build.compile_command(native_build.glue_include(), so.name))
+    print(f"native build: {cmd} in {time.monotonic() - t0:.2f} s"
+          + ("" if built else " (already built)"), flush=True)
+    fast = SARFastPath(engine, authz)
+    big64k = corpus.sar_bodies(65536, seed=args.seed + 5)
+    batches = {"300": bodies, "4096": big, "65536": big64k}
+    # one words launch per pipeline chunk: 16384-row chunks, the last one
+    # split in two halves (the JAX package's chunk plan), so 65536 rows
+    # are 16384 x 3 + 8192 x 2, five launches
+    want_words = {label: len(_chunk_sizes(len(b), fast._CHUNK, fast._TAIL_CHUNK))
+                  for label, b in batches.items()}
+    fast_answers, fast_launches = {}, {}
+    defaults = (args.seed, args.policies, args.sars) == (0, 10000, 300)
+    for label, batch in batches.items():
+        before = dict(fast.routing)
+        cuda_match.reset_launch_counts()
+        res = fast.authorize_raw(batch)
+        torch.cuda.synchronize()
+        fast_launches[label] = cuda_match.launch_counts()
+        routing = {k: fast.routing[k] - before[k] for k in before}
+        fast_answers[label] = [canon(sar_response(*r)) for r in res]
+        print(f"fastpath batch {label}: launches {fast_launches[label]}, routing "
+              f"{json.dumps(routing)}, stages (s) "
+              f"{json.dumps({k: round(v, 6) for k, v in fast.last_stage_s.items()})}", flush=True)
+        if fast_launches[label] != {"match_groups_kernel": 0,
+                                    "match_words_kernel": want_words[label]}:
+            fail(f"fast path batch {label}: launches {fast_launches[label]}, want "
+                 f"{want_words[label]} match_words_kernel and no match_groups_kernel")
+        if defaults and routing["encoder_fallback"] != EXPECTED_ENCODER_FALLBACK[label]:
+            fail(f"fast path batch {label}: {routing['encoder_fallback']} encoder_fallback "
+                 f"rows, the CPU test counts {EXPECTED_ENCODER_FALLBACK[label]}")
+    authz_answers = {"300": [canon(r) for r in got]}
+    for label in ("4096", "65536"):
+        authz_answers[label] = [canon(r) for r in answer(authz, batches[label])]
+    for label in batches:
+        flips = sum(a != b for a, b in zip(fast_answers[label], authz_answers[label]))
+        print(f"fastpath batch {label}: flips vs the authorizer path {flips}", flush=True)
+        if flips or len(fast_answers[label]) != len(batches[label]):
+            fail(f"fast path batch {label}: {flips} answers differ from the authorizer path")
+    print(f"staging: {json.dumps(engine.staging_stats())}", flush=True)
+
+    # both kernels on the fast path's own operands: native codes of a
+    # 16384-row chunk (its bucket), pinned-staged and expanded on the card
+    snap = fast._current_snapshot()
+    c16, e16, _n16, f16 = snap.encoder.encode_batch(big64k[:16384])
+    if not (f16 == 0).all():
+        fail("the 16384-row parity chunk holds rows the encoder did not pass")
+    c16, e16 = engine._pad_to_bucket(c16, e16, cs.L)
+    lit16k = plain.lit_matrix_codes(engine._to_device(c16), engine._to_device(e16),
+                                    cs.act_rows_dev)
+    parity("fastpath", lit16k, *serve_plane, need_mix=False, maps=cs.plane_maps)
+
+    def fast_answer(batch):
+        return [sar_response(*r) for r in fast.authorize_raw(batch)]
+
+    fperf = {}
+    for batch, reps in ((1, 20), (128, 10), (4096, 5), (65536, 3)):
+        row = {}
+        for path, fn, n_reps in (("fastpath", fast_answer, reps),
+                                 ("authorizer", lambda b: answer(authz, b),
+                                  1 if batch == 65536 else reps)):
+            lat = []
+            for i in range(n_reps):
+                lo = (i * batch) % 65536
+                chunk = big64k[lo:lo + batch]
+                t = time.perf_counter()
+                fn(chunk)
+                lat.append(time.perf_counter() - t)
+            med = float(np.median(lat))
+            row[path] = {"batch_latency_ms": med * 1e3, "decisions_per_s": batch / med}
+        fperf[batch] = row
+    print("fastpath throughput vs the authorizer path (SAR JSON -> SAR response, host "
+          f"clock, {card}): " + json.dumps(fperf), flush=True)
+    for label, batch in (("1", big[:1]), ("4096", big), ("65536", big64k)):
+        fast.authorize_raw(batch)
+        print(f"fastpath batch {label} stages (host clock, s, {card}): " + json.dumps(
+            {k: round(v, 6) for k, v in fast.last_stage_s.items()}), flush=True)
+        if args.profile:
+            profile_answer(torch, lambda: fast_answer(batch), f"fastpath batch {label}")
+
+    # gated sub-phase: the corpus with an interpreter-fallback and a
+    # native-opaque policy; rows in their scopes re-run through
+    # evaluate_batch (want_full: match_groups_kernel), the rest stay native
+    g_ps = gated_policy_set(corpus)
+    g_engine = TorchPolicyEngine()
+    g_engine.load([g_ps])
+    gcs = g_engine.compiled_set
+    if not (gcs.fallback and gcs.has_gate):
+        fail("the gated set should carry interpreter-fallback policies and gate rules")
+    g_authz = CedarWebhookAuthorizer(
+        TieredPolicyStores([MemoryStore("gated", g_ps)]), evaluate_batch=g_engine.evaluate_batch)
+    g_fast = SARFastPath(g_engine, g_authz)
+    g_batch = gated_bodies(corpus, 4096, seed=args.seed + 6)
+    cuda_match.reset_launch_counts()
+    g_res = g_fast.authorize_raw(g_batch)
+    torch.cuda.synchronize()
+    gated_launches = cuda_match.launch_counts()
+    g_answers = [canon(sar_response(*r)) for r in g_res]
+    g_flips = sum(a != canon(b) for a, b in zip(g_answers, answer(g_authz, g_batch)))
+    print(f"fastpath gated: {len(gcs.fallback)} fallback policies, G={gcs.n_groups}, "
+          f"launches {gated_launches}, routing {json.dumps(g_fast.routing)}, flips vs the "
+          f"authorizer path {g_flips}", flush=True)
+    if g_fast.routing["gated"] < 1:
+        fail("no row of the gated traffic was gated")
+    if gated_launches["match_groups_kernel"] < 1 or gated_launches["match_words_kernel"] < 1:
+        fail(f"gated traffic should launch both kernels: {gated_launches}")
+    if g_flips:
+        fail(f"gated traffic: {g_flips} answers differ from the authorizer path")
+    g_snap = g_fast._current_snapshot()
+    gc, ge, _gn, gf = g_snap.encoder.encode_batch(g_batch)
+    ok = gf == 0
+    gc, ge = g_engine._pad_to_bucket(gc[ok], ge[ok], gcs.L)
+    g_lit = plain.lit_matrix_codes(g_engine._to_device(gc), g_engine._to_device(ge),
+                                   gcs.act_rows_dev)
+    parity("gated", g_lit, gcs.W_dev, gcs.thresh_dev, gcs.rule_group_dev,
+           gcs.rule_policy_dev, gcs.n_tiers, gcs.has_gate, need_mix=False,
+           maps=gcs.plane_maps)
+
+    # every answer of the phase against the port's interpreter
+    t0 = time.monotonic()
+    oracle_answers = interpreter_answers(
+        {**{label: ("synth", b) for label, b in batches.items()}, "gated": ("gated", g_batch)},
+        args.policies, args.seed)
+    for label, mine in list(fast_answers.items()) + [("gated", g_answers)]:
+        flips = sum(a != b for a, b in zip(mine, oracle_answers[label]))
+        print(f"fastpath {label}: flips vs the interpreter {flips}", flush=True)
+        if flips or len(mine) != len(oracle_answers[label]):
+            fail(f"fast path {label}: {flips} answers differ from the interpreter")
+    print(f"interpreter check: {sum(map(len, oracle_answers.values()))} answers in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
 
     # ---- 5. want_full path: interpreter-fallback policies
     cov = coverage_corpus(per_family=4, base=64, seed=args.seed)
@@ -595,15 +872,20 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     print(f"rule-tile probe, match_groups_kernel device ms ({card}): "
           + json.dumps(tiles), flush=True)
 
-    # each kernel's launches on its own path: the serving path's words
-    # launch, the want_full path's first-match launch
-    own_path = {"match_groups_kernel": full_launches, "match_words_kernel": serving_launches}
+    # each kernel's launches on this slice's main path, the fast path: the
+    # words launch of its batch-4096 answer, the first-match launches of
+    # its gated rows; and on the earlier paths
+    own_path = {"match_groups_kernel": gated_launches, "match_words_kernel": fast_launches["4096"]}
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
+        if own_path[k][k] < 1:
+            fail(f"{k} was not launched on the fast path")
         kernels.append({
             "name": k, **meta,
             "launches": own_path[k][k],
+            "launches_fastpath": {label: c[k] for label, c in fast_launches.items()},
+            "launches_fastpath_gated": gated_launches[k],
             "launches_serving": serving_launches[k],
             "launches_want_full": full_launches[k],
             "max_abs_err": err[k],

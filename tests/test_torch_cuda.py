@@ -186,3 +186,122 @@ def test_engine_on_card_equals_engine_on_cpu(cuda):
     got = gpu.evaluate_batch(items)
     assert cuda_match.launch_counts() == {"match_groups_kernel": 1, "match_words_kernel": 0}
     assert [key(r) for r in got] == [key(r) for r in cpu.evaluate_batch(items)]
+
+
+def _fast_paths(tiers):
+    """SARFastPath over a card engine and over a CPU engine, one policy set."""
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import SARFastPath
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    stores = TieredPolicyStores([MemoryStore(f"t{i}", t) for i, t in enumerate(tiers)])
+    out = []
+    for device in (None, "cpu"):
+        engine = TorchPolicyEngine(device=device)
+        engine.load(tiers)
+        authz = CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch)
+        out.append(SARFastPath(engine, authz))
+    assert out[0].engine.device.type == "cuda"
+    return out
+
+
+# a tier in front of the synth corpus: two permits on (get, pods) and an
+# interpreter-fallback policy (an alternation product past the lowering's
+# clause ceiling), so multi-match, flagged and gated rows sit beside the
+# synth traffic's clean ones
+_EXTRA_TIER = """
+permit (principal, action == k8s::Action::"get", resource is k8s::Resource)
+  when { resource.resource == "pods" };
+permit (principal, action in [k8s::Action::"get", k8s::Action::"list"],
+        resource is k8s::Resource)
+  when { resource.resource == "pods" };
+permit (principal in k8s::Group::"joiners", action == k8s::Action::"get",
+        resource is k8s::Resource)
+  when { """ + " && ".join(
+    '(resource.resource == "widgets" || resource.name == "10.0.0.1")' for _ in range(12)
+) + " };\n"
+
+
+def _mixed_bodies(corpus, n, seed):
+    import json
+
+    bodies = corpus.sar_bodies(n, seed=seed)
+    for i in range(0, n, 7):
+        doc = json.loads(bodies[i])
+        ra = doc["spec"]["resourceAttributes"]
+        if i % 3 == 0:
+            ra["resource"] = "pods"
+            ra["verb"] = "get"
+        elif i % 3 == 1:
+            doc["spec"]["groups"] = ["joiners"]
+            ra.update(verb="get", resource="widgets", name="10.0.0.1")
+        else:
+            doc["spec"]["user"] = "system:kube-scheduler"
+        bodies[i] = json.dumps(doc).encode()
+    return bodies + [b'{"not": "json', b"[]"]
+
+
+@pytest.mark.cuda
+def test_fastpath_on_card_equals_fastpath_on_cpu(cuda):
+    """The same bodies through the fast path on the card and on the CPU:
+    identical (decision, reason, error) triples, routed alike; the staging
+    buffers are pinned on the card."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.lang import PolicySet
+
+    corpus = synth_corpus(400, seed=5)
+    tiers = [PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]]
+    gpu, cpu = _fast_paths(tiers)
+    bodies = _mixed_bodies(corpus, 900, seed=2)
+    got = gpu.authorize_raw(bodies)
+    assert got == cpu.authorize_raw(bodies)
+    assert gpu.routing == cpu.routing
+    assert gpu.routing["gated"] > 0 and gpu.routing["flagged"] > 0
+    assert gpu.routing["encoder_gate"] > 0 and gpu.routing["encoder_fallback"] == 2
+    pool = [a for bufs in gpu.engine._staging._free.values() for a in bufs]
+    assert pool and all(torch.from_numpy(a).is_pinned() and a.base.is_pinned() for a in pool)
+    assert gpu.engine.staging_stats()["pinned"] and gpu.engine.staging_stats()["outstanding"] == 0
+
+
+@pytest.mark.cuda
+def test_repeated_batches_give_identical_words(cuda):
+    """The words come back through a non_blocking copy into pinned memory:
+    reading before the copy lands would return stale words that differ
+    from run to run. Twenty identical launches, back to back, agree with
+    each other and with the CPU."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+
+    corpus = synth_corpus(400, seed=6)
+    gpu, cpu = _fast_paths(corpus.tiers())
+    snap = gpu._current_snapshot()
+    bodies = corpus.sar_bodies(3000, seed=4)
+    codes, extras, _counts, flags = snap.encoder.encode_batch(bodies)
+    assert (flags == 0).all()
+    want = cpu.engine.match_arrays(codes, extras)[0]
+    fins = [gpu.engine.match_arrays_launch(codes, extras) for _ in range(20)]
+    for fin in fins:
+        np.testing.assert_array_equal(fin()[0], want)
+    first = gpu.authorize_raw(bodies)
+    for _ in range(3):
+        assert gpu.authorize_raw(bodies) == first
+
+
+@pytest.mark.cuda
+def test_fastpath_launches_as_predicted(cuda):
+    """A batch of 1 is one words launch; 65536 bodies are five chunks
+    (16384 x 3, then the last 16384 split in halves), five words launches;
+    no first-match launch without gated rows."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+
+    corpus = synth_corpus(400, seed=7)
+    gpu, cpu = _fast_paths(corpus.tiers())
+    bodies = corpus.sar_bodies(65536, seed=8)
+    cuda_match.reset_launch_counts()
+    one = gpu.authorize_raw(bodies[:1])
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 1}
+    cuda_match.reset_launch_counts()
+    got = gpu.authorize_raw(bodies)
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 5}
+    assert got[:1] == one
+    assert got[::97] == cpu.authorize_raw(bodies[::97])
