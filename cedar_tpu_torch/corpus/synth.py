@@ -338,6 +338,24 @@ class SynthCorpus:
         )
 
 
+def _synth_sources(n: int, seed: int, clusters: int, tenant: str):
+    srcs = [_probe_source("permit", tenant)]
+    params: List[_PolicyParams] = [
+        _PolicyParams("probe", 0, _cluster_groups(0, tenant)[0])
+    ]
+    for i in range(1, n):
+        src, p = _policy_source(i, seed, clusters, tenant)
+        srcs.append(src)
+        params.append(p)
+    return srcs, params
+
+
+def synth_source(n: int, seed: int = 0, clusters: int = 10, tenant: str = "") -> str:
+    """The Cedar text synth_corpus(n, seed, clusters, tenant) parses, policy
+    i at index i: what a directory store serving that corpus holds."""
+    return "\n".join(_synth_sources(n, seed, clusters, tenant)[0])
+
+
 def synth_corpus(
     n: int,
     seed: int = 0,
@@ -355,14 +373,7 @@ def synth_corpus(
         raise ValueError("synth_corpus: n must be >= 1")
     if clusters < 1:
         raise ValueError("synth_corpus: clusters must be >= 1")
-    srcs = [_probe_source("permit", tenant)]
-    params: List[_PolicyParams] = [
-        _PolicyParams("probe", 0, _cluster_groups(0, tenant)[0])
-    ]
-    for i in range(1, n):
-        src, p = _policy_source(i, seed, clusters, tenant)
-        srcs.append(src)
-        params.append(p)
+    srcs, params = _synth_sources(n, seed, clusters, tenant)
     policies = parse_policies("\n".join(srcs), filename_prefix)
     for i, p in enumerate(policies):
         p.policy_id = f"{filename_prefix}-{i:06d}"

@@ -180,18 +180,22 @@ class _StagingPool:
 class _Readback:
     """Device tensors -> host numpy arrays without blocking the launch:
     on the card each tensor is copied non_blocking into a pinned host
-    buffer and one CUDA event is recorded after the copies on the current
-    stream; arrays() waits on that event before the host reads anything.
-    On the CPU the tensors already are the host arrays."""
+    buffer, and one CUDA event is recorded after the copies on the stream
+    they ran on (the launching thread's current stream, captured once:
+    the current stream is per thread); arrays() waits on that event before
+    the host reads anything, from whichever thread calls it (the serving
+    pipeline launches on its dispatch thread and reads on its decode
+    thread). On the CPU the tensors already are the host arrays."""
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
         self._event = None
         if tensors and tensors[0].device.type == "cuda":
+            stream = torch.cuda.current_stream(tensors[0].device)
             host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
             for h, t in zip(host, tensors):
                 h.copy_(t, non_blocking=True)
             self._event = torch.cuda.Event()
-            self._event.record()
+            self._event.record(stream)
             tensors = host
         self._host = list(tensors)
 
@@ -313,6 +317,8 @@ class TorchPolicyEngine:
         self.flagged_rows = 0
         # host staging buffers of the fast path and of padded launches
         self._staging = _StagingPool(pinned=self.device.type == "cuda")
+        # kernel launches the last warmup() made
+        self.warmup_launches: dict = {}
 
     # ------------------------------------------------------------ lifecycle
 
@@ -346,6 +352,34 @@ class TorchPolicyEngine:
                 "total": round(t3 - t0, 4),
             },
         }
+
+    def warmup(self, max_batch: int = 1) -> dict:
+        """Take every device path of the serving plane once per batch
+        bucket up to max_batch's, on all-padding rows (they activate
+        nothing): the words launch, the want_full groups launch and the
+        in-launch bitset compaction, then the plain bitset product once. A
+        server calls it before it reports ready, so no request's deadline
+        pays a first-use cost (the kernel library's module load, the float
+        product's library handle and its kernels per shape, the float
+        plane W_f32, each bucket's staging buffers). Returns the kernel
+        launches it made (also kept as ``warmup_launches``)."""
+        cs = self._compiled
+        if cs is None:
+            raise RuntimeError("TorchPolicyEngine: no policy set loaded")
+        before = cuda_match.launch_counts()
+        S = cs.packed.table.n_slots if cs.packed is not None else 1
+        top = _round_bucket(min(max(max_batch, 1), _PIPELINE_SB), _BATCH_BUCKETS)
+        for B in (b for b in _BATCH_BUCKETS if b <= top):
+            codes = np.zeros((B, S), dtype=np.int32)
+            extras = np.full((B, 1), cs.L, dtype=np.int32)
+            self.match_arrays(codes, extras, cs=cs)
+            self.match_arrays(codes, extras, want_full=True, cs=cs)
+            if B <= BITS_INCALL_MAX:
+                self.match_arrays_launch(codes, extras, cs=cs, want_bits=True, valid_rows=B)()
+        self.match_bits_arrays(codes[:1], extras[:1], cs=cs)
+        after = cuda_match.launch_counts()
+        self.warmup_launches = {k: after[k] - before[k] for k in after}
+        return self.warmup_launches
 
     @property
     def loaded(self) -> bool:
@@ -491,6 +525,28 @@ class TorchPolicyEngine:
     def staging_stats(self) -> dict:
         """The staging pool's occupancy counters (_StagingPool.stats)."""
         return self._staging.stats()
+
+    @property
+    def stats(self) -> dict:
+        """The loaded set's shape, the staging pool and the match kernels'
+        launch counts (process-wide, cuda_match.launch_counts): the
+        server's /debug/engine entry."""
+        out = {
+            "device": str(self.device),
+            "launches": cuda_match.launch_counts(),
+            "warmup_launches": dict(self.warmup_launches),
+            "staging": self._staging.stats(),
+        }
+        cs = self._compiled
+        if cs is not None:
+            out.update(
+                rules=cs.n_rules,
+                L=cs.L,
+                R=cs.R,
+                fallback_policies=len(cs.fallback),
+                native_opaque_policies=cs.packed.native_opaque if cs.packed else 0,
+            )
+        return out
 
     def match_arrays(
         self,

@@ -33,6 +33,12 @@ flagged (multi/err) rows get their rule bitsets from the launch itself
 (batches of at most BITS_INCALL_MAX rows) or from one deferred cross-chunk
 fetch; gated rows defer to one batched Python re-run. SARFastPath supplies
 the SAR-specific pieces (encode, flag routing, per-row fallback, decode).
+
+The same work is also split into three stages (pipeline_encode /
+pipeline_dispatch / pipeline_decode) that engine/batcher.py
+PipelinedBatcher runs on separate threads, so batch N+1 encodes while
+batch N is on the device. A stage that raises fails its batch; nothing
+re-runs it elsewhere.
 """
 
 from __future__ import annotations
@@ -156,10 +162,17 @@ class _RawFastPath:
         self.engine = engine
         self._snap: Optional[_Snapshot] = None
         self._build_lock = threading.Lock()
+        # guards the counters below: the pipeline's encode, dispatch and
+        # decode threads and the serial path update them concurrently
+        self._stats_lock = threading.Lock()
         # encode / device / decode seconds of the last process_raw call
         self.last_stage_s: dict = {"encode": 0.0, "device": 0.0, "decode": 0.0}
         # rows per routing class since construction (ROUTES)
         self.routing: dict = dict.fromkeys(ROUTES, 0)
+        # batch-wide packed word transfers, and the chunk word arrays they
+        # carried, since construction (_note_packed)
+        self.packed_transfers = 0
+        self.packed_chunks = 0
 
     def _current_snapshot(self) -> _Snapshot:
         """The snapshot for the engine's current compiled set, building the
@@ -188,6 +201,12 @@ class _RawFastPath:
                 snap = _Snapshot(NativeEncoder.create(cs.packed), cs, {}, {})
                 self._snap = snap
         return snap
+
+    def prepare(self) -> None:
+        """Build the native encoder for the loaded set now (g++ at first
+        use), so the first request does not wait for it. Raises as
+        _current_snapshot does."""
+        self._current_snapshot()
 
     # ----------------------------------------------------- subclass surface
 
@@ -238,12 +257,84 @@ class _RawFastPath:
             lo += size
             pending.append((chunk, self._prepare_chunk(snap, chunk, word_pack=pack)))
         pack.flush()
+        self._note_packed(pack)
         ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in pending]
         self._resolve_deferred(snap, ctxs)
-        out: list = []
-        for ctx in ctxs:
-            out.extend(ctx["results"].tolist())
-        return out
+        return _concat_results(ctxs)
+
+    # ------------------------------------------------- pipelined stage API
+    #
+    # engine/batcher.py PipelinedBatcher drives these from its threads:
+    # pipeline_encode on an encode worker (host only: no launch, no device
+    # read), pipeline_dispatch on the one dispatch thread (every launch of
+    # the batch, none waited for), pipeline_decode on the decode thread
+    # (the only wait on the device, then the decode and the deferred
+    # rows). The answers equal process_raw's. A stage that raises
+    # propagates: the batcher fails that batch, and nothing re-runs it on
+    # another path.
+
+    def _pipeline_ready(self) -> bool:
+        """The path's readiness gate (store initial loads), as its serial
+        entry point checks it."""
+        raise NotImplementedError
+
+    def pipeline_encode(self, bodies: Sequence[bytes]):
+        """Stage 1: snapshot, readiness and the C++ encode of every chunk
+        into staging buffers. Before every store's initial load completes
+        the rows answer from the exact path now (the readiness semantics,
+        which evaluates nothing) and the later stages pass them through.
+        If a chunk's encode raises, the buffers of the chunks encoded
+        before it go back to the pool (no launch has read them)."""
+        snap = self._current_snapshot()
+        if not self._pipeline_ready():
+            return ("direct", [self._fallback_row(b) for b in bodies])
+        encs = []
+        lo = 0
+        try:
+            for size in _chunk_sizes(len(bodies), self._CHUNK, self._TAIL_CHUNK):
+                chunk = bodies[lo : lo + size]
+                lo += size
+                encs.append((chunk, self._encode_chunk(snap, chunk)))
+        except BaseException:
+            for _chunk, enc in encs:
+                self.engine._staging.release(*enc[-1])
+            raise
+        return ("enc", snap, encs)
+
+    def pipeline_dispatch(self, ctx):
+        """Stage 2: launch every chunk's match asynchronously, the batch's
+        verdict words registered with one _WordPacker whose single D2H
+        copy starts once the last chunk is away; returns without waiting,
+        so the dispatch thread moves on to the next batch."""
+        if ctx[0] == "direct":
+            return ctx
+        _, snap, encs = ctx
+        pack = _WordPacker()
+        launched = [
+            (chunk, self._launch_chunk(snap, enc, word_pack=pack)) for chunk, enc in encs
+        ]
+        pack.flush()
+        self._note_packed(pack)
+        return ("run", snap, launched)
+
+    def pipeline_decode(self, ctx) -> list:
+        """Stage 3: wait for the batch's device results, decode the clean
+        rows, resolve the gated and flagged rows, and return the results
+        in order."""
+        if ctx[0] == "direct":
+            return ctx[1]
+        _, snap, launched = ctx
+        ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in launched]
+        self._resolve_deferred(snap, ctxs)
+        return _concat_results(ctxs)
+
+    def _note_packed(self, pack: _WordPacker) -> None:
+        """Count one batch's packed word transfer (the server's
+        cedar_packed_decode_* families read the counts)."""
+        if pack.parts:
+            with self._stats_lock:
+                self.packed_transfers += 1
+                self.packed_chunks += pack.parts
 
     def _record_routing(
         self, n: int, n_fallback: int, n_ok: int, n_gated: int, n_flagged: int
@@ -251,12 +342,17 @@ class _RawFastPath:
         """One chunk's row counts by routing class. The gated share is the
         early warning for the gate-plane cliff: a hot fallback or opaque
         scope sends its rows through the Python path."""
-        r = self.routing
-        r["clean_native"] += n_ok - n_gated - n_flagged
-        r["gated"] += n_gated
-        r["flagged"] += n_flagged
-        r["encoder_fallback"] += n_fallback
-        r["encoder_gate"] += n - n_fallback - n_ok
+        with self._stats_lock:
+            r = self.routing
+            r["clean_native"] += n_ok - n_gated - n_flagged
+            r["gated"] += n_gated
+            r["flagged"] += n_flagged
+            r["encoder_fallback"] += n_fallback
+            r["encoder_gate"] += n - n_fallback - n_ok
+
+    def _add_stage_s(self, stage: str, seconds: float) -> None:
+        with self._stats_lock:
+            self.last_stage_s[stage] += seconds
 
     def _encode_chunk(self, snap: _Snapshot, bodies: Sequence[bytes]):
         """Host half of a chunk: C++ encode straight into bucket-padded
@@ -339,7 +435,7 @@ class _RawFastPath:
         device runs while the caller prepares the next chunk."""
         t0 = time.monotonic()
         pre = self._launch_chunk(snap, self._encode_chunk(snap, bodies), word_pack=word_pack)
-        self.last_stage_s["encode"] += time.monotonic() - t0
+        self._add_stage_s("encode", time.monotonic() - t0)
         return pre
 
     def _finish_words(self, snap: _Snapshot, bodies, pre) -> dict:
@@ -374,7 +470,7 @@ class _RawFastPath:
         out = fin()
         words, bitmap = out[0], (out[2] if len(out) == 3 else None)
         t1 = time.monotonic()
-        self.last_stage_s["device"] += t1 - t0
+        self._add_stage_s("device", t1 - t0)
         # the launch returns words for the bucket-padding rows too
         w = words[: len(idx)]
         ctx["bitmap"] = bitmap
@@ -436,7 +532,7 @@ class _RawFastPath:
                 if payload is None:
                     payload = decode(snap, wl[k])
                 results[i] = payload
-        self.last_stage_s["decode"] += time.monotonic() - t1
+        self._add_stage_s("decode", time.monotonic() - t1)
         return ctx
 
     def _resolve_deferred(self, snap: _Snapshot, ctxs: List[dict]) -> None:
@@ -476,6 +572,15 @@ class _RawFastPath:
             if ctx["held"]:
                 staging.release(*ctx["held"])
                 ctx["held"] = []
+
+
+def _concat_results(ctxs: List[dict]) -> list:
+    if len(ctxs) == 1:
+        return ctxs[0]["results"].tolist()
+    out: list = []
+    for ctx in ctxs:
+        out.extend(ctx["results"].tolist())
+    return out
 
 
 def _gather_flag_bits(engine, snap, ctxs) -> dict:
@@ -539,6 +644,9 @@ class SARFastPath(_RawFastPath):
             # takes the exact path
             return [self._python_fallback(b) for b in bodies]
         return self.process_raw(bodies, snap)
+
+    def _pipeline_ready(self) -> bool:
+        return self.authorizer.ready()
 
     # --------------------------------------------------------------- hooks
 

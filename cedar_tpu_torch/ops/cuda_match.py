@@ -72,6 +72,9 @@ L_MULTIPLE = 64
 _ALIGN = 16
 
 LAUNCHES = {"match_groups_kernel": 0, "match_words_kernel": 0}
+# the serving pipeline launches from two threads (dispatch: the words;
+# decode: the gated rows' first-match), so a count is a locked add
+_launch_lock = threading.Lock()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -79,12 +82,19 @@ _build_log = ""
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launch_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    with _launch_lock:
+        return dict(LAUNCHES)
+
+
+def _count_launch(kernel: str) -> None:
+    with _launch_lock:
+        LAUNCHES[kernel] += 1
 
 
 def build_log() -> str:
@@ -294,7 +304,7 @@ def match_groups(
         B, L, R, n_groups, bn, stream,
     )
     _check_launch(lib, rc, "match_groups_kernel")
-    LAUNCHES["match_groups_kernel"] += 1
+    _count_launch("match_groups_kernel")
     return first, last
 
 
@@ -330,5 +340,5 @@ def match_words(
         B, L, R, n_tiers, int(bool(has_gate)), bn, stream,
     )
     _check_launch(lib, rc, "match_words_kernel")
-    LAUNCHES["match_words_kernel"] += 1
+    _count_launch("match_words_kernel")
     return scratch[head:]

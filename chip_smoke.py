@@ -62,6 +62,34 @@ Phases, each a hard failure with a nonzero exit:
      Then a rule-tile probe: match_groups_kernel's device time at B = 4096
      on both planes with the tile forced to 64, 128 and 256 rules (the
      choice cuda_match.rule_tile makes from the grid size).
+  8. webhook (this slice's main path): the gated sub-phase's policy set
+     written to a directory with a JSON StoreConfig, and
+     `python3 -m cedar_tpu_torch.cli.webhook --insecure` started on it as
+     a subprocess on the card (default --device cuda, pipelined batcher);
+     the expected answers from the library SARFastPath over a store built
+     from the same directory, held against the interpreter's answers of
+     phase 4b (decision and reason set, 0 flips); then the first 300
+     gated bodies POSTed one at a time on one keep-alive connection, all
+     4096 from 64 client threads, and phase 4's 4096 synth bodies (no
+     gated scope forced) from 64 threads, every response's status equal
+     to the expected one (a flip prints its body's latency and both
+     answers). From the server's /debug/engine (launch counts 0 before
+     the traffic: the server resets them after its start-up warm-up,
+     whose launches it reports apart) and /metrics: both kernels
+     launched, no fallback batch, a mean batch above 1 under 64 clients.
+     Prints, per window, requests/s, p50 / p99 / first-body / max
+     latency, the mean batch, the mean
+     stage times per batch and the launches; the largest batch; and the
+     server's peak RSS (its rusage, reaped after SIGTERM, which must end
+     it with code 0 within --shutdown-grace-seconds + 5 s). Then the
+     CLI's two other serving modes, each a new server on the same store:
+     --pipeline-depth 0 (serial batch loop; both kernels launched) and
+     --no-native (one engine call per request thread), each answering
+     the first 300 gated bodies from 16 clients with 0 flips and exiting
+     0 on SIGTERM. No client request is retried: a reset or dropped
+     connection fails the phase. --profile: then a lone request's stage
+     split in this process (one thread, torch.profiler, and an
+     in-process PipelinedBatcher).
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -71,11 +99,17 @@ CUDA is unavailable or the package is missing.
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import os
+import signal
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 
@@ -348,6 +382,61 @@ def profile_answer(torch, fn, label: str) -> None:
           + json.dumps({k: round(v, 1) for k, v in top}), flush=True)
 
 
+def reason_key(status: dict, rename: dict) -> tuple:
+    """(allowed, denied, evaluationError, sorted policy ids) of a SAR
+    response status, raw or canon()'d; ids mapped through `rename` (a
+    directory store names a policy <file>.policy<N>)."""
+    reason = status["reason"]
+    if isinstance(reason, list):
+        reasons = [json.loads(r) for r in reason]
+    elif reason.startswith("{"):
+        reasons = json.loads(reason).get("reasons", [])
+    else:
+        reasons = [{"policy": reason}]
+    ids = sorted(rename.get(r["policy"], r["policy"]) for r in reasons)
+    return status["allowed"], status["denied"], status.get("evaluationError"), ids
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port: int, path: str):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+        return r.status, r.read()
+
+
+class SarClient:
+    """One keep-alive connection to the webhook; post() -> (status doc,
+    seconds). A request that fails in any way (a reset or dropped
+    connection, a non-200 answer) raises: nothing is retried."""
+
+    def __init__(self, port: int):
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def post(self, body: bytes):
+        t = time.perf_counter()
+        self.conn.request("POST", "/v1/authorize", body=body,
+                          headers={"Content-Type": "application/json"})
+        resp = self.conn.getresponse()
+        data = resp.read()
+        dt = time.perf_counter() - t
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status}: {data[:200]!r}")
+        if resp.will_close:
+            raise RuntimeError("the webhook closed a keep-alive connection")
+        return json.loads(data)["status"], dt
+
+    def close(self):
+        self.conn.close()
+
+
+def pct(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs), q))
+
+
 def diag_key(decision, diag):
     """Decision and reason set: what must agree with the interpreter
     (error message texts differ by design: the device plane reports
@@ -364,7 +453,8 @@ def main() -> None:
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
                          "with torch.profiler and print the device's busy and "
-                         "idle share")
+                         "idle share; after phase 8, split a lone request's time over "
+                         "the pipeline stages in-process")
     args = ap.parse_args()
 
     import torch
@@ -872,18 +962,18 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     print(f"rule-tile probe, match_groups_kernel device ms ({card}): "
           + json.dumps(tiles), flush=True)
 
-    # each kernel's launches on this slice's main path, the fast path: the
-    # words launch of its batch-4096 answer, the first-match launches of
-    # its gated rows; and on the earlier paths
-    own_path = {"match_groups_kernel": gated_launches, "match_words_kernel": fast_launches["4096"]}
+    # ---- 8. webhook: the CLI entry point on the card, over HTTP
+    webhook_launches = webhook_phase(args, card, corpus, g_batch, oracle_answers["gated"], big)
+
+    # each kernel's launches on this slice's main path, the webhook's
+    # traffic (counted in the server process); and on the earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
-        if own_path[k][k] < 1:
-            fail(f"{k} was not launched on the fast path")
         kernels.append({
             "name": k, **meta,
-            "launches": own_path[k][k],
+            "launches": webhook_launches[k],
+            "launches_webhook": webhook_launches[k],
             "launches_fastpath": {label: c[k] for label, c in fast_launches.items()},
             "launches_fastpath_gated": gated_launches[k],
             "launches_serving": serving_launches[k],
@@ -912,6 +1002,335 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
         "ok": True,
         "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()},
     }), flush=True)
+
+
+def profile_stages(card: str, fast, bodies: list) -> None:
+    """--profile: where a lone request's time goes, in this process (the
+    webhook is stopped). The three pipeline stages called one body at a
+    time on this thread (median ms each), fifty of those under
+    torch.profiler (this thread's top host-side ops by self CPU time, and
+    the device's busy time), then the same bodies submitted one at a
+    time to an in-process PipelinedBatcher (p50 and mean stage ms from
+    its histograms): the same work on the pipeline's threads."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cedar_tpu_torch.engine.batcher import PipelinedBatcher
+    from cedar_tpu_torch.server.metrics import WebhookMetrics
+
+    def one(body, split):
+        t0 = time.perf_counter()
+        ctx = fast.pipeline_encode([body])
+        t1 = time.perf_counter()
+        ctx = fast.pipeline_dispatch(ctx)
+        t2 = time.perf_counter()
+        fast.pipeline_decode(ctx)
+        t3 = time.perf_counter()
+        for k, a, b in (("encode", t0, t1), ("dispatch", t1, t2), ("decode", t2, t3)):
+            split[k].append(b - a)
+
+    split = {"encode": [], "dispatch": [], "decode": []}
+    for body in bodies:
+        one(body, split)
+    print(f"profile webhook stages, one thread, batch 1 ({card}): median ms "
+          + json.dumps({k: round(pct(v, 50) * 1e3, 4) for k, v in split.items()}), flush=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for body in bodies[:50]:
+            one(body, {"encode": [], "dispatch": [], "decode": []})
+        wall = time.perf_counter() - t
+    cpu, dev, n_dev = {}, 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            dev += ev.self_device_time_total
+            n_dev += ev.count
+        else:
+            cpu[ev.key[:50]] = (ev.self_cpu_time_total, ev.count)
+    top = sorted(cpu.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"profile webhook stages, 50 bodies one at a time on one thread ({card}): wall "
+          f"{wall:.4f} s, device busy {dev / 1e6:.6f} s over {n_dev} device kernels and "
+          "copies; top host ops by self CPU us (calls): "
+          + json.dumps({k: [round(v[0], 1), v[1]] for k, v in top}), flush=True)
+    m = WebhookMetrics()
+    b = PipelinedBatcher(fast, depth=2, encode_workers=0, metrics=m, metrics_path="authorization")
+    try:
+        lat = []
+        for body in bodies:
+            t = time.perf_counter()
+            b.submit(body, timeout=60)
+            lat.append(time.perf_counter() - t)
+    finally:
+        b.stop()
+    stages = {k: round(v[0] / max(v[1], 1) * 1e3, 4) for k, v in stage_totals(m.expose()).items()}
+    print(f"profile webhook stages, in-process PipelinedBatcher, concurrency 1 ({card}): "
+          f"p50 {pct(lat, 50) * 1e3:.3f} ms; mean stage ms {json.dumps(stages)}", flush=True)
+
+
+def stage_totals(metrics_text: str) -> dict:
+    """{stage: (sum s, count)} of cedar_pipeline_stage_seconds."""
+    out: dict = {}
+    for line in metrics_text.splitlines():
+        for part, k in (("_sum{", 0), ("_count{", 1)):
+            if line.startswith("cedar_pipeline_stage_seconds" + part):
+                stage = line.split('stage="')[1].split('"')[0]
+                vals = out.setdefault(stage, [0.0, 0.0])
+                vals[k] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def run_window(port: int, bodies: list, expected: list, concurrency: int):
+    """POST every body from `concurrency` client threads, one keep-alive
+    connection each -> (wall s, [latency s], flips vs expected); prints
+    the first three flips."""
+    lat = [0.0] * len(bodies)
+    got = [None] * len(bodies)
+    errors = []
+    next_i = [0]
+    lock = threading.Lock()
+
+    def worker():
+        c = SarClient(port)
+        try:
+            while True:
+                with lock:
+                    i = next_i[0]
+                    next_i[0] += 1
+                if i >= len(bodies):
+                    return
+                got[i], lat[i] = c.post(bodies[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"webhook concurrency {concurrency}: client errors {errors[:3]}")
+    flips = [i for i, (g, e) in enumerate(zip(got, expected)) if g != e]
+    for i in flips[:3]:
+        print(f"webhook concurrency {concurrency}: body {i} took {lat[i] * 1e3:.3f} ms, "
+              f"expected {json.dumps(expected[i])}, got {json.dumps(got[i])}", flush=True)
+    return wall, lat, len(flips)
+
+
+class Webhook:
+    """One `python3 -m cedar_tpu_torch.cli.webhook --insecure` subprocess
+    on free ports, its output in a log file under `tmp`."""
+
+    def __init__(self, cfg: str, tmp: str, name: str, grace: float, flags=()):
+        self.port, self.mport = free_port(), free_port()
+        self.grace = grace
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        self.cmd = [sys.executable, "-m", "cedar_tpu_torch.cli.webhook", "--config", cfg,
+                    "--insecure", "--bind-address", "127.0.0.1", "--secure-port",
+                    str(self.port), "--metrics-port", str(self.mport),
+                    "--shutdown-grace-seconds", str(grace), *flags]
+        self.t0 = time.monotonic()
+        with open(self.log_path, "w") as log_f:
+            self.proc = subprocess.Popen(self.cmd, stdout=log_f, stderr=subprocess.STDOUT,
+                                         cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            lines = f.read().splitlines()
+        return "\n".join(line for line in lines if "requestId=" not in line)[-4000:]
+
+    def wait_ready(self) -> None:
+        """Poll /readyz; a server that exits or is not ready in 600 s fails."""
+        deadline = time.monotonic() + 600
+        while True:
+            if self.proc.poll() is not None:
+                fail(f"the webhook exited with code {self.proc.returncode} before it was "
+                     f"ready:\n{self.log()}")
+            try:
+                if http_get(self.mport, "/readyz")[0] == 200:
+                    break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                fail(f"the webhook was not ready within 600 s:\n{self.log()}")
+            time.sleep(0.2)
+        print(f"webhook: ready in {time.monotonic() - self.t0:.1f} s: {' '.join(self.cmd[1:])}",
+              flush=True)
+
+    def debug_engine(self) -> dict:
+        return json.loads(http_get(self.mport, "/debug/engine")[1])
+
+    def terminate(self):
+        """SIGTERM; reaped with wait4 -> (seconds to exit, peak RSS text).
+        It must exit with code 0 within the grace window + 5 s."""
+        t = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        while True:
+            pid, status, usage = os.wait4(self.proc.pid, os.WNOHANG)
+            if pid:
+                self.proc.returncode = os.waitstatus_to_exitcode(status)
+                break
+            if time.monotonic() - t > self.grace + 5:
+                fail(f"the webhook did not exit within {self.grace + 5:g} s of SIGTERM")
+            time.sleep(0.05)
+        took = time.monotonic() - t
+        if self.proc.returncode != 0:
+            fail(f"the webhook exited with code {self.proc.returncode} on SIGTERM:\n{self.log()}")
+        return took, (f"{usage.ru_maxrss / 1024:.1f} MiB" if usage.ru_maxrss else "not measured")
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+
+def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: list) -> dict:
+    """Phase 8 (module docstring): `bodies` are the gated sub-phase's,
+    with the interpreter's answers `oracle`; `clean` more synth bodies
+    (no gated scope forced). Returns the server's kernel launch counts
+    over the phase's traffic."""
+    from cedar_tpu_torch.corpus.synth import synth_source
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import SARFastPath
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.server.sar import sar_response
+    from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+    from cedar_tpu_torch.stores.store import TieredPolicyStores
+
+    grace = 5.0
+    with tempfile.TemporaryDirectory(prefix="cedar-webhook-") as tmp:
+        pol_dir = os.path.join(tmp, "policies")
+        os.mkdir(pol_dir)
+        # the gated set: the corpus in one file, the two gated policies in
+        # another; a directory store names policy i of a file
+        # <file>.policy<i>, the interpreter's set its own ids
+        with open(os.path.join(pol_dir, "synth.cedar"), "w") as f:
+            f.write(synth_source(args.policies, seed=args.seed))
+        with open(os.path.join(pol_dir, "gated.cedar"), "w") as f:
+            f.write(FALLBACK_POLICY + NATIVE_OPAQUE_POLICY)
+        rename = {f"synth.cedar.policy{i}": p.policy_id for i, p in enumerate(corpus.policies)}
+        extra = PolicySet.from_source(FALLBACK_POLICY + NATIVE_OPAQUE_POLICY, "gated").policies()
+        rename.update({f"gated.cedar.policy{j}": p.policy_id for j, p in enumerate(extra)})
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "directory",
+                                            "directoryStore": {"path": pol_dir}}]}}, f)
+        srv = Webhook(cfg, tmp, "webhook", grace)
+        port, mport = srv.port, srv.mport
+        try:
+            # the expected answers meanwhile, in this process: the library
+            # fast path over a store built from the same directory
+            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir)])
+            x_engine = TorchPolicyEngine()
+            x_engine.load([s.policy_set() for s in stores])
+            x_fast = SARFastPath(x_engine, CedarWebhookAuthorizer(
+                stores, evaluate_batch=x_engine.evaluate_batch))
+            expected = [sar_response(*r)["status"] for r in x_fast.authorize_raw(bodies)]
+            expected_clean = [sar_response(*r)["status"] for r in x_fast.authorize_raw(clean)]
+            lib_flips = sum(reason_key(e, rename) != reason_key(o, {})
+                            for e, o in zip(expected, oracle))
+            print(f"webhook expected answers: library fast path over the directory store, "
+                  f"flips vs the interpreter {lib_flips}", flush=True)
+            if lib_flips or len(expected) != len(oracle):
+                fail(f"webhook phase: {lib_flips} expected answers differ from the interpreter")
+
+            srv.wait_ready()
+
+            def snapshot():
+                doc = srv.debug_engine()["authorization"]
+                return doc, http_get(mport, "/metrics")[1].decode()
+
+            doc, text = snapshot()
+            if any(doc["engine"]["launches"].values()) or doc["engine"]["device"] != "cuda":
+                fail(f"webhook before traffic: {doc['engine']}")
+            print(f"webhook start-up warm-up launches: "
+                  f"{json.dumps(doc['engine']['warmup_launches'])}", flush=True)
+            flips = 0
+            for label, win_bodies, win_expected, conc in (
+                ("concurrency 1", bodies[:300], expected[:300], 1),
+                ("concurrency 64", bodies, expected, 64),
+                ("concurrency 64, no gated body", clean, expected_clean, 64),
+            ):
+                wall, lat, n_flips = run_window(port, win_bodies, win_expected, conc)
+                flips += n_flips
+                doc2, text2 = snapshot()
+                p1, p2 = doc["pipeline"], doc2["pipeline"]
+                n_batches = p2["batches_total"] - p1["batches_total"]
+                mean = (p2["rows_total"] - p1["rows_total"]) / max(n_batches, 1)
+                st1, st2 = stage_totals(text), stage_totals(text2)
+                stages = {k: round((st2[k][0] - st1.get(k, [0, 0])[0])
+                                   / max(st2[k][1] - st1.get(k, [0, 0])[1], 1) * 1e3, 4)
+                          for k in sorted(st2)}
+                l1, l2 = doc["engine"]["launches"], doc2["engine"]["launches"]
+                print(f"webhook {label} ({card}): {len(win_bodies) / wall:.1f} requests/s, "
+                      f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms, "
+                      f"first body {lat[0] * 1e3:.3f} ms, max {max(lat) * 1e3:.3f} ms, "
+                      f"mean batch {mean:.2f} over {n_batches} batches, flips vs expected "
+                      f"{n_flips} / {len(win_bodies)}; mean stage ms per batch "
+                      f"{json.dumps(stages)}; launches "
+                      f"{json.dumps({k: l2[k] - l1[k] for k in l2})}", flush=True)
+                if label == "concurrency 64" and not mean > 1:
+                    fail(f"webhook: mean batch {mean:.2f} under 64 clients, want above 1")
+                doc, text = doc2, text2
+            launches = doc["engine"]["launches"]
+            fallback = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                           if line.startswith("cedar_authorizer_fallback_batches_total{"))
+            routing = {line.split('row_class="')[1].split('"')[0]: int(float(line.rsplit(" ", 1)[1]))
+                       for line in text.splitlines()
+                       if line.startswith("cedar_authorizer_row_routing_total{")}
+            pipe = doc["pipeline"]
+            print(f"webhook launches {json.dumps(launches)}, fallback batches {fallback:g}, "
+                  f"routing {json.dumps(routing)}", flush=True)
+            print("webhook pipeline: " + json.dumps({k: pipe[k] for k in (
+                "batches_total", "rows_total", "largest_batch", "inflight_peak",
+                "stall_seconds", "depth", "encode_workers")}), flush=True)
+            print(f"webhook largest batch ({card}): {pipe['largest_batch']}", flush=True)
+            if flips:
+                fail(f"webhook: {flips} answers differ from the expected ones")
+            if launches["match_words_kernel"] < 1 or launches["match_groups_kernel"] < 1:
+                fail(f"webhook traffic should launch both kernels: {launches}")
+            if fallback:
+                fail(f"webhook: {fallback:g} fallback batches")
+
+            took, rss = srv.terminate()
+            print(f"webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+
+        # the two other serving modes of the CLI, on the card: the serial
+        # batch loop (--pipeline-depth 0), and --no-native (no fast path:
+        # each request thread evaluates its own SAR on the engine). The
+        # first 300 gated bodies from 16 clients, 0 flips.
+        for flags in (("--pipeline-depth", "0"), ("--no-native",)):
+            alt = Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags)
+            try:
+                alt.wait_ready()
+                wall, lat, n_flips = run_window(alt.port, bodies[:300], expected[:300], 16)
+                doc = alt.debug_engine()
+                mode = (f"{doc['authorization']['pipeline']['mode']} batcher, launches "
+                        f"{json.dumps(doc['authorization']['engine']['launches'])}"
+                        if doc else "no batcher")
+                print(f"webhook {' '.join(flags)}, concurrency 16 ({card}): "
+                      f"{300 / wall:.1f} requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, "
+                      f"p99 {pct(lat, 99) * 1e3:.3f} ms, first body {lat[0] * 1e3:.3f} ms, "
+                      f"max {max(lat) * 1e3:.3f} ms, {mode}, flips vs expected "
+                      f"{n_flips} / 300", flush=True)
+                if n_flips:
+                    fail(f"webhook {' '.join(flags)}: {n_flips} answers differ from the "
+                         "expected ones")
+                if doc and not all(doc["authorization"]["engine"]["launches"].values()):
+                    fail(f"webhook {' '.join(flags)} should launch both kernels: {mode}")
+                alt.terminate()
+            finally:
+                alt.kill()
+        if args.profile:
+            profile_stages(card, x_fast, bodies[:200])
+        return launches
 
 
 if __name__ == "__main__":

@@ -305,3 +305,70 @@ def test_fastpath_launches_as_predicted(cuda):
     assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 5}
     assert got[:1] == one
     assert got[::97] == cpu.authorize_raw(bodies[::97])
+
+
+@pytest.mark.cuda
+def test_webhook_server_on_card_equals_cpu_engine(cuda):
+    """The port's WebhookServer in-process on the card, behind its
+    pipelined batcher: a few hundred synth SARs (gated, flagged and
+    malformed rows among them) from 32 client threads answer as the CPU engine's fast path does, and
+    both kernels were launched by the server's traffic."""
+    import http.client
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.http import WebhookServer
+    from cedar_tpu_torch.server.sar import sar_response
+
+    corpus = synth_corpus(400, seed=9)
+    gpu, cpu = _fast_paths([PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]])
+    bodies = _mixed_bodies(corpus, 384, seed=10)
+    srv = WebhookServer(gpu.authorizer, address="127.0.0.1", port=0, metrics_port=0,
+                        fastpath=gpu, pipeline_depth=2, request_timeout_s=60.0)
+    srv.start()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.bound_port, timeout=60)
+        try:
+            conn.request("POST", "/v1/authorize", body=body)
+            return json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+
+    try:
+        post(bodies[1])  # the kernels' library loads on the first launch
+        cuda_match.reset_launch_counts()
+        with ThreadPoolExecutor(32) as pool:
+            got = list(pool.map(post, bodies))
+        launches = cuda_match.launch_counts()
+    finally:
+        srv.stop()
+    want = [json.loads(json.dumps(sar_response(*r))) for r in cpu.authorize_raw(bodies)]
+    assert got == want
+    assert launches["match_words_kernel"] > 0 and launches["match_groups_kernel"] > 0
+    assert srv.metrics.fallback_batches_total.value(path="authorization", reason="evaluator_error") == 0
+
+
+@pytest.mark.cuda
+def test_engine_warmup_launches_per_bucket(cuda):
+    """warmup(128) takes buckets 1, 8, 32 and 128: per bucket one words
+    launch, one groups launch (want_full) and one words launch with the
+    in-launch bitset compaction; the answers after it equal the CPU
+    engine's."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+
+    key = lambda r: (r[0], sorted(x.policy for x in r[1].reasons), sorted(r[1].errors))  # noqa: E731
+    corpus = synth_corpus(400, seed=5, clusters=2)
+    gpu, cpu = TorchPolicyEngine(), TorchPolicyEngine(device="cpu")
+    gpu.load(corpus.tiers())
+    cpu.load(corpus.tiers())
+    cuda_match.reset_launch_counts()
+    want_launches = {"match_groups_kernel": 4, "match_words_kernel": 8}
+    assert gpu.warmup(128) == want_launches
+    assert cuda_match.launch_counts() == want_launches
+    assert gpu.stats["warmup_launches"] == want_launches
+    items = corpus.sar_items(300, seed=1)
+    assert [key(r) for r in gpu.evaluate_batch(items)] == [key(r) for r in cpu.evaluate_batch(items)]
