@@ -1,20 +1,25 @@
-"""cedar-webhook (port): the SubjectAccessReview webhook on the card.
+"""cedar-webhook (port): the authorization and admission webhook on the card.
 
     python -m cedar_tpu_torch.cli.webhook --config store-config.json --insecure
 
-Wiring of the JAX package's cli/webhook.py for one engine and one entry
-point: read the store config, build the tiered stores, compile them into a
-TorchPolicyEngine on ``--device`` (CUDA unless ``--device cpu`` is given;
-without CUDA the start fails), put the native SAR fast path and its
-micro-batcher in front of it, and serve ``POST /v1/authorize`` (TLS with
-self-signed certs unless ``--insecure`` or cert files are given) plus the
-plain health and metrics server.
+Wiring of the JAX package's cli/webhook.py for two engines and two entry
+points: read the store config, build the tiered stores, and compile two
+tier stacks on ``--device`` (CUDA unless ``--device cpu`` is given;
+without CUDA the start fails), each into its own TorchPolicyEngine: the
+authorization stack (the stores) and the admission stack (the same stores
+plus the constant allow-all final tier, as the reference's
+cmd/cedar-webhook/main.go:111-116 builds it). In front of each, its native
+fast path and micro-batcher; the server answers ``POST /v1/authorize``
+and ``POST /v1/admit`` (TLS with self-signed certs unless ``--insecure``
+or cert files are given) plus the plain health and metrics server.
 
-``--backend device`` (the default) serves from the engine;
+``--backend device`` (the default) serves from the engines;
 ``--backend interpreter`` serves from the Python interpreter only, with no
-engine. The policies load once, at start. Flags of the JAX CLI that this
-port does not serve (admission, cache, fleet, tenancy, tracing, ...) do
-not exist here, so argparse rejects them.
+engine. ``--admission-fail-mode`` says what /v1/admit answers when an
+evaluation fails or outlives its deadline. The policies load once, at
+start. Flags of the JAX CLI that this port does not serve (breaker,
+cache, fleet, tenancy, tracing, ...) do not exist here, so argparse
+rejects them.
 """
 
 from __future__ import annotations
@@ -26,19 +31,21 @@ import sys
 import threading
 from typing import List, Optional
 
+from ..server.admission import CedarAdmissionHandler, allow_all_admission_policy_store
 from ..server.authorizer import CedarWebhookAuthorizer
 from ..server.certs import maybe_self_signed_certs
 from ..server.http import DEFAULT_ADDRESS, DEFAULT_PORT, METRICS_PORT, WebhookServer
 from ..stores.config import cedar_config_stores, parse_config
+from ..stores.store import TieredPolicyStores
 
 log = logging.getLogger(__name__)
 
 
 def build_server(args) -> WebhookServer:
-    """stores -> authorizer -> engine (loaded from the stores) -> fast
-    path -> WebhookServer. Raises when the device is unavailable, a store
-    type is not ported, or the native encoder or the kernels cannot be
-    built."""
+    """stores -> the authorization and admission stacks, each an engine
+    loaded from its stores behind its fast path -> WebhookServer. Raises
+    when the device is unavailable, a store type is not ported, or the
+    native encoder or the kernels cannot be built."""
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
         certfile = keyfile = None
@@ -50,41 +57,48 @@ def build_server(args) -> WebhookServer:
         with open(args.config) as f:
             config = parse_config(f.read())
     stores = cedar_config_stores(config)
+    # admission gets the allow-all final tier (main.go:111-116)
+    admission_stores = TieredPolicyStores(
+        list(stores.stores) + [allow_all_admission_policy_store()]
+    )
+    admission_fail_open = args.admission_fail_mode == "open"
 
-    fastpath = None
+    fastpath = admission_fastpath = None
     if args.backend == "interpreter":
         if not len(stores.stores):
             log.warning("no policy stores configured; authorizer will no-opinion")
         authorizer = CedarWebhookAuthorizer(stores)
+        admission_handler = CedarAdmissionHandler(
+            admission_stores, allow_on_error=admission_fail_open
+        )
     else:
-        from ..engine.evaluator import TorchPolicyEngine
-
         if not len(stores.stores):
             raise ValueError("--backend device needs at least one policy store (--config)")
-        engine = TorchPolicyEngine(device=args.device)
-        stats = engine.load([s.policy_set() for s in stores])
-        log.info("engine on %s loaded: %s", engine.device, stats)
-        authorizer = CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch)
-        # nvcc and every first-use cost of the device paths now, not
-        # inside the first requests' deadlines; the CPU's plain versions
-        # have no per-shape first-use cost, so one bucket does there
-        warm = engine.warmup(args.max_batch if engine.device.type == "cuda" else 1)
+        engine = _engine(args, stores, "authorization")
+        admission_engine = _engine(args, admission_stores, "admission")
         if engine.device.type == "cuda":
             from ..ops import cuda_match
 
             # the launch counts describe served traffic from 0; the
-            # warm-up's stay in engine.stats["warmup_launches"]
+            # warm-ups' stay in each engine.stats["warmup_launches"]
             cuda_match.reset_launch_counts()
-        log.info("engine warmed up: launches %s", warm)
+        authorizer = CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch)
+        admission_handler = CedarAdmissionHandler(
+            admission_stores,
+            allow_on_error=admission_fail_open,
+            evaluate_batch=admission_engine.evaluate_batch,
+        )
         if not args.no_native:
-            from ..engine.fastpath import SARFastPath
+            from ..engine.fastpath import AdmissionFastPath, SARFastPath
             from ..native import set_encode_threads
 
             if args.native_encode_threads > 0:
                 set_encode_threads(args.native_encode_threads)
             fastpath = SARFastPath(engine, authorizer)
             fastpath.prepare()
-            log.info("native SAR fast path enabled")
+            admission_fastpath = AdmissionFastPath(admission_engine, admission_handler)
+            admission_fastpath.prepare()
+            log.info("native SAR and admission fast paths enabled")
 
     server = WebhookServer(
         authorizer=authorizer,
@@ -100,12 +114,30 @@ def build_server(args) -> WebhookServer:
         drain_grace_s=args.shutdown_grace_seconds,
         pipeline_depth=args.pipeline_depth,
         encode_workers=args.encode_workers,
+        admission_handler=admission_handler,
+        admission_fastpath=admission_fastpath,
+        admission_fail_open=admission_fail_open,
     )
     if fastpath is not None:
         from ..native import _default_encode_threads
 
         server.metrics.set_native_encode_threads(_default_encode_threads())
     return server
+
+
+def _engine(args, stores: TieredPolicyStores, name: str):
+    """One tier stack compiled into a TorchPolicyEngine on --device and
+    warmed up: nvcc and every first-use cost of the device paths now, not
+    inside the first requests' deadlines (the CPU's plain versions have no
+    per-shape first-use cost, so one bucket does there)."""
+    from ..engine.evaluator import TorchPolicyEngine
+
+    engine = TorchPolicyEngine(device=args.device)
+    stats = engine.load([s.policy_set() for s in stores])
+    log.info("%s engine on %s loaded: %s", name, engine.device, stats)
+    warm = engine.warmup(args.max_batch if engine.device.type == "cuda" else 1)
+    log.info("%s engine warmed up: launches %s", name, warm)
+    return engine
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -162,8 +194,8 @@ def make_parser() -> argparse.ArgumentParser:
     cedar.add_argument(
         "--no-native",
         action="store_true",
-        help="disable the C++ SAR fast path (python encode, one device "
-        "evaluation per request)",
+        help="disable the C++ fast paths (python encode; one device "
+        "evaluation per /v1/authorize request, one per admission batch)",
     )
 
     serving = parser.add_argument_group("secure serving")
@@ -185,7 +217,16 @@ def make_parser() -> argparse.ArgumentParser:
         type=float,
         default=2000.0,
         help="per-request deadline budget; on expiry /v1/authorize answers "
-        "NoOpinion+evaluationError (0 disables)",
+        "NoOpinion+evaluationError and /v1/admit answers the configured "
+        "fail-mode (0 disables)",
+    )
+    resilience.add_argument(
+        "--admission-fail-mode",
+        default="open",
+        choices=["open", "closed"],
+        help="admission answer when evaluation crashes or exceeds its "
+        "deadline: open allows (keeps the cluster write path alive), "
+        "closed denies (nothing unevaluated is admitted)",
     )
     resilience.add_argument(
         "--shutdown-grace-seconds",

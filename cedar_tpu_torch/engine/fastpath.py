@@ -1,5 +1,5 @@
-"""SAR fast path: raw SubjectAccessReview bytes -> decisions, native end
-to end.
+"""The fast paths: raw SubjectAccessReview and AdmissionReview bytes ->
+answers, native end to end.
 
 Fuses the C++ encoder (native/) with the device match: the host never
 builds Python entity objects for a well-formed request. Per request the
@@ -32,7 +32,11 @@ chunk k's device work; clean rows decode once per distinct verdict word;
 flagged (multi/err) rows get their rule bitsets from the launch itself
 (batches of at most BITS_INCALL_MAX rows) or from one deferred cross-chunk
 fetch; gated rows defer to one batched Python re-run. SARFastPath supplies
-the SAR-specific pieces (encode, flag routing, per-row fallback, decode).
+the SAR-specific pieces (encode, flag routing, per-row fallback, decode);
+AdmissionFastPath the admission ones, over the admission tier stack's
+engine and CedarAdmissionHandler (server/admission.py): the C++ encoder
+walks the review's (old)object, the namespace skip is an encoder gate, and
+a deny carries every matched forbid in its message.
 
 The same work is also split into three stages (pipeline_encode /
 pipeline_dispatch / pipeline_decode) that engine/batcher.py
@@ -53,6 +57,8 @@ import numpy as np
 
 from ..lang.authorize import ALLOW, DENY, Diagnostics, Reason
 from ..native import (
+    F_ADM_ERROR,
+    F_ADM_NS_SKIP,
     F_EXTRAS_OVERFLOW,
     F_OK,
     F_PARSE_ERROR,
@@ -62,6 +68,8 @@ from ..native import (
     NativeEncoder,
 )
 from ..ops.match import WORD_ERR, WORD_GATE, WORD_MULTI
+from ..entities.admission import AdmissionRequest, review_request_uid
+from ..server.admission import AdmissionResponse
 from ..server.authorizer import (
     DECISION_ALLOW,
     DECISION_DENY,
@@ -144,7 +152,8 @@ class _RawFastPath:
     """The chunked raw-bytes pipeline (see the module docstring).
 
     Subclasses implement `_encode_into`, `_route_flags`, `_fallback_row`,
-    `_run_gated`, `_decode_word_payload` and `_decode_bits_payload`; the
+    `_run_gated`, `_decode_word_payload` and `_decode_bits_payload`, and
+    `_emit` where a row's result is not the shared payload itself; the
     snapshot, the chunk overlap, the clean decode and the deferred
     gated/flagged resolve live here."""
 
@@ -157,6 +166,9 @@ class _RawFastPath:
     # chunks of at most this many rows get their flagged rows' bitsets
     # from the launch itself (want_bits); larger ones fetch them after
     _BITS_INCALL_MAX = BITS_INCALL_MAX
+    # True when _emit returns the payload unchanged (SAR): clean rows then
+    # take the shared payload objects in one fancy-index scatter
+    _EMIT_IDENTITY = True
 
     def __init__(self, engine: TorchPolicyEngine):
         self.engine = engine
@@ -235,6 +247,11 @@ class _RawFastPath:
     def _decode_bits_payload(self, snap: _Snapshot, row_bits):
         """Decode one rule-bitset row into a result."""
         raise NotImplementedError
+
+    def _emit(self, payload, i: int, aux):
+        """Render a shared payload into the result of row i (the identity
+        unless _EMIT_IDENTITY is False)."""
+        return payload
 
     # ------------------------------------------------------------- pipeline
 
@@ -513,8 +530,11 @@ class _RawFastPath:
                 ok_codes[miss], ok_extras[miss], cs=snap.cs
             )
         decode = self._decode_word_payload
+        emit = self._emit
         if not handled:
-            # one result per distinct word, then one fancy-index scatter
+            # one payload per distinct word, then one fancy-index scatter
+            # (admission rows still build one response per row: each
+            # carries its own uid)
             uniq, inv = np.unique(w, return_inverse=True)
             payloads = np.empty(len(uniq), dtype=object)
             for j, word in enumerate(uniq.tolist()):
@@ -522,7 +542,14 @@ class _RawFastPath:
                 if payload is None:
                     payload = decode(snap, word)
                 payloads[j] = payload
-            results[idx] = payloads[inv]
+            if self._EMIT_IDENTITY:
+                results[idx] = payloads[inv]
+            else:
+                row_pay = payloads[inv]
+                out = np.empty(len(idx), dtype=object)
+                for k, i in enumerate(idx.tolist()):
+                    out[k] = emit(row_pay[k], i, aux)
+                results[idx] = out
         else:
             wl = w.tolist()
             for k, i in enumerate(idx.tolist()):
@@ -531,7 +558,7 @@ class _RawFastPath:
                 payload = cache.get(wl[k])
                 if payload is None:
                     payload = decode(snap, wl[k])
-                results[i] = payload
+                results[i] = emit(payload, i, aux)
         self._add_stage_s("decode", time.monotonic() - t1)
         return ctx
 
@@ -565,7 +592,8 @@ class _RawFastPath:
                     payload = cache.get(key)
                     if payload is None:
                         payload = cache[key] = decode_bits(snap, key_bits[key])
-                ctx["results"][int(ctx["idx"][k])] = payload
+                i = int(ctx["idx"][k])
+                ctx["results"][i] = self._emit(payload, i, ctx["aux"])
 
         staging = self.engine._staging
         for ctx in ctxs:
@@ -775,3 +803,166 @@ class SARFastPath(_RawFastPath):
         if diag.errors:
             log.error("Authorize errors: %s", diag.errors)
         return DECISION_NO_OPINION, "", None
+
+
+class AdmissionFastPath(_RawFastPath):
+    """Batch evaluator over raw AdmissionReview JSON bodies: the admission
+    twin of SARFastPath. The C++ encoder parses the review and walks the
+    (old)object into feature codes (native/encoder.cpp build_adm, the walk
+    of entities/admission.py), and the words launch gives the verdicts;
+    a deny message lists every matched forbid, as the reference's handler
+    (internal/server/admission/handler.go:157-164) does.
+
+    The exact Python path (parse errors, conversion errors, extras
+    overflow, gated rows) is CedarAdmissionHandler over the same engine:
+    it answers what the handler answers, and an evaluation failure there
+    raises, as a device failure on the native rows does."""
+
+    _EMIT_IDENTITY = False
+
+    def __init__(self, engine: TorchPolicyEngine, handler):
+        super().__init__(engine)
+        self.handler = handler  # CedarAdmissionHandler: Python path + readiness
+
+    def handle_raw(self, bodies: Sequence[bytes]) -> List[AdmissionResponse]:
+        """Evaluate a batch of raw AdmissionReview JSON bodies. Raises when
+        the native encoder cannot be built or the device fails."""
+        snap = self._current_snapshot()
+        if not self.handler._ready():
+            # every request is allowed until the stores' initial loads
+            # complete (handler.go:49-57); the exact path answers that
+            return [self._py_one(b) for b in bodies]
+        return self.process_raw(bodies, snap)
+
+    def _pipeline_ready(self) -> bool:
+        return self.handler._ready()
+
+    # --------------------------------------------------------------- hooks
+
+    def _encode_into(self, snap, bodies, codes, extras, counts, flags):
+        return snap.encoder.encode_adm_batch_into(bodies, codes, extras, counts, flags)
+
+    def _route_flags(self, flags, results, bodies, uids):
+        for i in np.nonzero(flags == F_ADM_NS_SKIP)[0]:
+            results[i] = AdmissionResponse(uid=uids[i], allowed=True)
+        return np.nonzero(
+            (flags == F_PARSE_ERROR) | (flags == F_ADM_ERROR) | (flags == F_EXTRAS_OVERFLOW)
+        )[0]
+
+    def _fallback_row(self, body: bytes) -> AdmissionResponse:
+        return self._py_one(body)
+
+    def _run_gated(self, bodies: List[bytes]) -> List[AdmissionResponse]:
+        return self._gated_batch(bodies)
+
+    def _decode_word_payload(self, snap: _Snapshot, word: int):
+        """(allowed, message) of one clean verdict word, cached per
+        snapshot; the error logs fire once per distinct word."""
+        code = (word >> 30) & 0x3
+        pol = word & 0xFFFFFF
+        if code == 1:
+            payload = (True, "")
+        elif code == 2:
+            payload = (False, self._deny_message(snap, (pol,)))
+        elif code == 3:
+            log.error(
+                "admission errors: while evaluating policy `%s`: evaluation error",
+                snap.cs.policy_meta[pol].policy_id,
+            )
+            payload = (False, "")
+        else:  # no signal: the allow-all final tier should preclude this
+            log.error(
+                "request denied without reasons; the default permit "
+                "policy was not evaluated"
+            )
+            payload = (False, "")
+        snap.word_cache[word] = payload
+        return payload
+
+    def _decode_bits_payload(self, snap: _Snapshot, row_bits):
+        groups = self.engine._bits_groups(snap.cs, row_bits)
+        decision, diag = self.engine._finalize_sets(snap.cs, groups, None, None)
+        if decision == DENY and diag.reasons:
+            return False, json.dumps([r.to_dict() for r in diag.reasons], separators=(",", ":"))
+        if decision == DENY:
+            if diag.errors:
+                log.error("admission errors: %s", diag.errors)
+            return False, ""
+        return True, ""
+
+    def _emit(self, payload, i: int, uids) -> AdmissionResponse:
+        return AdmissionResponse(uid=uids[i], allowed=payload[0], message=payload[1])
+
+    # ---------------------------------------------------------- python path
+
+    def _parse_one(self, body: bytes):
+        """One raw body -> (request, review, None), or (None, review, error
+        response) with the webhook's answers: a body that does not decode
+        answers denied with the parse error, a request that does not
+        convert the allow-on-error response."""
+        review = None
+        try:
+            review = json.loads(body)
+            return AdmissionRequest.from_admission_review(review), review, None
+        except (ValueError, TypeError, RecursionError) as e:
+            if review is None:
+                return None, None, AdmissionResponse(
+                    uid="", allowed=False, code=400, error=f"failed parsing body: {e}"
+                )
+            return None, review, self._allow_on_error(review, e)
+        except Exception as e:  # noqa: BLE001 — fail-open like the reference
+            log.exception("admission fastpath conversion failed")
+            return None, review, self._allow_on_error(review, e)
+
+    def _py_one(self, body: bytes) -> AdmissionResponse:
+        """The exact Python path for one raw body; an evaluation failure
+        raises."""
+        req, _review, err = self._parse_one(body)
+        if err is not None:
+            return err
+        return self.handler.handle(req, raise_errors=True)
+
+    def _gated_batch(self, bodies: Sequence[bytes]) -> List[AdmissionResponse]:
+        """The exact Python path for gate-flagged rows, in one
+        handler.handle_batch call (one engine.evaluate_batch); per-row
+        parse and conversion answers as _py_one's. An evaluation failure
+        raises."""
+        results: list = [None] * len(bodies)
+        reqs = []  # (row, AdmissionRequest)
+        for i, body in enumerate(bodies):
+            req, _review, err = self._parse_one(body)
+            if err is not None:
+                results[i] = err
+            else:
+                reqs.append((i, req))
+        if reqs:
+            responses = self.handler.handle_batch([r for _, r in reqs], raise_errors=True)
+            for (i, _), resp in zip(reqs, responses):
+                results[i] = resp
+        return results
+
+    def _allow_on_error(self, review, e) -> AdmissionResponse:
+        allowed = bool(self.handler.allow_on_error)
+        return AdmissionResponse(
+            uid=review_request_uid(review),
+            allowed=allowed,
+            code=200,
+            error=f"evaluation error ({'allowed' if allowed else 'denied'} on error): {e}",
+        )
+
+    def _deny_message(self, snap: _Snapshot, pols) -> str:
+        """Compact JSON list of reason dicts, byte for byte the handler's
+        _decide rendering (Reason.to_dict per matched policy)."""
+        key = ("adm", tuple(pols))
+        msg = snap.reason_cache.get(key)
+        if msg is None:
+            meta = snap.cs.policy_meta
+            msg = json.dumps(
+                [
+                    Reason(meta[p].policy_id, meta[p].filename, meta[p].position).to_dict()
+                    for p in pols
+                ],
+                separators=(",", ":"),
+            )
+            snap.reason_cache[key] = msg
+        return msg

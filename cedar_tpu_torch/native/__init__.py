@@ -1,5 +1,5 @@
-"""Native (C++) host runtime of the SAR fast path: raw
-SubjectAccessReview JSON -> dictionary-coded feature codes.
+"""Native (C++) host runtime of the fast paths: raw SubjectAccessReview
+and AdmissionReview JSON -> dictionary-coded feature codes.
 
 The port's own copy of the JAX package's native encoder. encoder.cpp
 (beside this file; its comments aside, the same source) turns raw request
@@ -10,9 +10,13 @@ safe, into native/_build/) and bound through ctypes: ``NativeEncoder`` is
 the Python-facing handle; ``serialize_table`` writes the activation-table
 blob it loads.
 
+The admission entries (``encode_adm_batch_into`` / ``encode_adm_batch``)
+walk the review's (old)object in C++ the way entities/admission.py walks
+it, and hand back each row's review uid (at most 255 bytes: a longer uid
+flags the row F_ADM_ERROR, and the caller's Python path answers it).
+
 There is no fallback here: a failed build raises to the caller, and it is
-not remembered, so the next call builds again. The admission entries the
-library also exports are not bound (the admission path is not ported).
+not remembered, so the next call builds again.
 
 Blob format (little-endian; must match BlobReader in encoder.cpp):
 
@@ -71,6 +75,12 @@ F_SELF_ALLOW_POLICIES = 2
 F_SELF_ALLOW_RBAC = 3
 F_SYSTEM_SKIP = 4
 F_EXTRAS_OVERFLOW = 5
+F_ADM_NS_SKIP = 6  # admission: kube-system/cedar-k8s-authz-system -> allow
+F_ADM_ERROR = 7  # admission: conversion error/unsupported shape -> Python path
+
+# bytes per row of the uid buffer the admission entries fill; encoder.cpp
+# flags a longer uid F_ADM_ERROR (build_adm)
+ADM_UID_BYTES = 256
 
 _VAR_IDX = {"principal": 0, "action": 1, "resource": 2, "context": 3}
 _CMP_OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3}
@@ -337,6 +347,22 @@ def _load_library():
             ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int32,
         ]
+        lib.ce_encode_adm_batch.restype = None
+        lib.ce_encode_adm_batch.argtypes = [
+            ctypes.c_void_p,
+            ctypes.c_uint64,
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ctypes.c_uint64),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int32),
+            ctypes.c_int32,
+        ]
         pylib = None
         if "glue_" in path.name:
             # a PyDLL view of the same library keeps the GIL on entry: the
@@ -354,6 +380,21 @@ def _load_library():
                 ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_int32,
+            ]
+            pylib.ce_encode_adm_pylist.restype = None
+            pylib.ce_encode_adm_pylist.argtypes = [
+                ctypes.c_void_p,
+                ctypes.py_object,
+                ctypes.c_uint64,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.c_int32,
+                ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int32),
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.c_char_p,
+                ctypes.POINTER(ctypes.c_int32),
                 ctypes.c_int32,
             ]
         _pylib = pylib
@@ -414,7 +455,8 @@ def set_encode_threads(n: Optional[int]) -> None:
 
 
 class NativeEncoder:
-    """Owns one loaded native activation table; encodes raw SAR JSON batches."""
+    """Owns one loaded native activation table; encodes raw SAR and
+    AdmissionReview JSON batches."""
 
     DEFAULT_EXTRAS_CAP = 32
 
@@ -567,3 +609,105 @@ class NativeEncoder:
         flags = np.empty((n,), dtype=np.uint8)
         self.encode_batch_into(bodies, codes, extras, counts, flags, n_threads)
         return codes, extras, counts, flags
+
+    def encode_adm_batch_into(
+        self,
+        bodies: Sequence[bytes],
+        codes: np.ndarray,
+        extras: np.ndarray,
+        counts: np.ndarray,
+        flags: np.ndarray,
+        n_threads: int = 0,
+    ) -> List[str]:
+        """Admission twin of encode_batch_into: encode raw AdmissionReview
+        bodies into caller-provided buffers (the same shape and layout
+        contract) and return the rows' review uids (F_OK and F_ADM_NS_SKIP
+        rows; "" on rows the caller's Python path answers). Only the first
+        len(bodies) rows are written; bucket-padding rows are the caller's
+        to fill."""
+        lib = _load_library()
+        n = len(bodies)
+        if n_threads <= 0:
+            n_threads = _default_encode_threads()
+        self._check_out("codes", codes, n, self.n_slots, np.int32)
+        extras_cap = extras.shape[1] if extras.ndim == 2 else 0
+        self._check_out("extras", extras, n, extras_cap, np.int32)
+        self._check_out("counts", counts, n, None, np.int32)
+        self._check_out("flags", flags, n, None, np.uint8)
+        if n == 0:
+            return []
+        uid_buf = ctypes.create_string_buffer(n * ADM_UID_BYTES)
+        uid_lens = np.zeros((n,), dtype=np.int32)
+        c_codes = codes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        c_extras = extras.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        c_counts = counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        c_flags = flags.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        c_uid_lens = uid_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+        if _pylib is not None and type(bodies) is list:
+            _pylib.ce_encode_adm_pylist(
+                self._handle,
+                bodies,
+                n,
+                c_codes,
+                c_extras,
+                extras_cap,
+                self.pad_value,
+                c_counts,
+                c_flags,
+                uid_buf,
+                c_uid_lens,
+                n_threads,
+            )
+        else:
+            extras[:n] = self.pad_value  # packed entry: the caller pre-pads
+            buf = b"".join(bodies)
+            lens = np.fromiter((len(b) for b in bodies), dtype=np.uint64, count=n)
+            offsets = np.zeros((n,), dtype=np.uint64)
+            np.cumsum(lens[:-1], out=offsets[1:])
+            lib.ce_encode_adm_batch(
+                self._handle,
+                n,
+                buf,
+                offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+                c_codes,
+                c_extras,
+                extras_cap,
+                c_counts,
+                c_flags,
+                uid_buf,
+                c_uid_lens,
+                n_threads,
+            )
+        raw = uid_buf.raw
+        w = ADM_UID_BYTES
+        return [
+            raw[i * w : i * w + int(uid_lens[i])].decode("utf-8", "replace")
+            for i in range(n)
+        ]
+
+    def encode_adm_batch(
+        self,
+        bodies: Sequence[bytes],
+        extras_cap: int = DEFAULT_EXTRAS_CAP,
+        n_threads: int = 0,
+    ):
+        """Raw AdmissionReview JSON bodies -> (codes, extras, extras_count,
+        flags, uids): encode_batch's contract plus uids[i], the review uid
+        of F_OK / F_ADM_NS_SKIP rows. F_PARSE_ERROR / F_ADM_ERROR /
+        F_EXTRAS_OVERFLOW rows need the caller's Python path."""
+        n = len(bodies)
+        if n == 0:
+            return (
+                np.zeros((0, self.n_slots), np.int32),
+                np.full((0, extras_cap), self.pad_value, np.int32),
+                np.zeros((0,), np.int32),
+                np.zeros((0,), np.uint8),
+                [],
+            )
+        codes = np.empty((n, self.n_slots), dtype=np.int32)
+        extras = np.empty((n, extras_cap), dtype=np.int32)
+        counts = np.empty((n,), dtype=np.int32)
+        flags = np.empty((n,), dtype=np.uint8)
+        uids = self.encode_adm_batch_into(bodies, codes, extras, counts, flags, n_threads)
+        return codes, extras, counts, flags, uids

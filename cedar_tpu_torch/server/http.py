@@ -1,30 +1,39 @@
 """The webhook HTTP servers of the port.
 
 Behavior parity with the JAX package's server/http.py (itself the
-reference's internal/server/server.go + health.go), for one entry point:
+reference's internal/server/server.go + health.go), for two entry points:
 
   * a webhook server (TLS unless insecure; default 127.0.0.1:10288)
     serving ``POST /v1/authorize``: SubjectAccessReview -> decision. A body
     that does not decode answers NoOpinion with an evaluationError; an
     evaluation that fails or outlives the request deadline answers
-    NoOpinion with an evaluationError too. Any other path (``/v1/admit``
-    included: the admission path is not in the port yet) answers 404;
-  * per-request metrics: the decision-labelled counter and latency
-    histogram, with ``<error>`` as the label on errors;
+    NoOpinion with an evaluationError too;
+  * and, when an admission handler is wired, ``POST /v1/admit``:
+    AdmissionReview -> allowed / denied (a ValidatingWebhook). A body that
+    does not decode answers ``allowed: false`` with the parse error; an
+    evaluation that fails or outlives the deadline answers the admission
+    fail-mode (``admission_fail_open``: allowed or denied, with the error).
+    Every errored answer carries status code 500, as in the JAX package.
+    Any other path answers 404;
+  * per-request metrics of /v1/authorize: the decision-labelled counter
+    and latency histogram, with ``<error>`` as the label on errors;
   * a plain-HTTP health and metrics server (default 127.0.0.1:10289):
     ``/healthz``, ``/readyz`` (503 while draining or before every store's
     initial load), ``/metrics`` and ``/debug/engine``.
 
-Requests reach the device through the fast path's micro-batcher
-(engine/batcher.py, pipelined when ``pipeline_depth`` > 0): concurrent
-single requests coalesce into one batch and one launch. Without a fast
-path (``--backend interpreter``, or ``--no-native``) the request thread
-answers through the authorizer. A failed batch is never re-run on
-another path: its requests answer NoOpinion with the error.
+Requests reach the device through each path's micro-batcher
+(engine/batcher.py, pipelined when ``pipeline_depth`` > 0) in front of its
+fast path: concurrent single requests coalesce into one batch and one
+launch. Without a fast path (``--backend interpreter``, or
+``--no-native``) the request thread answers through the authorizer, and
+admission reviews through the handler (batched over the engine when the
+handler has a batched backend). A failed batch is never re-run on another
+path: its requests answer the error.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -35,6 +44,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from ..engine.batcher import DeadlineExceeded, MicroBatcher, PipelinedBatcher
+from ..entities.admission import AdmissionRequest, review_request_uid
+from .admission import AdmissionResponse, CedarAdmissionHandler
 from .authorizer import (
     DECISION_ALLOW,
     DECISION_DENY,
@@ -58,6 +69,14 @@ _DECISION_LABEL = {
     DECISION_DENY: "Deny",
     DECISION_NO_OPINION: "NoOpinion",
 }
+
+
+def _loads_or_none(body: bytes):
+    """The decoded review for a best-effort uid, or None."""
+    try:
+        return json.loads(body)
+    except Exception:  # noqa: BLE001 — the uid is best-effort here
+        return None
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -84,8 +103,8 @@ def _engine_doc(engine) -> dict:
 
 
 class WebhookServer:
-    """Owns the webhook server, the health/metrics server and the fast
-    path's batcher."""
+    """Owns the webhook server, the health/metrics server and the two
+    paths' batchers."""
 
     def __init__(
         self,
@@ -102,44 +121,78 @@ class WebhookServer:
         drain_grace_s: float = 0.0,
         pipeline_depth: int = 0,
         encode_workers: int = 2,
+        admission_handler: Optional[CedarAdmissionHandler] = None,
+        admission_fastpath=None,
+        admission_fail_open: Optional[bool] = None,
     ):
         self.authorizer = authorizer
         self.metrics = WebhookMetrics()
-        # the native SAR fast path (engine/fastpath.py): request threads
-        # funnel raw bodies through the batcher into the C++ encoder and
-        # the device match. pipeline_depth > 0 runs it through the
-        # three-stage PipelinedBatcher (encode of batch N+1 overlaps the
-        # device work of batch N); 0 keeps the serial MicroBatcher. Both
-        # give the same answers.
-        self.fastpath = fastpath
-        self._batcher = None
-        if fastpath is not None:
-            self.metrics.add_fastpath("authorization", fastpath)
+
+        def eval_batcher(fast, serial_fn, path):
+            """pipeline_depth > 0: the three-stage PipelinedBatcher over
+            the fast path (encode of batch N+1 overlaps the device work of
+            batch N); 0: the serial MicroBatcher over serial_fn. Both give
+            the same answers."""
+            self.metrics.add_fastpath(path, fast)
             if pipeline_depth > 0:
-                self._batcher = PipelinedBatcher(
-                    fastpath,
+                return PipelinedBatcher(
+                    fast,
                     max_batch=max_batch,
                     window_s=batch_window_s,
                     depth=pipeline_depth,
                     encode_workers=encode_workers,
                     metrics=self.metrics,
-                    metrics_path="authorization",
+                    metrics_path=path,
                 )
-            else:
-                self._batcher = MicroBatcher(
-                    fastpath.authorize_raw,
-                    max_batch=max_batch,
-                    window_s=batch_window_s,
-                    metrics=self.metrics,
-                    metrics_path="authorization",
-                )
+            return MicroBatcher(
+                serial_fn,
+                max_batch=max_batch,
+                window_s=batch_window_s,
+                metrics=self.metrics,
+                metrics_path=path,
+            )
+
+        # the native SAR fast path (engine/fastpath.py): request threads
+        # funnel raw bodies through the batcher into the C++ encoder and
+        # the device match
+        self.fastpath = fastpath
+        self._batcher = None
+        if fastpath is not None:
+            self._batcher = eval_batcher(fastpath, fastpath.authorize_raw, "authorization")
+        # the admission path: raw AdmissionReview bodies through the native
+        # admission fast path's batcher; without one, parsed requests
+        # micro-batch into the handler when it has a batched backend (one
+        # engine call per batch), else each request thread asks the handler
+        self.admission_handler = admission_handler
+        self.admission_fastpath = admission_fastpath
+        self._adm_raw_batcher = None
+        self._admission_batcher = None
+        if admission_fastpath is not None:
+            self._adm_raw_batcher = eval_batcher(
+                admission_fastpath, admission_fastpath.handle_raw, "admission"
+            )
+        elif admission_handler is not None and admission_handler.supports_batch:
+            self._admission_batcher = MicroBatcher(
+                functools.partial(admission_handler.handle_batch, raise_errors=True),
+                max_batch=max_batch,
+                window_s=batch_window_s,
+                metrics=self.metrics,
+                metrics_path="admission",
+            )
+        # the /v1/admit answer when an evaluation fails or outlives its
+        # deadline: allowed (fail-open, the reference's allowOnError=true)
+        # or denied; defaults to the handler's allow_on_error
+        if admission_fail_open is None:
+            admission_fail_open = bool(getattr(admission_handler, "allow_on_error", True))
+        self.admission_fail_open = admission_fail_open
         self.address = address
         self.port = port
         self.metrics_port = metrics_port
         self.certfile = certfile
         self.keyfile = keyfile
         # per-request deadline budget (None disables): an evaluation that
-        # outlives it answers NoOpinion instead of holding the apiserver
+        # outlives it answers NoOpinion (/v1/authorize) or the admission
+        # fail-mode (/v1/admit) instead of holding the apiserver
         self.request_timeout_s = request_timeout_s
         self.drain_grace_s = drain_grace_s
         self._draining = False
@@ -209,17 +262,93 @@ class WebhookServer:
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         return decision, reason, None
 
+    def handle_admit(self, body: bytes) -> dict:
+        """One AdmissionReview body -> the AdmissionReview response
+        document, with the log line (the request metrics count
+        /v1/authorize only, as in the JAX package)."""
+        start = time.monotonic()
+        request_id = os.urandom(16).hex()
+        doc = self._handle_admit(body, start)
+        resp = doc["response"]
+        log.info(
+            "admit requestId=%s allowed=%s code=%d latency=%.6fs",
+            request_id, resp["allowed"], resp["status"]["code"], time.monotonic() - start,
+        )
+        return doc
+
+    def _handle_admit(self, body: bytes, start: float) -> dict:
+        """The response document through the admission fast path's
+        batcher, or, without one, through the handler (its batcher when
+        it has one). Every batcher gets what remains of the request's
+        budget since ``start``. A failure answers the fail-mode; nothing
+        re-runs the request on another path."""
+
+        def remaining():
+            if self.request_timeout_s is None:
+                return None
+            return self.request_timeout_s - (time.monotonic() - start)
+
+        if self._adm_raw_batcher is not None:
+            try:
+                return self._adm_raw_batcher.submit(body, timeout=remaining()).to_admission_review()
+            except DeadlineExceeded as e:
+                return self._admission_deadline(body, e)
+            except Exception as e:  # noqa: BLE001 — always answer the apiserver
+                log.exception("admission fastpath failed")
+                return self._admission_fail_mode(_loads_or_none(body), e)
+        try:
+            review = json.loads(body)
+        except (ValueError, TypeError, RecursionError) as e:
+            return AdmissionResponse(
+                uid="", allowed=False, code=400, error=f"failed parsing body: {e}"
+            ).to_admission_review()
+        try:
+            req = AdmissionRequest.from_admission_review(review)
+            if self._admission_batcher is not None:
+                return self._admission_batcher.submit(
+                    req, timeout=remaining()
+                ).to_admission_review()
+            return self.admission_handler.handle(req, raise_errors=True).to_admission_review()
+        except DeadlineExceeded as e:
+            self.metrics.record_deadline_exceeded("admission")
+            return self._admission_fail_mode(review, e)
+        except Exception as e:  # noqa: BLE001 — fail-open like the reference
+            # allow-on-error posture (reference
+            # internal/server/admission/handler.go:90-104 with
+            # allowOnError=true): a conversion or evaluation crash must
+            # not block the cluster's write path unless configured closed
+            log.exception("admit failed")
+            return self._admission_fail_mode(review, e)
+
+    def _admission_fail_mode(self, review, e) -> dict:
+        """The configured fail-open/fail-closed answer for a review whose
+        evaluation crashed or ran out of deadline budget: allowed or
+        denied, code 500, the error as the message."""
+        uid = review_request_uid(review) if review is not None else ""
+        allowed = self.admission_fail_open
+        return AdmissionResponse(
+            uid=uid,
+            allowed=allowed,
+            code=200,
+            error=f"evaluation error ({'allowed' if allowed else 'denied'} on error): {e}",
+        ).to_admission_review()
+
+    def _admission_deadline(self, body: bytes, e) -> dict:
+        self.metrics.record_deadline_exceeded("admission")
+        return self._admission_fail_mode(_loads_or_none(body), e)
+
     def debug_engine(self) -> dict:
-        """The /debug/engine document: the batcher's pipeline snapshot and
-        the engine's entry; {} without a fast path."""
-        if self._batcher is None:
-            return {}
-        return {
-            "authorization": {
-                "pipeline": self._batcher.debug_stats(),
-                "engine": _engine_doc(self.fastpath.engine),
-            }
-        }
+        """The /debug/engine document: per path with a fast path
+        (``authorization``, ``admission``), the batcher's pipeline
+        snapshot and the engine's entry; {} without a fast path."""
+        doc = {}
+        for path, batcher, fast in (
+            ("authorization", self._batcher, self.fastpath),
+            ("admission", self._adm_raw_batcher, self.admission_fastpath),
+        ):
+            if batcher is not None:
+                doc[path] = {"pipeline": batcher.debug_stats(), "engine": _engine_doc(fast.engine)}
+        return doc
 
     def _make_handler(server):  # noqa: N805 — bound as a class closure
         class Handler(BaseHTTPRequestHandler):
@@ -247,7 +376,9 @@ class WebhookServer:
                     if not draining:
                         server._inflight += 1
                 if draining:
-                    server.metrics.record_shed("authorization")
+                    server.metrics.record_shed(
+                        "admission" if path == "/v1/admit" else "authorization"
+                    )
                     self.send_error(503, "server is draining")
                     return
                 try:
@@ -262,6 +393,8 @@ class WebhookServer:
                     body = self.rfile.read(length) if length else b""
                     if path == "/v1/authorize":
                         self._write_json(server.handle_authorize(body))
+                    elif path == "/v1/admit" and server.admission_handler is not None:
+                        self._write_json(server.handle_admit(body))
                     else:
                         self.send_error(404)
                 finally:
@@ -367,10 +500,11 @@ class WebhookServer:
         self.stop_batchers()
 
     def stop_batchers(self) -> None:
-        """Drain and stop the batcher without touching the listeners (for
+        """Drain and stop the batchers without touching the listeners (for
         a server used as a serving core without start())."""
-        if self._batcher is not None:
-            self._batcher.stop()
+        for batcher in (self._batcher, self._adm_raw_batcher, self._admission_batcher):
+            if batcher is not None:
+                batcher.stop()
 
     @property
     def bound_port(self) -> Optional[int]:

@@ -19,6 +19,11 @@ internal/server/metrics/metrics.go):
     fast path's own counts at scrape time;
   * ``cedar_native_encode_threads``.
 
+The batch, pipeline, deadline, shed, routing and packed-decode families
+carry a ``path`` label: ``authorization`` for /v1/authorize and
+``admission`` for /v1/admit. The request families stay
+authorization-only, as in the JAX package.
+
 Each server owns one ``WebhookMetrics`` (its own registry), so two servers
 in one process never mix their counts.
 """
@@ -224,7 +229,8 @@ class WebhookMetrics:
         self.deadline_exceeded_total = reg(Counter(
             f"{SUBSYSTEM}_deadline_exceeded_total",
             "Requests whose per-request deadline budget elapsed before a batch "
-            "result arrived; authorization answers NoOpinion+evaluationError.",
+            "result arrived; authorization answers NoOpinion+evaluationError, "
+            "admission the configured fail-mode.",
             ["path"],
         ))
         self.requests_shed_total = reg(Counter(
@@ -239,8 +245,9 @@ class WebhookMetrics:
             "no such fallback: it stays 0.",
             ["path", "reason"],
         ))
-        for reason in ("breaker_open", "evaluator_error"):
-            self.fallback_batches_total.inc(0, path="authorization", reason=reason)
+        for path in ("admission", "authorization"):
+            for reason in ("breaker_open", "evaluator_error"):
+                self.fallback_batches_total.inc(0, path=path, reason=reason)
         self.batch_occupancy = reg(Histogram(
             "cedar_batch_occupancy",
             "Rows per formed micro-batch, partitioned by path.",

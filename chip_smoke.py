@@ -62,7 +62,7 @@ Phases, each a hard failure with a nonzero exit:
      Then a rule-tile probe: match_groups_kernel's device time at B = 4096
      on both planes with the tile forced to 64, 128 and 256 rules (the
      choice cuda_match.rule_tile makes from the grid size).
-  8. webhook (this slice's main path): the gated sub-phase's policy set
+  8. webhook (the /v1/authorize path): the gated sub-phase's policy set
      written to a directory with a JSON StoreConfig, and
      `python3 -m cedar_tpu_torch.cli.webhook --insecure` started on it as
      a subprocess on the card (default --device cuda, pipelined batcher);
@@ -90,6 +90,29 @@ Phases, each a hard failure with a nonzero exit:
      connection fails the phase. --profile: then a lone request's stage
      split in this process (one thread, torch.profiler, and an
      in-process PipelinedBatcher).
+  9. admission (this slice's main path): phase 8's policy files plus
+     admission policies (the forbid set of the JAX package's native
+     admission tests, the repo demo's demo-require-owner-label, and an
+     interpreter-fallback forbid whose scope the plane gates) in one
+     directory store, and 4096 seeded AdmissionReview bodies (CREATE 50%,
+     UPDATE 30%, DELETE 15%, CONNECT 5%; ConfigMap, Secret, Deployment and
+     Pod objects; about 10% in kube-system; every sixteenth in the
+     fallback forbid's scope; every 25th matching two forbids; a few
+     conversion errors and one uid over 255 bytes). The expected answers
+     come from the library AdmissionFastPath over the same stores plus the
+     allow-all tier, held against the port's interpreter handler in the
+     oracle pool (0 flips; a deny's reasons compared as a set). Then the webhook CLI, which builds both
+     engines, serves 300 bodies on /v1/admit at concurrency 1, all 4096
+     at concurrency 64, and a mixed window: 2048 admission bodies from 32
+     clients while 32 others POST 2048 of phase 8's SAR bodies, every
+     answer equal to its expected one. Over the admission-only windows
+     (/debug/engine and /metrics before and after): both kernels
+     launched, the admission rows routed gated, flagged, encoder_fallback
+     and encoder_gate, no fallback batch, a mean batch above 1 at
+     concurrency 64, and an `admission` entry in /debug/engine. Prints
+     requests/s, p50 / p99, mean and largest batch, the mixed window per
+     endpoint, both engines' plane shapes, the server's peak RSS and the
+     phase's wall time; SIGTERM must end the server with code 0.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -102,6 +125,7 @@ import argparse
 import http.client
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -301,6 +325,201 @@ def gated_bodies(corpus, n: int, seed: int) -> list:
     return out
 
 
+# admission policies of phase 9: the forbid set of the JAX package's
+# native admission tests (tests/test_admission_native.py ADM_POLICIES)
+ADM_POLICIES = """
+forbid (
+    principal,
+    action == k8s::admission::Action::"create",
+    resource is core::v1::ConfigMap
+) when {
+    resource.metadata has labels &&
+    resource.metadata.labels.contains({key: "env", value: "prod"})
+};
+forbid (
+    principal in k8s::Group::"tenants",
+    action in [k8s::admission::Action::"update", k8s::admission::Action::"delete"],
+    resource is core::v1::Secret
+) when {
+    resource.metadata has namespace &&
+    resource.metadata.namespace == "protected"
+};
+forbid (
+    principal,
+    action == k8s::admission::Action::"update",
+    resource is apps::v1::Deployment
+) when {
+    resource has spec && resource.spec has replicas &&
+    resource.spec.replicas > 50
+};
+forbid (
+    principal,
+    action == k8s::admission::Action::"update",
+    resource is core::v1::ConfigMap
+) when {
+    context has oldObject && context.oldObject has metadata &&
+    context.oldObject.metadata has namespace &&
+    context.oldObject.metadata.namespace == "locked"
+};
+forbid (
+    principal is k8s::ServiceAccount,
+    action in k8s::admission::Action::"all",
+    resource is core::v1::Pod
+) when {
+    resource.spec has hostNetwork && resource.spec.hostNetwork == true
+};
+"""
+# the repo demo's demo-require-owner-label (demo/admission-policy.yaml),
+# inline: the card may have no PyYAML
+ADM_DEMO_OWNER_POLICY = """
+forbid (
+    principal is k8s::User in k8s::Group::"tenants",
+    action == k8s::admission::Action::"create",
+    resource is core::v1::ConfigMap
+) unless {
+    resource.metadata has labels &&
+    resource.metadata.labels.contains({ key: "owner", value: principal.name })
+};
+"""
+# an admission-scoped interpreter-fallback forbid (an alternation product
+# past the lowering's clause ceiling, as the JAX package's hybrid admission
+# test builds it): true in the "default" namespace, so a service account's
+# create there is denied through the gated exact path
+ADM_FALLBACK_POLICY = (
+    "forbid (principal is k8s::ServiceAccount,\n"
+    '        action == k8s::admission::Action::"create",\n'
+    "        resource is core::v1::ConfigMap)\n"
+    "  when { "
+    + " && ".join(
+        '(resource.metadata.namespace == "default" || resource.metadata.name == "zzz")'
+        for _ in range(12)
+    )
+    + " };\n"
+)
+ADM_GATED_USER = "system:serviceaccount:default:ci-runner"
+
+
+def _adm_object(rng, kind: str, i: int, ns: str) -> dict:
+    """A realistic object of `kind`: metadata with labels and annotations,
+    and the kind's data, spec and status."""
+    labels = rng.choice([
+        None, {}, {"app": f"svc-{i % 7}"}, {"app": f"svc-{i % 7}", "env": rng.choice(["dev", "prod"])},
+        {"owner": rng.choice(["bob", "alice", "ci-bot"]), "team": "a"},
+    ])
+    meta = {"name": f"{kind.lower()}-{i}", "namespace": ns, "uid": f"obj-{i:06d}",
+            "resourceVersion": str(1000 + i), "creationTimestamp": "2026-01-01T00:00:00Z"}
+    if labels is not None:
+        meta["labels"] = labels
+    if rng.random() < 0.3:
+        meta["annotations"] = {"kubectl.kubernetes.io/last-applied-configuration": "{}",
+                               "note": f"n{i % 5}"}
+    obj = {"apiVersion": "apps/v1" if kind == "Deployment" else "v1", "kind": kind,
+           "metadata": meta}
+    if kind == "ConfigMap":
+        obj["data"] = {f"key{j}": f"value-{i}-{j}" for j in range(rng.randint(0, 5))}
+    elif kind == "Secret":
+        obj["type"] = "Opaque"
+        obj["data"] = {"username": "YWRtaW4=", "password": "c2VjcmV0"}
+    elif kind == "Deployment":
+        sel = {"app": f"svc-{i % 7}"}
+        obj["spec"] = {
+            "replicas": rng.choice([1, 2, 3, 50, 51, 200]),
+            "selector": {"matchLabels": sel},
+            "template": {"metadata": {"labels": sel}, "spec": {"containers": [{
+                "name": "app", "image": f"registry.example/app:{i % 9}",
+                "ports": [{"containerPort": 8080}],
+                "resources": {"limits": {"cpu": "500m", "memory": "256Mi"}}}]}},
+        }
+        obj["status"] = {"replicas": 2, "readyReplicas": rng.choice([0, 1, 2])}
+    else:  # Pod
+        obj["spec"] = {
+            "hostNetwork": rng.random() < 0.2,
+            "nodeSelector": {"disk": rng.choice(["ssd", "hdd"])},
+            "serviceAccountName": "default",
+            "containers": [{"name": "app", "image": f"registry.example/app:{i % 9}",
+                            "args": ["--port", "8080"]}],
+        }
+        obj["status"] = {"phase": rng.choice(["Pending", "Running"]),
+                         "podIP": rng.choice(["10.0.3.7", "fe80::1", "not-an-ip"]),
+                         "hostIP": "192.168.1.20"}
+    return obj
+
+
+def admission_bodies(n: int, seed: int) -> list:
+    """n seeded AdmissionReview bodies (module docstring, phase 9): the
+    operation and kind mix, the kube-system share, and the rows that take
+    each route (gated, flagged multi-forbid, encoder fallback)."""
+    rng = random.Random(seed)
+    kinds = {"ConfigMap": ("", "configmaps"), "Secret": ("", "secrets"),
+             "Deployment": ("apps", "deployments"), "Pod": ("", "pods")}
+    users = ["alice", "bob", "ci-bot", "system:serviceaccount:team-a:deployer",
+             "system:node:node-1"]
+    out = []
+    for i in range(n):
+        # the forced rows below are creates: these weights keep the whole
+        # mix near CREATE 50%, UPDATE 30%, DELETE 15%, CONNECT 5%
+        op = rng.choices(["CREATE", "UPDATE", "DELETE", "CONNECT"], weights=[44, 33, 17, 6])[0]
+        kind = rng.choice(list(kinds))
+        ns = "kube-system" if rng.random() < 0.11 else rng.choice(
+            ["default", "protected", "locked", "team-a"])
+        user = rng.choice(users)
+        groups = rng.choice([[], ["tenants"], ["tenants", "dev"], ["system:authenticated"]])
+        sub = ""
+        if i % 16 == 3:  # the fallback forbid's scope: a gated row
+            op, kind, user, groups = "CREATE", "ConfigMap", ADM_GATED_USER, []
+            ns = rng.choice(["default", "team-a"])
+        elif i % 25 == 7:  # two forbids match: a flagged (multi) row
+            op, kind, user, groups, ns = "CREATE", "ConfigMap", "bob", ["tenants"], "default"
+        group, resource = kinds[kind]
+        if op == "CONNECT":
+            kind, group, resource, sub = "PodExecOptions", "", "pods", "exec"
+            obj = {"apiVersion": "v1", "kind": kind, "container": "app", "stdin": True,
+                   "tty": rng.random() < 0.5,
+                   "command": rng.choice([["/bin/sh"], ["ls", "-l"], ["cat", "/etc/hosts"]])}
+        else:
+            obj = _adm_object(rng, kind, i, ns)
+        if i % 25 == 7:
+            obj["metadata"]["labels"] = {"env": "prod", "app": "web"}
+        old = None
+        if op in ("UPDATE", "DELETE"):
+            old = json.loads(json.dumps(obj))
+            old["metadata"]["namespace"] = rng.choice([ns, "locked"])
+            if kind == "Deployment":
+                old["spec"]["replicas"] = 3
+        req = {
+            "uid": f"adm-{seed}-{i:06d}",
+            "kind": {"group": group, "version": "v1", "kind": kind},
+            "resource": {"group": group, "version": "v1", "resource": resource},
+            "name": obj.get("metadata", {}).get("name", f"pod-{i}"), "namespace": ns,
+            "operation": op,
+            "userInfo": {"username": user, "uid": f"uid-{user}", "groups": groups},
+            "dryRun": False,
+        }
+        if sub:
+            req["subResource"] = sub
+        if rng.random() < 0.1:
+            req["userInfo"]["extra"] = {"scopes": ["read", "write"]}
+        if op != "DELETE":
+            req["object"] = obj
+        if old is not None:
+            req["oldObject"] = old
+        # conversion errors (the Python path answers allow-on-error) and a
+        # uid longer than the encoder's 255-byte passback
+        if i % 97 == 11:
+            req["object"] = dict(obj, weight=1.5)  # a float leaf
+            req["operation"] = "CREATE"
+        elif i % 97 == 43:
+            req["operation"] = "EVICT"
+        elif i % 97 == 77:
+            req["operation"] = "CREATE"
+            req.pop("object", None)
+        elif i == 5:
+            req["uid"] = "u" * 300
+        out.append(json.dumps({"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                               "request": req}).encode())
+    return out
+
+
 def canon(resp):
     """A SAR response with its reason list as a set: what must agree
     between paths (the order of several reasons is not a contract)."""
@@ -314,33 +533,88 @@ def canon(resp):
 
 
 _ORACLES: dict = {}
+_ORACLE_ARGS: dict = {}
 
 
-def _oracle_init(n_policies: int, seed: int) -> None:
-    """Worker initializer: the port's interpreter over the serving corpus
-    and over its gated twin."""
-    from cedar_tpu_torch.corpus.synth import synth_corpus
-    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
-    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+def _oracle_init(n_policies: int, seed: int, adm_dir=None) -> None:
+    """Worker initializer: what the oracles are built from (each is built
+    at its first use in the worker)."""
+    _ORACLE_ARGS.update(n_policies=n_policies, seed=seed, adm_dir=adm_dir)
 
-    corpus = synth_corpus(n_policies, seed=seed)
-    for name, ps in (("synth", corpus.tiers()[0]), ("gated", gated_policy_set(corpus))):
-        _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([MemoryStore(name, ps)]))
+
+def _oracle(name: str):
+    """The port's interpreter over the serving corpus ("synth"), its gated
+    twin ("gated"), or, for "admission", the interpreter admission handler
+    over phase 9's directory plus the allow-all tier."""
+    if name not in _ORACLES:
+        from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+        if name == "admission":
+            from cedar_tpu_torch.server.admission import (
+                CedarAdmissionHandler,
+                allow_all_admission_policy_store,
+            )
+            from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+
+            _ORACLES[name] = CedarAdmissionHandler(TieredPolicyStores([
+                DirectoryPolicyStore(_ORACLE_ARGS["adm_dir"]), allow_all_admission_policy_store()]))
+        else:
+            from cedar_tpu_torch.corpus.synth import synth_corpus
+            from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+
+            corpus = synth_corpus(_ORACLE_ARGS["n_policies"], seed=_ORACLE_ARGS["seed"])
+            ps = corpus.tiers()[0] if name == "synth" else gated_policy_set(corpus)
+            _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([MemoryStore(name, ps)]))
+    return _ORACLES[name]
+
+
+def admission_oracle(handler, body: bytes) -> dict:
+    """The interpreter's AdmissionReview response for one raw body, with
+    the webhook's answers to a body that does not decode (400) or a review
+    that does not convert (allow-on-error)."""
+    from cedar_tpu_torch.entities.admission import AdmissionRequest, review_request_uid
+    from cedar_tpu_torch.server.admission import AdmissionResponse
+
+    try:
+        review = json.loads(body)
+    except ValueError as e:
+        return AdmissionResponse(uid="", allowed=False, code=400,
+                                 error=f"failed parsing body: {e}").to_admission_review()
+    try:
+        return handler.handle(AdmissionRequest.from_admission_review(review)).to_admission_review()
+    except Exception as e:  # noqa: BLE001 — every body gets an answer
+        return AdmissionResponse(uid=review_request_uid(review), allowed=True,
+                                 error=f"evaluation error (allowed on error): {e}"
+                                 ).to_admission_review()
+
+
+def adm_key(resp: dict) -> tuple:
+    """An admission response with a deny's reason list as a set: what must
+    agree with the interpreter (the engine lists the device plane's
+    reasons before the interpreter-fallback policies', the interpreter in
+    policy order; the served answers equal the expected ones byte for
+    byte)."""
+    msg = resp["status"]["message"]
+    if msg.startswith("[{"):
+        msg = sorted(json.dumps(r, sort_keys=True) for r in json.loads(msg))
+    return resp["uid"], resp["allowed"], resp["status"]["code"], msg
 
 
 def _oracle_answers(task):
     from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
 
     name, bodies = task
+    if name == "admission":
+        return [admission_oracle(_oracle(name), b) for b in bodies]
     attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
-    return [canon(sar_response(d, r)) for d, r in _ORACLES[name].authorize_batch(attrs)]
+    return [canon(sar_response(d, r)) for d, r in _oracle(name).authorize_batch(attrs)]
 
 
-def interpreter_answers(tasks: dict, n_policies: int, seed: int) -> dict:
-    """{label: (policy set name, bodies)} -> {label: [canon response]} from
-    the port's interpreter, spread over one spawned worker per core (it
-    takes milliseconds per request at 10k policies); the pool is torn
-    down before returning."""
+def interpreter_answers(tasks: dict, n_policies: int, seed: int, adm_dir=None) -> dict:
+    """{label: (oracle name, bodies)} -> {label: [answer]} from the port's
+    interpreter (canon SAR responses; admission response documents),
+    spread over one spawned worker per core (it takes milliseconds per
+    request at 10k policies); the pool is torn down before returning."""
     import multiprocessing as mp
 
     piece = 512
@@ -348,7 +622,7 @@ def interpreter_answers(tasks: dict, n_policies: int, seed: int) -> dict:
             for label, (name, bodies) in tasks.items() for i in range(0, len(bodies), piece)]
     n_workers = max(1, min(os.cpu_count() or 1, len(work)))
     with mp.get_context("spawn").Pool(
-        n_workers, initializer=_oracle_init, initargs=(n_policies, seed)
+        n_workers, initializer=_oracle_init, initargs=(n_policies, seed, adm_dir)
     ) as pool:
         answers = pool.map(_oracle_answers, [(name, b) for _, _, name, b in work], chunksize=1)
     out = {label: [] for label in tasks}
@@ -408,17 +682,20 @@ def http_get(port: int, path: str):
         return r.status, r.read()
 
 
-class SarClient:
-    """One keep-alive connection to the webhook; post() -> (status doc,
-    seconds). A request that fails in any way (a reset or dropped
-    connection, a non-200 answer) raises: nothing is retried."""
+class Client:
+    """One keep-alive connection to the webhook; post() -> (answer,
+    seconds): a SAR's status on /v1/authorize, an AdmissionReview's
+    response on /v1/admit. A request that fails in any way (a reset or
+    dropped connection, a non-200 answer) raises: nothing is retried."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, path: str = "/v1/authorize"):
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        self.path = path
+        self.key = "response" if path == "/v1/admit" else "status"
 
     def post(self, body: bytes):
         t = time.perf_counter()
-        self.conn.request("POST", "/v1/authorize", body=body,
+        self.conn.request("POST", self.path, body=body,
                           headers={"Content-Type": "application/json"})
         resp = self.conn.getresponse()
         data = resp.read()
@@ -427,7 +704,7 @@ class SarClient:
             raise RuntimeError(f"HTTP {resp.status}: {data[:200]!r}")
         if resp.will_close:
             raise RuntimeError("the webhook closed a keep-alive connection")
-        return json.loads(data)["status"], dt
+        return json.loads(data)[self.key], dt
 
     def close(self):
         self.conn.close()
@@ -963,16 +1240,22 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
           + json.dumps(tiles), flush=True)
 
     # ---- 8. webhook: the CLI entry point on the card, over HTTP
-    webhook_launches = webhook_phase(args, card, corpus, g_batch, oracle_answers["gated"], big)
+    webhook_launches, big_expected = webhook_phase(
+        args, card, corpus, g_batch, oracle_answers["gated"], big)
 
-    # each kernel's launches on this slice's main path, the webhook's
-    # traffic (counted in the server process); and on the earlier paths
+    # ---- 9. admission: /v1/admit on the same CLI, beside /v1/authorize
+    admission_launches = admission_phase(args, card, big, big_expected)
+
+    # each kernel's launches on this slice's main path, the admission
+    # webhook's traffic (counted in the server process); and on the
+    # earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": webhook_launches[k],
+            "launches": admission_launches[k],
+            "launches_admission": admission_launches[k],
             "launches_webhook": webhook_launches[k],
             "launches_fastpath": {label: c[k] for label, c in fast_launches.items()},
             "launches_fastpath_gated": gated_launches[k],
@@ -1078,10 +1361,9 @@ def stage_totals(metrics_text: str) -> dict:
     return out
 
 
-def run_window(port: int, bodies: list, expected: list, concurrency: int):
+def drive(port: int, bodies: list, concurrency: int, path: str = "/v1/authorize"):
     """POST every body from `concurrency` client threads, one keep-alive
-    connection each -> (wall s, [latency s], flips vs expected); prints
-    the first three flips."""
+    connection each -> (wall s, [latency s], [answer], [client error])."""
     lat = [0.0] * len(bodies)
     got = [None] * len(bodies)
     errors = []
@@ -1089,7 +1371,7 @@ def run_window(port: int, bodies: list, expected: list, concurrency: int):
     lock = threading.Lock()
 
     def worker():
-        c = SarClient(port)
+        c = Client(port, path)
         try:
             while True:
                 with lock:
@@ -1098,7 +1380,7 @@ def run_window(port: int, bodies: list, expected: list, concurrency: int):
                 if i >= len(bodies):
                     return
                 got[i], lat[i] = c.post(bodies[i])
-        except Exception as e:  # noqa: BLE001 — reported below
+        except Exception as e:  # noqa: BLE001 — reported by the caller
             errors.append(repr(e))
         finally:
             c.close()
@@ -1110,13 +1392,28 @@ def run_window(port: int, bodies: list, expected: list, concurrency: int):
     for th in threads:
         th.join(timeout=600)
     wall = time.perf_counter() - t
-    if errors or any(th.is_alive() for th in threads):
-        fail(f"webhook concurrency {concurrency}: client errors {errors[:3]}")
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish within 600 s")
+    return wall, lat, got, errors
+
+
+def count_flips(label: str, got: list, expected: list, lat: list) -> int:
+    """Answers unlike the expected ones; prints the first three."""
     flips = [i for i, (g, e) in enumerate(zip(got, expected)) if g != e]
     for i in flips[:3]:
-        print(f"webhook concurrency {concurrency}: body {i} took {lat[i] * 1e3:.3f} ms, "
+        print(f"webhook {label}: body {i} took {lat[i] * 1e3:.3f} ms, "
               f"expected {json.dumps(expected[i])}, got {json.dumps(got[i])}", flush=True)
-    return wall, lat, len(flips)
+    return len(flips)
+
+
+def run_window(port: int, bodies: list, expected: list, concurrency: int,
+               path: str = "/v1/authorize"):
+    """drive(), failing on any client error -> (wall s, [latency s], flips
+    vs expected)."""
+    wall, lat, got, errors = drive(port, bodies, concurrency, path)
+    if errors:
+        fail(f"webhook {path} concurrency {concurrency}: client errors {errors[:3]}")
+    return wall, lat, count_flips(f"{path} concurrency {concurrency}", got, expected, lat)
 
 
 class Webhook:
@@ -1141,7 +1438,7 @@ class Webhook:
             lines = f.read().splitlines()
         return "\n".join(line for line in lines if "requestId=" not in line)[-4000:]
 
-    def wait_ready(self) -> None:
+    def wait_ready(self, card: str) -> None:
         """Poll /readyz; a server that exits or is not ready in 600 s fails."""
         deadline = time.monotonic() + 600
         while True:
@@ -1156,8 +1453,8 @@ class Webhook:
             if time.monotonic() > deadline:
                 fail(f"the webhook was not ready within 600 s:\n{self.log()}")
             time.sleep(0.2)
-        print(f"webhook: ready in {time.monotonic() - self.t0:.1f} s: {' '.join(self.cmd[1:])}",
-              flush=True)
+        print(f"webhook: ready in {time.monotonic() - self.t0:.1f} s ({card}): "
+              f"{' '.join(self.cmd[1:])}", flush=True)
 
     def debug_engine(self) -> dict:
         return json.loads(http_get(self.mport, "/debug/engine")[1])
@@ -1238,7 +1535,7 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
             if lib_flips or len(expected) != len(oracle):
                 fail(f"webhook phase: {lib_flips} expected answers differ from the interpreter")
 
-            srv.wait_ready()
+            srv.wait_ready(card)
 
             def snapshot():
                 doc = srv.debug_engine()["authorization"]
@@ -1309,7 +1606,7 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
         for flags in (("--pipeline-depth", "0"), ("--no-native",)):
             alt = Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags)
             try:
-                alt.wait_ready()
+                alt.wait_ready(card)
                 wall, lat, n_flips = run_window(alt.port, bodies[:300], expected[:300], 16)
                 doc = alt.debug_engine()
                 mode = (f"{doc['authorization']['pipeline']['mode']} batcher, launches "
@@ -1330,7 +1627,179 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
                 alt.kill()
         if args.profile:
             profile_stages(card, x_fast, bodies[:200])
-        return launches
+        return launches, expected_clean
+
+
+def metric_values(text: str, family: str, label: str, path: str) -> dict:
+    """{label value: value} of one family's series with path="<path>"."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{") and f'path="{path}"' in line:
+            out[line.split(f'{label}="')[1].split('"')[0]] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
+    """Phase 9 (module docstring): `sars` and `sar_expected` are phase 8's
+    SAR bodies and expected answers, for the mixed window. Returns the
+    server's kernel launch counts over the admission-only windows."""
+    from cedar_tpu_torch.corpus.synth import synth_source
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import AdmissionFastPath
+    from cedar_tpu_torch.server.admission import (
+        CedarAdmissionHandler,
+        allow_all_admission_policy_store,
+    )
+    from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+    from cedar_tpu_torch.stores.store import TieredPolicyStores
+
+    t_phase = time.monotonic()
+    grace = 5.0
+    with tempfile.TemporaryDirectory(prefix="cedar-admission-") as tmp:
+        pol_dir = os.path.join(tmp, "policies")
+        os.mkdir(pol_dir)
+        # one store holding both policy kinds, as the reference documents
+        # its deployment: phase 8's files plus the admission policies
+        files = {
+            "synth.cedar": synth_source(args.policies, seed=args.seed),
+            "gated.cedar": FALLBACK_POLICY + NATIVE_OPAQUE_POLICY,
+            "admission.cedar": ADM_POLICIES,
+            "admission-demo.cedar": ADM_DEMO_OWNER_POLICY,
+            "admission-gated.cedar": ADM_FALLBACK_POLICY,
+        }
+        for fname, text in files.items():
+            with open(os.path.join(pol_dir, fname), "w") as f:
+                f.write(text)
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "directory",
+                                            "directoryStore": {"path": pol_dir}}]}}, f)
+        bodies = admission_bodies(4096, args.seed + 9)
+        srv = Webhook(cfg, tmp, "webhook-admission", grace)
+        port, mport = srv.port, srv.mport
+        try:
+            # the expected answers meanwhile, in this process: the library
+            # admission fast path over the same directory plus the allow-all
+            # tier, held against the port's interpreter handler
+            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir),
+                                         allow_all_admission_policy_store()])
+            x_engine = TorchPolicyEngine()
+            x_engine.load([s.policy_set() for s in stores])
+            x_fast = AdmissionFastPath(x_engine, CedarAdmissionHandler(
+                stores, evaluate_batch=x_engine.evaluate_batch))
+            t0 = time.monotonic()
+            expected = [r.to_admission_review()["response"] for r in x_fast.handle_raw(bodies)]
+            print(f"admission expected answers: library fast path in "
+                  f"{time.monotonic() - t0:.2f} s, routing {json.dumps(x_fast.routing)}", flush=True)
+            t0 = time.monotonic()
+            oracle = [d["response"] for d in interpreter_answers(
+                {"admission": ("admission", bodies)}, args.policies, args.seed,
+                adm_dir=pol_dir)["admission"]]
+            lib_flips = sum(adm_key(e) != adm_key(o) for e, o in zip(expected, oracle))
+            print(f"admission interpreter check: {len(oracle)} answers in "
+                  f"{time.monotonic() - t0:.1f} s, flips vs the library fast path "
+                  f"{lib_flips}", flush=True)
+            if lib_flips or len(expected) != len(oracle):
+                fail(f"admission phase: {lib_flips} expected answers differ from the interpreter")
+            del x_fast, x_engine
+
+            srv.wait_ready(card)
+
+            def snapshot():
+                return srv.debug_engine(), http_get(mport, "/metrics")[1].decode()
+
+            doc0, text0 = snapshot()
+            if "admission" not in doc0:
+                fail(f"/debug/engine has no admission entry: {sorted(doc0)}")
+            for path in ("authorization", "admission"):
+                eng = doc0[path]["engine"]
+                print(f"admission phase {path} engine plane ({card}): L={eng['L']} R={eng['R']} "
+                      f"rules={eng['rules']} fallback={eng['fallback_policies']} "
+                      f"warm-up launches {json.dumps(eng['warmup_launches'])}", flush=True)
+            if any(doc0["admission"]["engine"]["launches"].values()):
+                fail(f"admission engine before traffic: {doc0['admission']['engine']}")
+            flips = 0
+            doc, text = doc0, text0
+            for label, n, conc in (("concurrency 1", 300, 1), ("concurrency 64", 4096, 64)):
+                wall, lat, n_flips = run_window(port, bodies[:n], expected[:n], conc, "/v1/admit")
+                flips += n_flips
+                doc2, text2 = snapshot()
+                p1, p2 = doc["admission"]["pipeline"], doc2["admission"]["pipeline"]
+                n_batches = p2["batches_total"] - p1["batches_total"]
+                mean = (p2["rows_total"] - p1["rows_total"]) / max(n_batches, 1)
+                l1, l2 = doc["admission"]["engine"]["launches"], doc2["admission"]["engine"]["launches"]
+                print(f"admission {label} ({card}): {n / wall:.1f} requests/s, "
+                      f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms, "
+                      f"max {max(lat) * 1e3:.3f} ms, mean batch {mean:.2f} over {n_batches} "
+                      f"batches, flips vs expected {n_flips} / {n}; launches "
+                      f"{json.dumps({k: l2[k] - l1[k] for k in l2})}", flush=True)
+                if label == "concurrency 64" and not mean > 1:
+                    fail(f"admission: mean batch {mean:.2f} under 64 clients, want above 1")
+                doc, text = doc2, text2
+            l0, l1 = doc0["admission"]["engine"]["launches"], doc["admission"]["engine"]["launches"]
+            launches = {k: l1[k] - l0[k] for k in l1}
+            r0, r1 = (metric_values(t, "cedar_authorizer_row_routing_total", "row_class",
+                                    "admission") for t in (text0, text))
+            routing = {k: int(r1.get(k, 0) - r0.get(k, 0)) for k in
+                       ("clean_native", "gated", "flagged", "encoder_fallback", "encoder_gate")}
+            fallback = sum(v for line in text.splitlines()
+                           if line.startswith("cedar_authorizer_fallback_batches_total{")
+                           for v in [float(line.rsplit(" ", 1)[1])])
+            pipe = doc["admission"]["pipeline"]
+            print(f"admission windows: launches {json.dumps(launches)}, routing "
+                  f"{json.dumps(routing)}, fallback batches {fallback:g}", flush=True)
+            print(f"admission batches ({card}): mean "
+                  f"{pipe['rows_total'] / max(pipe['batches_total'], 1):.2f}, largest "
+                  f"{pipe['largest_batch']}", flush=True)
+            if launches["match_words_kernel"] < 1 or launches["match_groups_kernel"] < 1:
+                fail(f"admission traffic should launch both kernels: {launches}")
+            missing = [k for k in ("gated", "flagged", "encoder_fallback", "encoder_gate")
+                       if routing[k] < 1]
+            if missing:
+                fail(f"admission traffic took no row down {missing}: {routing}")
+            if fallback:
+                fail(f"admission: {fallback:g} fallback batches")
+
+            # the mixed window: both endpoints at once, from 32 clients each
+            n_mix = 2048
+            out = {}
+
+            def one(key, path, win):
+                out[key] = drive(port, win, 32, path)
+
+            threads = [threading.Thread(target=one, args=("admit", "/v1/admit", bodies[:n_mix])),
+                       threading.Thread(target=one, args=("authorize", "/v1/authorize",
+                                                          sars[:n_mix]))]
+            t = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            mixed_wall = time.perf_counter() - t
+            for key, want in (("admit", expected), ("authorize", sar_expected)):
+                wall, lat, got, errors = out[key]
+                if errors:
+                    fail(f"mixed window /v1/{key}: client errors {errors[:3]}")
+                n_flips = count_flips(f"mixed /v1/{key}", got, want[:n_mix], lat)
+                flips += n_flips
+                print(f"admission mixed window /v1/{key}, 32 clients ({card}): "
+                      f"{n_mix / wall:.1f} requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, "
+                      f"p99 {pct(lat, 99) * 1e3:.3f} ms, flips vs expected {n_flips} / "
+                      f"{n_mix}", flush=True)
+            print(f"admission mixed window ({card}): {2 * n_mix} requests in {mixed_wall:.3f} s "
+                  f"({2 * n_mix / mixed_wall:.1f} requests/s)", flush=True)
+            print(f"admission flips over the three windows: {flips}", flush=True)
+            if flips:
+                fail(f"admission: {flips} answers differ from the expected ones")
+
+            took, rss = srv.terminate()
+            print(f"admission webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+    print(f"admission phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

@@ -372,3 +372,96 @@ def test_engine_warmup_launches_per_bucket(cuda):
     assert gpu.stats["warmup_launches"] == want_launches
     items = corpus.sar_items(300, seed=1)
     assert [key(r) for r in gpu.evaluate_batch(items)] == [key(r) for r in cpu.evaluate_batch(items)]
+
+
+def _admission_paths(n_policies: int = 400, seed: int = 11):
+    """(card, cpu) AdmissionFastPath pairs over one admission stack: a
+    synth corpus and the admission policies of chip_smoke.py's phase 9
+    (the interpreter-fallback forbid among them, so rows gate), plus the
+    allow-all final tier."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import AdmissionFastPath
+    from cedar_tpu_torch.server.admission import (
+        CedarAdmissionHandler,
+        allow_all_admission_policy_store,
+    )
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    src = (chip_smoke.ADM_POLICIES + chip_smoke.ADM_DEMO_OWNER_POLICY
+           + chip_smoke.ADM_FALLBACK_POLICY)
+    stores = TieredPolicyStores([
+        MemoryStore("synth", synth_corpus(n_policies, seed=seed).tiers()[0]),
+        MemoryStore.from_source("admission", src),
+        allow_all_admission_policy_store(),
+    ])
+    out = []
+    for device in ("cuda", "cpu"):
+        engine = TorchPolicyEngine(device=device)
+        engine.load([s.policy_set() for s in stores])
+        handler = CedarAdmissionHandler(stores, evaluate_batch=engine.evaluate_batch)
+        out.append(AdmissionFastPath(engine, handler))
+    return (*out, chip_smoke.admission_bodies)
+
+
+@pytest.mark.cuda
+def test_admission_fastpath_on_card_equals_cpu(cuda):
+    """AdmissionFastPath on the card answers the generated AdmissionReview
+    bodies (gated, flagged, namespace-skipped and Python-path rows among
+    them) exactly as the same fast path over the CPU's plain versions,
+    and launches both kernels."""
+    gpu, cpu, bodies_of = _admission_paths()
+    bodies = bodies_of(2048, 21)
+    cuda_match.reset_launch_counts()
+    got = [r.to_admission_review() for r in gpu.handle_raw(bodies)]
+    launches = cuda_match.launch_counts()
+    assert got == [r.to_admission_review() for r in cpu.handle_raw(bodies)]
+    assert launches["match_words_kernel"] > 0 and launches["match_groups_kernel"] > 0
+    assert all(gpu.routing[k] > 0 for k in ("gated", "flagged", "encoder_fallback", "encoder_gate"))
+
+
+@pytest.mark.cuda
+def test_admit_server_on_card_launches_both_kernels(cuda):
+    """The port's WebhookServer serving /v1/admit in-process on the card
+    behind its pipelined batcher: bodies from 32 client threads answer as
+    the CPU fast path does, with both kernels launched by the traffic and
+    no fallback batch."""
+    import http.client
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.server.http import WebhookServer
+
+    gpu, cpu, bodies_of = _admission_paths(seed=12)
+    bodies = bodies_of(512, 22)
+    srv = WebhookServer(CedarWebhookAuthorizer(gpu.handler.stores), address="127.0.0.1",
+                        port=0, metrics_port=0, pipeline_depth=2, request_timeout_s=60.0,
+                        admission_handler=gpu.handler, admission_fastpath=gpu)
+    srv.start()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.bound_port, timeout=60)
+        try:
+            conn.request("POST", "/v1/admit", body=body)
+            return json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+
+    try:
+        post(bodies[1])  # the kernels' library loads on the first launch
+        cuda_match.reset_launch_counts()
+        with ThreadPoolExecutor(32) as pool:
+            got = list(pool.map(post, bodies))
+        launches = cuda_match.launch_counts()
+    finally:
+        srv.stop()
+    assert got == [r.to_admission_review() for r in cpu.handle_raw(bodies)]
+    assert launches["match_words_kernel"] > 0 and launches["match_groups_kernel"] > 0
+    assert srv.metrics.fallback_batches_total.value(path="admission", reason="evaluator_error") == 0

@@ -12,10 +12,21 @@ equal: the demo SARs, synth-corpus bodies, gated-scope bodies, malformed
 and oversized bodies, a wrong method and a wrong path. The same holds for
 the interpreter-only servers, for a deadline expiry and for a drain.
 
+The same differential holds for ``POST /v1/admit``: both servers carry
+the admission stack (the store plus the allow-all final tier) over a
+directory that also holds admission policies (chip_smoke.py phase 9's),
+and answer its generated AdmissionReview bodies and malformed ones with
+the same status and document, one at a time and from 4 clients, in every
+serving mode (pipelined, --pipeline-depth 0, --no-native, interpreter).
+And over three directory tiers (a forbid with the gated policies, the
+synth set, the demo) for both endpoints.
+
 Then what only the port promises: no quiet degradation (a stage, a
 kernel launch or a gated re-run that fails answers NoOpinion with the
-error, and nothing re-runs the batch on the interpreter), /v1/admit
-answering 404, and the /metrics and /debug/engine documents.
+error, and nothing re-runs the batch on the interpreter; the admission
+twin is in test_torch_admission.py), /v1/admit answering 404 on a server
+built without an admission handler, and the /metrics and /debug/engine
+documents.
 """
 
 import http.client
@@ -25,11 +36,15 @@ import re
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import sys
+
 import pytest
 import yaml
 
 from cedar_tpu.engine.evaluator import TPUPolicyEngine
+from cedar_tpu.engine.fastpath import AdmissionFastPath as JAdmissionFastPath
 from cedar_tpu.engine.fastpath import SARFastPath as JSARFastPath
+from cedar_tpu.server import admission as j_adm
 from cedar_tpu.server import authorizer as j_auth
 from cedar_tpu.server.http import WebhookServer as JWebhookServer
 from cedar_tpu.stores.directory import DirectoryPolicyStore as JDirectoryPolicyStore
@@ -45,6 +60,8 @@ from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
 from cedar_tpu_torch.stores.store import TieredPolicyStores
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402 — phase 9's admission policies and traffic
 
 FALLBACK_POLICY = (
     'permit (principal in k8s::Group::"joiners", '
@@ -190,10 +207,14 @@ def _jax_server(policy_dir, fast=True, **kw):
 
 
 def _port_server(policy_dir, *flags):
-    cfg = policy_dir.parent / "store-config.json"
+    """The port's CLI server with --device cpu over one directory store, or
+    one tier per directory when given a list."""
+    dirs = policy_dir if isinstance(policy_dir, list) else [policy_dir]
+    cfg = dirs[0].parent / "store-config.json"
     cfg.write_text(json.dumps({
         "apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
-        "spec": {"stores": [{"type": "directory", "directoryStore": {"path": str(policy_dir)}}]},
+        "spec": {"stores": [{"type": "directory", "directoryStore": {"path": str(d)}}
+                            for d in dirs]},
     }))
     args = make_parser().parse_args([
         "--config", str(cfg), "--device", "cpu", "--insecure",
@@ -365,13 +386,216 @@ def test_drain_equals_jax(policy_dir):
         t.stop()
 
 
+# ------------------------------------------------ /v1/admit, the differential
+
+ADM_FILES = {
+    "admission.cedar": chip_smoke.ADM_POLICIES,
+    "admission-demo.cedar": chip_smoke.ADM_DEMO_OWNER_POLICY,
+    "admission-gated.cedar": chip_smoke.ADM_FALLBACK_POLICY,
+}
+ADM_BODIES = chip_smoke.admission_bodies(160, seed=31)
+ADM_GROUP = 20
+ADM_EDGE = {
+    "malformed-json": ("POST", "/v1/admit", b'{"request": ', {}),
+    "empty-body": ("POST", "/v1/admit", b"", {}),
+    "json-null": ("POST", "/v1/admit", b"null", {}),
+    "json-array": ("POST", "/v1/admit", b"[1, 2]", {}),
+    "not-utf8": ("POST", "/v1/admit", b"\xff\xfe{}", {}),
+    "query-string": ("POST", "/v1/admit?timeout=10s", ADM_BODIES[0], {}),
+    "oversized": ("POST", "/v1/admit", b"{}", {"Content-Length": str(8 * 1024 * 1024 + 1)}),
+    "bad-content-length": ("POST", "/v1/admit", b"{}", {"Content-Length": "abc"}),
+    "wrong-method-get": ("GET", "/v1/admit", None, {}),
+}
+ADM_MODES = {
+    "pipelined": ("--request-timeout-ms", "60000"),
+    "depth0": ("--request-timeout-ms", "60000", "--pipeline-depth", "0"),
+    "no-native": ("--request-timeout-ms", "60000", "--no-native"),
+    "interpreter": ("--backend", "interpreter"),
+}
+
+
+def _jax_adm_server(policy_dirs, mode):
+    """The JAX WebhookServer with both stacks, as its CLI wires them: the
+    authorization stores, the admission stores (plus the allow-all tier),
+    an engine each (unless interpreter), and the native fast paths
+    (unless no-native or interpreter)."""
+    stores = JTieredPolicyStores(
+        [JDirectoryPolicyStore(str(d), start_ticker=False) for d in policy_dirs])
+    adm_stores = JTieredPolicyStores(
+        list(stores.stores) + [j_adm.allow_all_admission_policy_store()])
+    fast = adm_fast = None
+    if mode == "interpreter":
+        authz = j_auth.CedarWebhookAuthorizer(stores)
+        handler = j_adm.CedarAdmissionHandler(adm_stores)
+    else:
+        engine, adm_engine = TPUPolicyEngine(), TPUPolicyEngine()
+        engine.load([s.policy_set() for s in stores], warm="off")
+        adm_engine.load([s.policy_set() for s in adm_stores], warm="off")
+        authz = j_auth.CedarWebhookAuthorizer(
+            stores, evaluate=engine.evaluate, evaluate_batch=engine.evaluate_batch)
+        handler = j_adm.CedarAdmissionHandler(
+            adm_stores, evaluate=adm_engine.evaluate, evaluate_batch=adm_engine.evaluate_batch)
+        if mode != "no-native":
+            fast = JSARFastPath(engine, authz)
+            adm_fast = JAdmissionFastPath(adm_engine, handler)
+    srv = JWebhookServer(authz, handler, address="127.0.0.1", port=0, metrics_port=0,
+                         fastpath=fast, admission_fastpath=adm_fast,
+                         pipeline_depth=0 if mode == "depth0" else 2, request_timeout_s=60.0)
+    srv.start()
+    return srv
+
+
+@pytest.fixture(scope="module")
+def adm_policy_dir(tmp_path_factory):
+    """The differential's policies plus admission policies in one
+    directory: one store holding both kinds, as the reference deploys."""
+    d = tmp_path_factory.mktemp("adm") / "policies"
+    d.mkdir()
+    _write_policies(d)
+    for name, text in ADM_FILES.items():
+        (d / name).write_text(text)
+    return d
+
+
+@pytest.fixture(scope="module", params=sorted(ADM_MODES))
+def adm_servers(request, adm_policy_dir):
+    """(JAX server, port server) with both endpoints, in one serving mode."""
+    mode = request.param
+    j = _jax_adm_server([adm_policy_dir], mode)
+    t = _port_server(adm_policy_dir, *ADM_MODES[mode])
+    yield j, t
+    j.stop()
+    t.stop()
+
+
+@pytest.mark.parametrize("group", range(len(ADM_BODIES) // ADM_GROUP))
+def test_admit_bodies_equal_jax(adm_servers, group):
+    """One at a time: status and AdmissionReview document equal."""
+    for body in ADM_BODIES[group * ADM_GROUP:(group + 1) * ADM_GROUP]:
+        status, doc = _same(adm_servers, "POST", "/v1/admit", body)
+        assert status == 200 and doc["kind"] == "AdmissionReview"
+
+
+@pytest.mark.parametrize("name", sorted(ADM_EDGE))
+def test_admit_edge_requests_equal_jax(adm_servers, name):
+    method, path, body, headers = ADM_EDGE[name]
+    status, doc = _same(adm_servers, method, path, body, headers)
+    if name == "malformed-json":
+        assert status == 200 and doc["response"]["status"]["message"].startswith(
+            "failed parsing body")
+
+
+def test_admit_concurrent_equals_jax(adm_servers):
+    """Every admission body from 4 client threads to both servers (and
+    the authorization bodies beside them on the port's): the batches
+    differ, the answers do not. The port's pipelined server forms batches
+    above one."""
+    j, t = adm_servers
+    work = [("/v1/admit", b) for b in ADM_BODIES] + [("/v1/authorize", b)
+                                                     for b in SYNTH_BODIES[:40]]
+
+    def all_answers(port, clients):
+        with ThreadPoolExecutor(clients) as pool:
+            return list(pool.map(lambda pb: request(port, "POST", *pb), work))
+
+    assert all_answers(t.bound_port, 4) == all_answers(j.bound_port, 4)
+    doc = t.debug_engine()
+    if "admission" in doc:
+        assert doc["admission"]["engine"]["device"] == "cpu"
+        assert doc["admission"]["pipeline"]["rows_total"] >= len(ADM_BODIES)
+
+
+# three directory tiers: a forbid with the gated policies first, the synth
+# set, then the demo (both halves of the repo's demo)
+TIER1_FORBIDS = """
+forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
+  when { resource.resource == "secrets" };
+forbid (principal is k8s::User, action == k8s::admission::Action::"create",
+        resource is core::v1::ConfigMap)
+  when { resource.metadata has namespace && resource.metadata.namespace == "team-a" };
+"""
+TIER_SAR_BODIES = (list(DEMO_BODIES.values()) + list(GATED_BODIES.values())
+                   + SYNTH_BODIES[:48]
+                   + [_sar(u, "delete", "secrets", groups=g)
+                      for u, g in (("sam", ()), ("pat", ("platform-team",)))])
+
+
+def _demo_admission_source() -> str:
+    docs = [d for d in yaml.safe_load_all((REPO / "demo/admission-policy.yaml").read_text()) if d]
+    return "\n".join(d["spec"]["content"] for d in docs if d.get("spec"))
+
+
+@pytest.fixture(scope="module")
+def tier_servers(tmp_path_factory):
+    root = tmp_path_factory.mktemp("tiers")
+    dirs = [root / name for name in ("t1-forbid-gated", "t2-synth", "t3-demo")]
+    for d in dirs:
+        d.mkdir()
+    (dirs[0] / "forbid.cedar").write_text(TIER1_FORBIDS)
+    (dirs[0] / "gated.cedar").write_text(FALLBACK_POLICY + NATIVE_OPAQUE_POLICY
+                                        + chip_smoke.ADM_FALLBACK_POLICY)
+    (dirs[1] / "synth.cedar").write_text(synth_source(SYNTH_N, seed=SYNTH_SEED))
+    (dirs[2] / "demo.cedar").write_text(_demo_source())
+    (dirs[2] / "demo-admission.cedar").write_text(_demo_admission_source())
+    j = _jax_adm_server(dirs, "pipelined")
+    t = _port_server(dirs, *ADM_MODES["pipelined"])
+    yield j, t
+    j.stop()
+    t.stop()
+
+
+@pytest.mark.parametrize("group", range(-(-len(TIER_SAR_BODIES) // SYNTH_GROUP)))
+def test_three_tiers_authorize_equals_jax(tier_servers, group):
+    for body in TIER_SAR_BODIES[group * SYNTH_GROUP:(group + 1) * SYNTH_GROUP]:
+        _same(tier_servers, "POST", "/v1/authorize", body)
+
+
+@pytest.mark.parametrize("group", range(len(ADM_BODIES) // ADM_GROUP))
+def test_three_tiers_admit_equals_jax(tier_servers, group):
+    for body in ADM_BODIES[group * ADM_GROUP:(group + 1) * ADM_GROUP]:
+        _same(tier_servers, "POST", "/v1/admit", body)
+
+
+def test_three_tiers_stop_at_the_first_explicit_tier(tier_servers):
+    """Tier 1's forbids decide before the later tiers: a secrets delete is
+    denied by tier 1 whatever the demo permits, and a create in team-a by
+    a tenants user names tier 1's forbid, not the demo's owner forbid."""
+    _, t = tier_servers
+    st = request(t.bound_port, "POST", "/v1/authorize",
+                 _sar("pat", "delete", "secrets", groups=["platform-team"]))[1]["status"]
+    assert st["denied"] is True and "forbid.cedar.policy0" in st["reason"]
+    body = json.dumps({"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+                       "request": {"uid": "t", "operation": "CREATE",
+                                   "userInfo": {"username": "bob", "groups": ["tenants"]},
+                                   "kind": {"group": "", "version": "v1", "kind": "ConfigMap"},
+                                   "resource": {"group": "", "version": "v1",
+                                                "resource": "configmaps"},
+                                   "namespace": "team-a", "name": "c",
+                                   "object": {"apiVersion": "v1", "kind": "ConfigMap",
+                                              "metadata": {"name": "c",
+                                                           "namespace": "team-a"}}}}).encode()
+    r = _same(tier_servers, "POST", "/v1/admit", body)[1]["response"]
+    assert r["allowed"] is False
+    assert [x["policy"] for x in json.loads(r["status"]["message"])] == ["forbid.cedar.policy1"]
+
+
 # --------------------------------------------------- what the port promises
 
 
 def test_admit_is_not_served(servers):
+    """/v1/admit answers 404 on a server built without an admission
+    handler (the library WebhookServer over an authorizer alone); the
+    CLI's servers carry one."""
     _, t = servers
-    status, _ = request(t.bound_port, "POST", "/v1/admit", b"{}")
-    assert status == 404
+    bare = WebhookServer(t.authorizer, address="127.0.0.1", port=0, metrics_port=0)
+    bare.start()
+    try:
+        assert request(bare.bound_port, "POST", "/v1/admit", ADM_BODIES[0])[0] == 404
+        assert request(bare.bound_port, "POST", "/v1/authorize",
+                       DEMO_BODIES["sam-get-pods"])[0] == 200
+    finally:
+        bare.stop()
+    assert request(t.bound_port, "POST", "/v1/admit", ADM_BODIES[0])[0] == 200
 
 
 def test_metrics_and_debug_engine(servers):
@@ -399,6 +623,17 @@ def test_metrics_and_debug_engine(servers):
     assert entry["engine"]["device"] == "cpu"
     assert set(entry["engine"]["launches"]) == {"match_groups_kernel", "match_words_kernel"}
     assert entry["engine"]["fallback"]["policies"] == 1
+    # the admission stack: its own engine behind its own pipeline, and
+    # the path="admission" series of the batch and routing families
+    request(t.bound_port, "POST", "/v1/admit", ADM_BODIES[0])
+    adm = request(t.bound_metrics_port, "GET", "/debug/engine")[1]["admission"]
+    assert adm["pipeline"]["mode"] == "pipelined" and adm["pipeline"]["batches_total"] >= 1
+    assert adm["engine"]["device"] == "cpu" and adm["engine"]["R"] == entry["engine"]["R"]
+    text = request(t.bound_metrics_port, "GET", "/metrics")[1].decode()
+    assert 'cedar_authorizer_fallback_batches_total{path="admission",reason="evaluator_error"} 0' in text
+    assert 'cedar_batch_occupancy_count{path="admission"}' in text
+    assert 'cedar_authorizer_row_routing_total{path="admission",' in text
+    assert 'cedar_pipeline_stage_seconds_count{path="admission",stage="dispatch"}' in text
 
 
 @pytest.fixture

@@ -46,11 +46,11 @@ PORTED_FLAGS = [
     "--encode-workers", "--native-encode-threads", "--no-native", "--bind-address",
     "--secure-port", "--metrics-port", "--cert-dir", "--tls-cert-file",
     "--tls-private-key-file", "--insecure", "--request-timeout-ms",
-    "--shutdown-grace-seconds", "-v",
+    "--shutdown-grace-seconds", "--admission-fail-mode", "-v",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
-    ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--admission-fail-mode", "open"],
+    ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
     ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--decision-cache-size", "8"],
     ["--breaker-failure-threshold", "3"], ["--tpu-reload-seconds", "1"],
 ]
@@ -230,11 +230,16 @@ def test_build_server_warms_every_device_path_before_serving(tmp_path, monkeypat
     args = make_parser().parse_args(["--config", str(cfg), "--device", "cpu", "--insecure",
                                      "--secure-port", "0", "--metrics-port", "0", *flags])
     srv = build_server(args)
-    # on the CPU one bucket (engine_warmup_ladder below covers the ladder)
-    assert sorted(taken) == ["bits", "bits_incall", "full", "words"]
-    engine = srv.authorizer._evaluate_batch.__self__
-    assert engine.flagged_rows == 0
-    assert engine.stats["warmup_launches"] == {"match_groups_kernel": 0, "match_words_kernel": 0}
+    # on the CPU one bucket (engine_warmup_ladder below covers the ladder),
+    # for each of the two engines (authorization and admission)
+    assert sorted(taken) == sorted(["bits", "bits_incall", "full", "words"] * 2)
+    engines = (srv.authorizer._evaluate_batch.__self__,
+               srv.admission_handler._evaluate_batch.__self__)
+    assert engines[0] is not engines[1]
+    for engine in engines:
+        assert engine.flagged_rows == 0
+        assert engine.stats["warmup_launches"] == {"match_groups_kernel": 0,
+                                                   "match_words_kernel": 0}
     srv.start()
     try:
         assert _post(srv.bound_port, SAM_PODS)["allowed"] is True
