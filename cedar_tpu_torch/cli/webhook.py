@@ -16,15 +16,25 @@ or cert files are given) plus the plain health and metrics server.
 ``--backend device`` (the default) serves from the engines;
 ``--backend interpreter`` serves from the Python interpreter only, with no
 engine. ``--admission-fail-mode`` says what /v1/admit answers when an
-evaluation fails or outlives its deadline. The policies load once, at
-start. Flags of the JAX CLI that this port does not serve (breaker,
-cache, fleet, tenancy, tracing, ...) do not exist here, so argparse
-rejects them.
+evaluation fails or outlives its deadline.
+
+Policy reload: each directory store re-reads its files every
+refreshInterval (StoreConfig), and one TorchReloader polls the stores'
+content generations every ``--reload-seconds``. When they change it
+recompiles both engines in full, the authorization engine first; each new
+plane is placed and warmed on the device and only then swapped in. A
+reload that fails is logged and leaves the previous plane serving; the
+next tick tries again. With ``--backend interpreter`` the tickers alone
+keep the answers current. Flags of the JAX CLI that this port does not
+serve (breaker, cache, fleet, tenancy, tracing, incremental compile, ...)
+do not exist here, so argparse rejects them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import logging
 import signal
 import sys
@@ -35,10 +45,115 @@ from ..server.admission import CedarAdmissionHandler, allow_all_admission_policy
 from ..server.authorizer import CedarWebhookAuthorizer
 from ..server.certs import maybe_self_signed_certs
 from ..server.http import DEFAULT_ADDRESS, DEFAULT_PORT, METRICS_PORT, WebhookServer
+from ..server.metrics import WebhookMetrics
 from ..stores.config import cedar_config_stores, parse_config
 from ..stores.store import TieredPolicyStores
 
 log = logging.getLogger(__name__)
+
+# Loads run one at a time in the process, with the cyclic garbage
+# collector paused, and what survives a load is frozen (gc.freeze)
+# afterwards. A full collection walks every tracked object (the corpus
+# and every compiled set) in one call that holds the interpreter lock, so
+# all serving threads stop for it, and a compile allocates enough to set
+# off such collections. A load makes no cyclic garbage (its old set is
+# freed by reference counting), so pausing the collector loses nothing,
+# and once frozen the long-lived sets are skipped by every later
+# collection. After a failed load nothing is frozen: its traceback's
+# cycles must stay collectable.
+_load_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    with _load_lock:
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            yield
+            gc.freeze()
+        finally:
+            if enabled:
+                gc.enable()
+
+
+def _fingerprint(stores: TieredPolicyStores) -> tuple:
+    """Cheap change detector: each store's content generation, a counter
+    bumped only on a real content change, so an unchanged tick costs a
+    few method calls. A store without the counter contributes
+    TieredPolicyStores.cache_generation()'s proxy, which steps when its
+    policy_set() object changes."""
+    return stores.cache_generation()
+
+
+class TorchReloader:
+    """Recompiles the engines whenever the stores' contents change.
+
+    One reloader drives any number of (engine, tier stores) targets, in
+    order, off one fingerprint of the shared dynamic stores (the
+    authorization and admission stacks differ only by the constant
+    allow-all tail). Each target's load is a full compile, placed and
+    warmed on the device before the engine publishes it
+    (TorchPolicyEngine.load with ``max_batch``). A failed load is logged,
+    the target keeps its previous set, and the next tick tries it again;
+    the fingerprint is kept per target, so a healthy target does not
+    recompile while another keeps failing."""
+
+    def __init__(self, stores: TieredPolicyStores, targets=None, interval_s: float = 5.0,
+                 max_batch: Optional[int] = None, on_load=None):
+        self.stores = stores  # the dynamic stores: fingerprint and readiness gate
+        self.targets = list(targets or [])  # [(engine, tier stores)]
+        self.interval_s = interval_s
+        self.max_batch = max_batch  # the warm-up's top batch (engine.load)
+        self.on_load = on_load  # called with each successful load's stats
+        self._fps: dict = {}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def reload_if_changed(self, raise_errors: bool = False) -> bool:
+        """Load every target whose fingerprint is stale; True when one
+        was loaded. ``raise_errors`` (the initial load) raises a failed
+        load instead of logging it."""
+        if not all(s.initial_policy_load_complete() for s in self.stores):
+            return False
+        fp = _fingerprint(self.stores)
+        changed = False
+        for idx, (engine, tier_stores) in enumerate(self.targets):
+            if self._fps.get(idx) == fp:
+                continue
+            try:
+                with _collector_paused():
+                    stats = engine.load([s.policy_set() for s in tier_stores],
+                                        max_batch=self.max_batch)
+            except Exception:
+                if raise_errors:
+                    raise
+                log.exception("engine [%d] reload failed; serving the previous set", idx)
+                continue
+            self._fps[idx] = fp
+            changed = True
+            log.info("engine [%d] loaded generation %d: %s", idx, engine.load_generation, stats)
+            if self.on_load is not None:
+                self.on_load(stats)
+        return changed
+
+    def run_forever(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.reload_if_changed()
+            except Exception:  # noqa: BLE001 — the previous sets keep serving
+                log.exception("reload failed; serving the previous compiled sets")
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self.run_forever, name="reloader", daemon=True)
+        self._thread.start()
+
+    def stop(self, join_timeout_s: float = 30.0) -> None:
+        """Stop the polling thread, waiting up to join_timeout_s for a
+        load in progress to finish."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=join_timeout_s)
 
 
 def build_server(args) -> WebhookServer:
@@ -63,7 +178,8 @@ def build_server(args) -> WebhookServer:
     )
     admission_fail_open = args.admission_fail_mode == "open"
 
-    fastpath = admission_fastpath = None
+    metrics = WebhookMetrics()
+    fastpath = admission_fastpath = reloader = None
     if args.backend == "interpreter":
         if not len(stores.stores):
             log.warning("no policy stores configured; authorizer will no-opinion")
@@ -74,14 +190,26 @@ def build_server(args) -> WebhookServer:
     else:
         if not len(stores.stores):
             raise ValueError("--backend device needs at least one policy store (--config)")
-        engine = _engine(args, stores, "authorization")
-        admission_engine = _engine(args, admission_stores, "admission")
-        if engine.device.type == "cuda":
-            from ..ops import cuda_match
+        from ..engine.evaluator import TorchPolicyEngine
 
-            # the launch counts describe served traffic from 0; the
-            # warm-ups' stay in each engine.stats["warmup_launches"]
-            cuda_match.reset_launch_counts()
+        engine = TorchPolicyEngine(device=args.device)
+        admission_engine = TorchPolicyEngine(device=args.device)
+        # every load warms its plane on the device before the swap: nvcc
+        # and every first-use cost of the device paths then, not inside
+        # the first requests' deadlines (the CPU's plain versions have no
+        # per-shape first-use cost, so one bucket does there); the
+        # warm-ups' launches count in engine.stats["warmup_launches"],
+        # apart from the served launch counts
+        reloader = TorchReloader(
+            stores,
+            targets=[(engine, stores), (admission_engine, admission_stores)],
+            interval_s=args.reload_seconds,
+            max_batch=args.max_batch if engine.device.type == "cuda" else 1,
+            on_load=metrics.record_compile,
+        )
+        reloader.reload_if_changed(raise_errors=True)
+        log.info("engines on %s loaded and warmed up: warm-up launches %s / %s",
+                 engine.device, engine.warmup_launches, admission_engine.warmup_launches)
         authorizer = CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch)
         admission_handler = CedarAdmissionHandler(
             admission_stores,
@@ -117,27 +245,14 @@ def build_server(args) -> WebhookServer:
         admission_handler=admission_handler,
         admission_fastpath=admission_fastpath,
         admission_fail_open=admission_fail_open,
+        metrics=metrics,
+        reloader=reloader,
     )
     if fastpath is not None:
         from ..native import _default_encode_threads
 
         server.metrics.set_native_encode_threads(_default_encode_threads())
     return server
-
-
-def _engine(args, stores: TieredPolicyStores, name: str):
-    """One tier stack compiled into a TorchPolicyEngine on --device and
-    warmed up: nvcc and every first-use cost of the device paths now, not
-    inside the first requests' deadlines (the CPU's plain versions have no
-    per-shape first-use cost, so one bucket does there)."""
-    from ..engine.evaluator import TorchPolicyEngine
-
-    engine = TorchPolicyEngine(device=args.device)
-    stats = engine.load([s.policy_set() for s in stores])
-    log.info("%s engine on %s loaded: %s", name, engine.device, stats)
-    warm = engine.warmup(args.max_batch if engine.device.type == "cuda" else 1)
-    log.info("%s engine warmed up: launches %s", name, warm)
-    return engine
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -154,6 +269,13 @@ def make_parser() -> argparse.ArgumentParser:
         help="authorization evaluation backend: device serves from the "
         "compiled engine on --device, interpreter from the Python "
         "interpreter only",
+    )
+    cedar.add_argument(
+        "--reload-seconds",
+        type=float,
+        default=5.0,
+        help="poll interval of the reloader: when a store's content changed, "
+        "both engines recompile in full and swap in their new planes",
     )
     cedar.add_argument(
         "--device",

@@ -283,6 +283,11 @@ class _CompiledSet:
         self.act_rows_dev = torch.from_numpy(act_rows).to(dev)
         self.plane_maps: dict = {}
         self._W_f32: Optional[torch.Tensor] = None
+        # host state that lives and dies with this set, keyed by its
+        # owner: the fast paths keep their native encoder and decode
+        # caches here (engine/fastpath.py), so nothing outside the set
+        # holds it once the engine has swapped it out
+        self.host_state: dict = {}
 
     @property
     def W_dev(self) -> torch.Tensor:
@@ -299,6 +304,16 @@ class _CompiledSet:
         if self._W_f32 is None:
             self._W_f32 = self.Wt_dev.to(torch.float32).t()
         return self._W_f32
+
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of the set's tensors on its device (the float plane
+        counted once made)."""
+        ts = [self.Wt_dev, self.thresh_dev, self.rule_group_dev, self.rule_policy_dev,
+              self.act_rows_dev]
+        if self._W_f32 is not None:
+            ts.append(self._W_f32)
+        return sum(t.numel() * t.element_size() for t in ts)
 
 
 class TorchPolicyEngine:
@@ -317,16 +332,30 @@ class TorchPolicyEngine:
         self.flagged_rows = 0
         # host staging buffers of the fast path and of padded launches
         self._staging = _StagingPool(pinned=self.device.type == "cuda")
-        # kernel launches the last warmup() made
+        # kernel launches of every warmup() since construction (they do
+        # not count in cuda_match.launch_counts(), the served launches)
         self.warmup_launches: dict = {}
+        # called with each new compiled set after its warm-up and before
+        # it is published (a fast path builds its native encoder there);
+        # a hook that raises fails the load
+        self.load_hooks: list = []
+        # generation, wall-clock start and publish times and compile
+        # seconds of the last successful load
+        self.last_load: dict = {}
 
     # ------------------------------------------------------------ lifecycle
 
-    def load(self, tiers: Sequence[PolicySet]) -> dict:
+    def load(self, tiers: Sequence[PolicySet], max_batch: Optional[int] = None) -> dict:
         """Full compile (lower_tiers + pack) of a tiered policy set, placed
-        on the device and atomically swapped in. Returns compile stats."""
+        on the device, warmed there when ``max_batch`` is given
+        (``warmup(max_batch, cs=new)`` before anything can serve from it),
+        passed to each of ``load_hooks``, and only then swapped in
+        atomically. A compile, placement, warm-up or hook that raises
+        fails the load: the previous set keeps serving and
+        ``load_generation`` stays. Returns compile stats."""
         if not tiers:
             raise ValueError("TorchPolicyEngine.load: at least one tier required")
+        started = time.time()
         t0 = time.monotonic()
         compiled = lower_tiers(list(tiers), self.schema)
         t1 = time.monotonic()
@@ -336,50 +365,67 @@ class TorchPolicyEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t3 = time.monotonic()
+        if max_batch is not None:
+            self.warmup(max_batch, cs=new)
+        for hook in self.load_hooks:
+            hook(new)
+        t4 = time.monotonic()
+        seconds = {
+            "lower": round(t1 - t0, 4),
+            "pack": round(t2 - t1, 4),
+            "place": round(t3 - t2, 4),
+            "warm": round(t4 - t3, 4),
+            "total": round(t4 - t0, 4),
+        }
         with self._lock:
             self._compiled = new
             self.load_generation += 1
+            self.last_load = {
+                "generation": self.load_generation,
+                "started_unix": started,
+                "published_unix": time.time(),
+                "compile_seconds": seconds,
+            }
         return {
             **compiled.stats(),
             "L": packed.L,
             "R": packed.R,
             "native_opaque_policies": packed.native_opaque,
             "compile_scope": "full",
-            "compile_seconds": {
-                "lower": round(t1 - t0, 4),
-                "pack": round(t2 - t1, 4),
-                "place": round(t3 - t2, 4),
-                "total": round(t3 - t0, 4),
-            },
+            "compile_seconds": seconds,
         }
 
-    def warmup(self, max_batch: int = 1) -> dict:
-        """Take every device path of the serving plane once per batch
-        bucket up to max_batch's, on all-padding rows (they activate
-        nothing): the words launch, the want_full groups launch and the
-        in-launch bitset compaction, then the plain bitset product once. A
-        server calls it before it reports ready, so no request's deadline
-        pays a first-use cost (the kernel library's module load, the float
-        product's library handle and its kernels per shape, the float
-        plane W_f32, each bucket's staging buffers). Returns the kernel
-        launches it made (also kept as ``warmup_launches``)."""
-        cs = self._compiled
+    def warmup(self, max_batch: int = 1, cs: Optional[_CompiledSet] = None) -> dict:
+        """Take every device path of a compiled set (``cs``, else the
+        serving one) once per batch bucket up to max_batch's, on
+        all-padding rows (they activate nothing): the words launch, the
+        want_full groups launch and the in-launch bitset compaction, then
+        the plain bitset product once. A server warms each set before it
+        serves from it, so no request's deadline pays a first-use cost (the
+        kernel library's module load, the float product's library handle
+        and its kernels per shape, the set's float plane W_f32 and TMA
+        maps, each bucket's staging buffers). Its launches count into
+        ``warmup_launches``, not into the served launch counts; returns
+        this call's."""
+        cs = cs or self._compiled
         if cs is None:
             raise RuntimeError("TorchPolicyEngine: no policy set loaded")
-        before = cuda_match.launch_counts()
-        S = cs.packed.table.n_slots if cs.packed is not None else 1
-        top = _round_bucket(min(max(max_batch, 1), _PIPELINE_SB), _BATCH_BUCKETS)
-        for B in (b for b in _BATCH_BUCKETS if b <= top):
-            codes = np.zeros((B, S), dtype=np.int32)
-            extras = np.full((B, 1), cs.L, dtype=np.int32)
-            self.match_arrays(codes, extras, cs=cs)
-            self.match_arrays(codes, extras, want_full=True, cs=cs)
-            if B <= BITS_INCALL_MAX:
-                self.match_arrays_launch(codes, extras, cs=cs, want_bits=True, valid_rows=B)()
-        self.match_bits_arrays(codes[:1], extras[:1], cs=cs)
-        after = cuda_match.launch_counts()
-        self.warmup_launches = {k: after[k] - before[k] for k in after}
-        return self.warmup_launches
+        launches = dict.fromkeys(cuda_match.LAUNCHES, 0)
+        with cuda_match.counting_into(launches):
+            S = cs.packed.table.n_slots if cs.packed is not None else 1
+            top = _round_bucket(min(max(max_batch, 1), _PIPELINE_SB), _BATCH_BUCKETS)
+            for B in (b for b in _BATCH_BUCKETS if b <= top):
+                codes = np.zeros((B, S), dtype=np.int32)
+                extras = np.full((B, 1), cs.L, dtype=np.int32)
+                self.match_arrays(codes, extras, cs=cs)
+                self.match_arrays(codes, extras, want_full=True, cs=cs)
+                if B <= BITS_INCALL_MAX:
+                    self.match_arrays_launch(codes, extras, cs=cs, want_bits=True, valid_rows=B)()
+            self.match_bits_arrays(codes[:1], extras[:1], cs=cs)
+        with self._lock:
+            for k, n in launches.items():
+                self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
+        return launches
 
     @property
     def loaded(self) -> bool:
@@ -528,14 +574,18 @@ class TorchPolicyEngine:
 
     @property
     def stats(self) -> dict:
-        """The loaded set's shape, the staging pool and the match kernels'
-        launch counts (process-wide, cuda_match.launch_counts): the
-        server's /debug/engine entry."""
+        """The loaded set's shape and device bytes, the staging pool, the
+        match kernels' served launch counts (process-wide,
+        cuda_match.launch_counts), the warm-ups' launches and the last
+        load: the server's /debug/engine entry."""
+        with self._lock:
+            warmup_launches = dict(self.warmup_launches)
         out = {
             "device": str(self.device),
             "launches": cuda_match.launch_counts(),
-            "warmup_launches": dict(self.warmup_launches),
+            "warmup_launches": warmup_launches,
             "staging": self._staging.stats(),
+            "last_load": dict(self.last_load),
         }
         cs = self._compiled
         if cs is not None:
@@ -545,7 +595,15 @@ class TorchPolicyEngine:
                 R=cs.R,
                 fallback_policies=len(cs.fallback),
                 native_opaque_policies=cs.packed.native_opaque if cs.packed else 0,
+                device_bytes=cs.device_bytes,
             )
+        if self.device.type == "cuda":
+            # the process's allocations on the card (every engine's), and
+            # what its caching allocator holds of the card's memory
+            out["device_memory"] = {
+                "allocated": torch.cuda.memory_allocated(self.device),
+                "reserved": torch.cuda.memory_reserved(self.device),
+            }
         return out
 
     def match_arrays(

@@ -115,10 +115,14 @@ ROUTES = ("clean_native", "gated", "flagged", "encoder_fallback", "encoder_gate"
 
 
 class _Snapshot(NamedTuple):
-    """Immutable (encoder, compiled set, caches) tuple, read with one
-    attribute load, so a policy hot swap can never pair the old encoder's
-    codes with the new compiled set's activation table, and cache entries
-    never leak across swaps (each snapshot owns its dicts)."""
+    """Immutable (encoder, compiled set, caches) tuple that a batch takes
+    once and carries through every stage, so a policy hot swap can never
+    pair the old encoder's codes with the new compiled set's activation
+    table, and cache entries never leak across swaps. The encoder and
+    caches live in the set's ``host_state`` (one entry per fast-path
+    class, with no reference back to the set): once the engine has
+    swapped a set out and the last batch holding its snapshot is done,
+    nothing holds the set."""
 
     encoder: NativeEncoder
     cs: object  # the _CompiledSet the encoder was built on
@@ -172,7 +176,6 @@ class _RawFastPath:
 
     def __init__(self, engine: TorchPolicyEngine):
         self.engine = engine
-        self._snap: Optional[_Snapshot] = None
         self._build_lock = threading.Lock()
         # guards the counters below: the pipeline's encode, dispatch and
         # decode threads and the serial path update them concurrently
@@ -187,8 +190,7 @@ class _RawFastPath:
         self.packed_chunks = 0
 
     def _current_snapshot(self) -> _Snapshot:
-        """The snapshot for the engine's current compiled set, building the
-        native encoder when the set changed (policy hot swap). Raises when
+        """The snapshot for the engine's current compiled set. Raises when
         no set is loaded or the encoder cannot be built.
 
         Interpreter-fallback policies do not disable the native plane:
@@ -197,28 +199,34 @@ class _RawFastPath:
         cs = self.engine.compiled_set
         if cs is None:
             raise RuntimeError("fast path: the engine has no policy set loaded")
-        snap = self._snap  # lock-free: one atomic attribute read
-        if snap is not None and snap.cs is cs:
-            return snap
-        with self._build_lock:
-            # re-read under the lock: another thread may have built the
-            # snapshot for a newer set while this one waited
-            cs = self.engine.compiled_set
-            snap = self._snap
-            if snap is None or snap.cs is not cs:
-                if cs.packed is None:
-                    raise RuntimeError(
-                        "fast path: the compiled set carries no encoder plan"
-                    )
-                snap = _Snapshot(NativeEncoder.create(cs.packed), cs, {}, {})
-                self._snap = snap
-        return snap
+        return self._snapshot_of(cs)
+
+    def _snapshot_of(self, cs) -> _Snapshot:
+        """The snapshot of compiled set ``cs``, building its native
+        encoder at the set's first use by this fast-path class."""
+        key = type(self).__name__
+        state = cs.host_state.get(key)  # lock-free: one dict read
+        if state is None:
+            with self._build_lock:
+                # re-read under the lock: another thread may have built it
+                state = cs.host_state.get(key)
+                if state is None:
+                    if cs.packed is None:
+                        raise RuntimeError(
+                            "fast path: the compiled set carries no encoder plan"
+                        )
+                    state = (NativeEncoder.create(cs.packed), {}, {})
+                    cs.host_state[key] = state
+        return _Snapshot(state[0], cs, state[1], state[2])
 
     def prepare(self) -> None:
         """Build the native encoder for the loaded set now (g++ at first
-        use), so the first request does not wait for it. Raises as
-        _current_snapshot does."""
+        use), and for every set the engine loads later before the engine
+        publishes it (a load hook), so no request waits for a build.
+        Raises as _current_snapshot does."""
         self._current_snapshot()
+        if self._snapshot_of not in self.engine.load_hooks:
+            self.engine.load_hooks.append(self._snapshot_of)
 
     # ----------------------------------------------------- subclass surface
 

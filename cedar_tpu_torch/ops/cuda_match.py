@@ -25,11 +25,15 @@ The kernels are compiled with nvcc for sm_90a at first use, from the
 sources under csrc/ only, into ``_build/<hash of sources and flags>/`` next
 to this package, and loaded through ctypes (a plain C interface; no
 PyTorch headers, so a build takes seconds). Each wrapper adds one to
-``LAUNCHES[<kernel>]`` where it launches its kernel and nowhere else.
+``LAUNCHES[<kernel>]`` where it launches its kernel and nowhere else;
+inside ``counting_into(counts)`` the launches of the calling thread count
+into ``counts`` instead (an engine's warm-up of a new plane, while other
+threads serve, keeps the served counts to served traffic).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -75,6 +79,8 @@ LAUNCHES = {"match_groups_kernel": 0, "match_words_kernel": 0}
 # the serving pipeline launches from two threads (dispatch: the words;
 # decode: the gated rows' first-match), so a count is a locked add
 _launch_lock = threading.Lock()
+# per thread: the dict counting_into() diverts this thread's launches to
+_sink = threading.local()
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -92,9 +98,25 @@ def launch_counts() -> dict:
         return dict(LAUNCHES)
 
 
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Count the calling thread's launches inside the block into
+    ``counts`` (kernel name -> launches, added to) instead of LAUNCHES."""
+    prev = getattr(_sink, "counts", None)
+    _sink.counts = counts
+    try:
+        yield counts
+    finally:
+        _sink.counts = prev
+
+
 def _count_launch(kernel: str) -> None:
+    counts = getattr(_sink, "counts", None)
     with _launch_lock:
-        LAUNCHES[kernel] += 1
+        if counts is None:
+            LAUNCHES[kernel] += 1
+        else:
+            counts[kernel] = counts.get(kernel, 0) + 1
 
 
 def build_log() -> str:

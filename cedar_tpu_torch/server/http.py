@@ -28,7 +28,9 @@ launch. Without a fast path (``--backend interpreter``, or
 ``--no-native``) the request thread answers through the authorizer, and
 admission reviews through the handler (batched over the engine when the
 handler has a batched backend). A failed batch is never re-run on another
-path: its requests answer the error.
+path: its requests answer the error. The server starts the policy
+reloader (cli/webhook.py TorchReloader) with its listeners; stop() stops
+it and the stores' reload tickers.
 """
 
 from __future__ import annotations
@@ -124,9 +126,14 @@ class WebhookServer:
         admission_handler: Optional[CedarAdmissionHandler] = None,
         admission_fastpath=None,
         admission_fail_open: Optional[bool] = None,
+        metrics: Optional[WebhookMetrics] = None,
+        reloader=None,
     ):
         self.authorizer = authorizer
-        self.metrics = WebhookMetrics()
+        self.metrics = metrics or WebhookMetrics()
+        # recompiles the engines when the stores change (cli/webhook.py
+        # TorchReloader): started with the listeners, stopped with them
+        self.reloader = reloader
 
         def eval_batcher(fast, serial_fn, path):
             """pipeline_depth > 0: the three-stage PipelinedBatcher over
@@ -460,6 +467,8 @@ class WebhookServer:
         threading.Thread(
             target=self._metrics_httpd.serve_forever, name="metrics-server", daemon=True
         ).start()
+        if self.reloader is not None:
+            self.reloader.start()
         log.info(
             "serving on %s://%s:%d (metrics http://%s:%d)",
             "https" if self.certfile else "http",
@@ -497,7 +506,21 @@ class WebhookServer:
                 httpd.server_close()
         self._httpd = None
         self._metrics_httpd = None
+        if self.reloader is not None:
+            self.reloader.stop()
         self.stop_batchers()
+        self.close_stores()
+
+    def close_stores(self) -> None:
+        """Stop the reload tickers of both paths' stores."""
+        stacks = [self.authorizer.stores]
+        if self.admission_handler is not None:
+            stacks.append(self.admission_handler.stores)
+        for stores in stacks:
+            for store in stores:
+                close = getattr(store, "close", None)
+                if close is not None:
+                    close()
 
     def stop_batchers(self) -> None:
         """Drain and stop the batchers without touching the listeners (for

@@ -17,7 +17,11 @@ internal/server/metrics/metrics.go):
   * ``cedar_authorizer_row_routing_total{path,row_class}`` and
     ``cedar_packed_decode_{transfers,chunks}_total{path}``, read from the
     fast path's own counts at scrape time;
-  * ``cedar_native_encode_threads``.
+  * ``cedar_native_encode_threads``;
+  * ``cedar_compile_seconds{phase,scope}``: one observation per phase
+    (lower, pack, place, warm, total) of every engine load, the initial
+    ones and each reload's; scope is always ``full`` (every load
+    recompiles the whole corpus).
 
 The batch, pipeline, deadline, shed, routing and packed-decode families
 carry a ``path`` label: ``authorization`` for /v1/authorize and
@@ -281,6 +285,16 @@ class WebhookMetrics:
             [],
         ))
 
+        self.compile_seconds = reg(Histogram(
+            "cedar_compile_seconds",
+            "Policy-set compilation latency partitioned by phase (lower = "
+            "lowering, pack = plane assembly, place = device placement, warm = "
+            "the new plane's warm-up on the device before the swap, total) and "
+            "scope (full = the whole corpus recompiled).",
+            ["phase", "scope"],
+            [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120],
+        ))
+
     def add_fastpath(self, path: str, fastpath) -> None:
         """Render this fast path's routing and packed-decode counts."""
         self.registry.register(_FastPathFamilies(path, fastpath))
@@ -313,6 +327,12 @@ class WebhookMetrics:
     def record_pipeline_stage(self, path: str, stage: str, seconds: float) -> None:
         if seconds >= 0:
             self.pipeline_stage_seconds.observe(seconds, path=path, stage=stage)
+
+    def record_compile(self, stats: dict) -> None:
+        """One engine load's compile stats (TorchPolicyEngine.load)."""
+        scope = stats.get("compile_scope", "full")
+        for phase, seconds in stats["compile_seconds"].items():
+            self.compile_seconds.observe(seconds, phase=phase, scope=scope)
 
     def set_native_encode_threads(self, n: int) -> None:
         self.native_encode_threads.set(n)

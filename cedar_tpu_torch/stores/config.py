@@ -56,5 +56,10 @@ def cedar_config_stores(config: Optional[CedarConfig]) -> TieredPolicyStores:
                 f"yet (the CRD and Verified Permissions stores are not "
                 f"ported); only {STORE_TYPE_DIRECTORY!r} stores are served"
             )
-        stores.append(DirectoryPolicyStore(sd.directory_store.path))
+        stores.append(
+            DirectoryPolicyStore(
+                sd.directory_store.path,
+                refresh_interval_s=sd.directory_store.refresh_interval_ns / 1e9,
+            )
+        )
     return TieredPolicyStores(stores)

@@ -1,16 +1,19 @@
-"""Directory policy store: loads the *.cedar files of one directory.
+"""Directory policy store: loads the *.cedar files of one directory and
+re-reads them on a ticker.
 
 Behavior parity with the reference's internal/server/store/directory.go
 (the JAX package's stores/directory.py): ready immediately, errors logged
 and skipped per file, policy ids namespaced as "<filename>.policy<N>"
-(directory.go:75), an atomic swap of the whole set. A file that stops
-parsing keeps its last good policies and is quarantined
-(stores/quarantine.py).
+(directory.go:75), an atomic swap of the whole set, a full re-read every
+``refresh_interval_s`` (the StoreConfig's refreshInterval). A file that
+stops parsing keeps its last good policies and is quarantined
+(stores/quarantine.py). Parse results are cached per file by content
+hash, so a tick over unchanged files costs reads and hashes.
 
-The port loads the directory once, at construction: the device plane is
-compiled from it once at start (there is no reloader yet), so a ticker
-re-reading the files would only let the store drift from what the card
-serves. ``load_policies()`` re-reads on demand.
+``content_generation()`` steps when a re-read changes the content; the
+webhook's reloader (cli/webhook.py TorchReloader) polls it and recompiles
+the device planes. ``load_policies()`` re-reads on demand; ``close()``
+stops the ticker.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import hashlib
 import logging
 import os
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 from ..lang.authorize import PolicySet
 from ..lang.lexer import ParseError
@@ -30,8 +33,14 @@ log = logging.getLogger(__name__)
 
 
 class DirectoryPolicyStore:
-    def __init__(self, directory: str):
+    def __init__(
+        self,
+        directory: str,
+        refresh_interval_s: float = 60.0,
+        start_ticker: bool = True,
+    ):
         self.directory = directory
+        self.refresh_interval_s = refresh_interval_s
         # file names this store quarantined, so a reload can clear the
         # entries of files that vanish (born-poison ones included)
         self._quarantined: set = set()
@@ -41,9 +50,34 @@ class DirectoryPolicyStore:
         self._parse_cache: Dict[str, Tuple[str, list]] = {}
         self._generation = 0
         self._lock = threading.Lock()
+        # one re-read at a time: the ticker and an on-demand
+        # load_policies() share the parse cache and the quarantine set
+        self._load_lock = threading.Lock()
+        self._stop = threading.Event()
         self.load_policies()
+        self._ticker: Optional[threading.Thread] = None
+        if start_ticker:
+            self._ticker = threading.Thread(
+                target=self._reload_loop, name="directory-store-reload", daemon=True
+            )
+            self._ticker.start()
+
+    def close(self) -> None:
+        """Stop the ticker: it exits at once, without a re-read."""
+        self._stop.set()
+
+    def _reload_loop(self) -> None:
+        while not self._stop.wait(self.refresh_interval_s):
+            try:
+                self.load_policies()
+            except Exception:  # noqa: BLE001 — the previous set keeps serving
+                log.exception("directory store re-read failed; serving the previous set")
 
     def load_policies(self) -> None:
+        with self._load_lock:
+            self._load_policies()
+
+    def _load_policies(self) -> None:
         try:
             entries = sorted(os.listdir(self.directory))
         except OSError as e:

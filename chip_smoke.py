@@ -113,6 +113,36 @@ Phases, each a hard failure with a nonzero exit:
      requests/s, p50 / p99, mean and largest batch, the mixed window per
      endpoint, both engines' plane shapes, the server's peak RSS and the
      phase's wall time; SIGTERM must end the server with code 0.
+  10. live policy reload (this slice's main path): phase 9's files in one
+     directory store with refreshInterval 30s (its minimum), served by the
+     CLI with --reload-seconds 1, --request-timeout-ms 10000 and both
+     engines. While 32 clients POST
+     SARs (phase 8's gated bodies) and 32 POST AdmissionReviews without
+     pause, three edits land, each an atomic swap of the store's directory
+     (a symlink re-pointed, as a Kubernetes ConfigMap volume updates): add
+     a forbid file (every watch SAR and every admission delete), edit
+     admission.cedar (its first forbid dropped), revert both. After each,
+     the phase waits for /debug/engine's load_generation to step on both
+     engines (the directory ticker re-reads within 30 s, the reloader
+     recompiles in full, warms the new plane on the card and swaps it in).
+     The expected answers come from the oracle pool over each version's
+     directory. Checks: every answer is the answer of a version live while
+     the request was in flight (a request sent after an engine published
+     a version gets that version's: 0 flips; a deadline expiry counts as
+     a flip); each edit changed answers;
+     both kernels' served launch counts rise after each swap; no fallback
+     batch; the server's card memory after the third reload no more than
+     one plane above its memory after the first; SIGTERM ends the server
+     with code 0. Prints per reload and engine the time from the write to
+     the swap and the compile seconds by phase (lower, pack, place, warm);
+     per endpoint requests/s and p99 in the 5 s before each write and
+     while each reload compiles, and the latency of the first request sent
+     after each swap; the server's card memory after reloads 1 and 3
+     (nvidia-smi's per-process figure where it lists the server, and the
+     server's allocator counts from /debug/engine); the phase's wall time.
+
+``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
+reload phase); it prints no result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -545,11 +575,28 @@ def _oracle_init(n_policies: int, seed: int, adm_dir=None) -> None:
 def _oracle(name: str):
     """The port's interpreter over the serving corpus ("synth"), its gated
     twin ("gated"), or, for "admission", the interpreter admission handler
-    over phase 9's directory plus the allow-all tier."""
+    over phase 9's directory plus the allow-all tier; "dir-authorize:<dir>"
+    and "dir-admit:<dir>" name the authorizer and the admission handler
+    over a directory store of <dir> (phase 10's versions)."""
     if name not in _ORACLES:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
 
-        if name == "admission":
+        if name.startswith("dir-"):
+            from cedar_tpu_torch.server.admission import (
+                CedarAdmissionHandler,
+                allow_all_admission_policy_store,
+            )
+            from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+            from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+
+            kind, path = name[len("dir-"):].split(":", 1)
+            store = DirectoryPolicyStore(path, start_ticker=False)
+            if kind == "admit":
+                _ORACLES[name] = CedarAdmissionHandler(TieredPolicyStores(
+                    [store, allow_all_admission_policy_store()]))
+            else:
+                _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([store]))
+        elif name == "admission":
             from cedar_tpu_torch.server.admission import (
                 CedarAdmissionHandler,
                 allow_all_admission_policy_store,
@@ -557,7 +604,8 @@ def _oracle(name: str):
             from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
 
             _ORACLES[name] = CedarAdmissionHandler(TieredPolicyStores([
-                DirectoryPolicyStore(_ORACLE_ARGS["adm_dir"]), allow_all_admission_policy_store()]))
+                DirectoryPolicyStore(_ORACLE_ARGS["adm_dir"], start_ticker=False),
+            allow_all_admission_policy_store()]))
         else:
             from cedar_tpu_torch.corpus.synth import synth_corpus
             from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
@@ -604,20 +652,21 @@ def _oracle_answers(task):
     from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
 
     name, bodies = task
-    if name == "admission":
+    if name == "admission" or name.startswith("dir-admit:"):
         return [admission_oracle(_oracle(name), b) for b in bodies]
     attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
     return [canon(sar_response(d, r)) for d, r in _oracle(name).authorize_batch(attrs)]
 
 
-def interpreter_answers(tasks: dict, n_policies: int, seed: int, adm_dir=None) -> dict:
+def interpreter_answers(tasks: dict, n_policies: int, seed: int, adm_dir=None,
+                        piece: int = 512) -> dict:
     """{label: (oracle name, bodies)} -> {label: [answer]} from the port's
     interpreter (canon SAR responses; admission response documents),
-    spread over one spawned worker per core (it takes milliseconds per
-    request at 10k policies); the pool is torn down before returning."""
+    spread in pieces of `piece` bodies over one spawned worker per core
+    (it takes milliseconds per request at 10k policies); the pool is torn
+    down before returning."""
     import multiprocessing as mp
 
-    piece = 512
     work = [(label, i, name, bodies[i:i + piece])
             for label, (name, bodies) in tasks.items() for i in range(0, len(bodies), piece)]
     n_workers = max(1, min(os.cpu_count() or 1, len(work)))
@@ -726,6 +775,9 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--policies", type=int, default=10000)
     ap.add_argument("--sars", type=int, default=300)
+    ap.add_argument("--only-reload", action="store_true",
+                    help="run phases 1, 2 and 10 only (a quick check of the reload phase); "
+                         "prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
@@ -788,6 +840,11 @@ def main() -> None:
     if gmma.get("IGMMA", 0) < 1:
         fail("the built library has no IGMMA instruction: the kernels do not use "
              "the int8 tensor cores")
+
+    if args.only_reload:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        reload_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
 
     # ---- 3. kernel parity (launches here are not main-path launches)
     err = {"match_groups_kernel": 0, "match_words_kernel": 0}
@@ -1246,15 +1303,19 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 9. admission: /v1/admit on the same CLI, beside /v1/authorize
     admission_launches = admission_phase(args, card, big, big_expected)
 
-    # each kernel's launches on this slice's main path, the admission
-    # webhook's traffic (counted in the server process); and on the
+    # ---- 10. live policy reload under traffic on both endpoints
+    reload_launches = reload_phase(args, card, g_batch)
+
+    # each kernel's launches on this slice's main path, the traffic across
+    # phase 10's reloads (counted in the server process); and on the
     # earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": admission_launches[k],
+            "launches": reload_launches[k],
+            "launches_reload": reload_launches[k],
             "launches_admission": admission_launches[k],
             "launches_webhook": webhook_launches[k],
             "launches_fastpath": {label: c[k] for label, c in fast_launches.items()},
@@ -1521,7 +1582,7 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
         try:
             # the expected answers meanwhile, in this process: the library
             # fast path over a store built from the same directory
-            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir)])
+            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir, start_ticker=False)])
             x_engine = TorchPolicyEngine()
             x_engine.load([s.policy_set() for s in stores])
             x_fast = SARFastPath(x_engine, CedarWebhookAuthorizer(
@@ -1682,7 +1743,7 @@ def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
             # the expected answers meanwhile, in this process: the library
             # admission fast path over the same directory plus the allow-all
             # tier, held against the port's interpreter handler
-            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir),
+            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir, start_ticker=False),
                                          allow_all_admission_policy_store()])
             x_engine = TorchPolicyEngine()
             x_engine.load([s.policy_set() for s in stores])
@@ -1801,6 +1862,280 @@ def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
     print(f"admission phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
 
+
+# phase 10's edits: a forbid file that flips every watch SAR and every
+# admission delete, then admission.cedar without its first forbid
+RELOAD_FLIP_POLICY = """
+forbid (principal, action == k8s::Action::"watch", resource is k8s::Resource);
+forbid (principal, action == k8s::admission::Action::"delete", resource);
+"""
+ADM_POLICIES_EDITED = "forbid (" + ADM_POLICIES.split("forbid (", 2)[2]
+
+
+def gpu_memory_mib(pid: int):
+    """The card memory of process `pid` in MiB (nvidia-smi
+    --query-compute-apps), or None when nvidia-smi does not list it (in a
+    container it may see no process of its own)."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    for line in out.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0] == str(pid):
+            return float(parts[1].split()[0])
+    return None
+
+
+def reload_phase(args, card: str, sars: list) -> dict:
+    """Phase 10 (module docstring): `sars` are phase 8's gated SAR bodies.
+    Returns the server's kernel launch counts over the phase's traffic
+    (its served counts: they start at 0, warm-ups count apart)."""
+    from cedar_tpu_torch.corpus.synth import synth_source
+
+    t_phase = time.monotonic()
+    grace = 5.0
+    n_pool = 512
+    sars = sars[:n_pool]
+    adms = admission_bodies(n_pool, args.seed + 10)
+    with tempfile.TemporaryDirectory(prefix="cedar-reload-") as tmp:
+        base = {
+            "synth.cedar": synth_source(args.policies, seed=args.seed),
+            "gated.cedar": FALLBACK_POLICY + NATIVE_OPAQUE_POLICY,
+            "admission.cedar": ADM_POLICIES,
+            "admission-demo.cedar": ADM_DEMO_OWNER_POLICY,
+            "admission-gated.cedar": ADM_FALLBACK_POLICY,
+        }
+        # versions 0..3: the base, + the flip file, + admission.cedar
+        # edited, and the base again (both reverted)
+        versions = [base, {**base, "flip.cedar": RELOAD_FLIP_POLICY},
+                    {**base, "flip.cedar": RELOAD_FLIP_POLICY,
+                     "admission.cedar": ADM_POLICIES_EDITED}, base]
+        vdirs = []
+        for k, files in enumerate(versions):
+            vdir = os.path.join(tmp, f"v{k}")
+            os.mkdir(vdir)
+            for fname, text in files.items():
+                with open(os.path.join(vdir, fname), "w") as f:
+                    f.write(text)
+            vdirs.append(vdir)
+        pol_dir = os.path.join(tmp, "policies")
+        os.symlink(vdirs[0], pol_dir)
+
+        def swap_to(k):
+            """Re-point the store's directory at version k atomically."""
+            link = os.path.join(tmp, "policies.new")
+            os.symlink(vdirs[k], link)
+            os.replace(link, pol_dir)
+
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "directory", "directoryStore": {
+                           "path": pol_dir, "refreshInterval": "30s"}}]}}, f)
+        # a 10 s request budget, the Kubernetes default for an admission
+        # webhook: the phase holds the swap contract, and the serving cost
+        # of a reload (the compile shares the interpreter lock with 64
+        # closed-loop clients) is reported as latency, with no target
+        srv = Webhook(cfg, tmp, "webhook-reload", grace,
+                      ("--reload-seconds", "1", "--request-timeout-ms", "10000"))
+        port, mport = srv.port, srv.mport
+        stop = threading.Event()
+        threads = []
+        try:
+            # the expected answers meanwhile: the interpreter over each
+            # version's directory (version 3 is version 0)
+            t0 = time.monotonic()
+            tasks = {}
+            for k in range(3):
+                tasks[(k, "/v1/authorize")] = (f"dir-authorize:{vdirs[k]}", sars)
+                tasks[(k, "/v1/admit")] = (f"dir-admit:{vdirs[k]}", adms)
+            answers = interpreter_answers(tasks, args.policies, args.seed, piece=64)
+            keyf = {"/v1/authorize": lambda a: reason_key(a, {}),
+                    "/v1/admit": adm_key}
+            # the oracle's admission answers are whole AdmissionReviews
+            oracle_of = {"/v1/authorize": lambda a: a, "/v1/admit": lambda a: a["response"]}
+            want = {path: [[keyf[path](oracle_of[path](a)) for a in answers[(k % 3, path)]]
+                           for k in range(4)]
+                    for path in ("/v1/authorize", "/v1/admit")}
+            print(f"reload oracle: {len(tasks) * n_pool} interpreter answers over 3 versions in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            for path in want:
+                for k in (1, 2):
+                    n = sum(a != b for a, b in zip(want[path][k], want[path][k - 1]))
+                    print(f"reload version {k} changes {n} of {n_pool} {path} answers", flush=True)
+            srv.wait_ready(card)
+
+            def engines():
+                doc = srv.debug_engine()
+                return {path: doc[path]["engine"] for path in ("authorization", "admission")}
+
+            eng0 = engines()
+            if any(eng0["authorization"]["launches"].values()):
+                fail(f"reload: served launches before traffic: {eng0['authorization']['launches']}")
+
+            # traffic: 32 + 32 clients, without pause, until stopped
+            records = {"/v1/authorize": [], "/v1/admit": []}
+            pools = {"/v1/authorize": sars, "/v1/admit": adms}
+            errors = []
+            lock = threading.Lock()
+            counters = {"/v1/authorize": 0, "/v1/admit": 0}
+
+            def client(path):
+                c = Client(port, path)
+                try:
+                    while not stop.is_set():
+                        with lock:
+                            i = counters[path] % n_pool
+                            counters[path] += 1
+                        sent = time.time()
+                        got, dt = c.post(pools[path][i])
+                        records[path].append((sent, time.time(), i, got, dt))
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errors.append(f"{path}: {e!r}")
+                finally:
+                    c.close()
+
+            for path in records:
+                for _ in range(32):
+                    threads.append(threading.Thread(target=client, args=(path,)))
+            for th in threads:
+                th.start()
+            time.sleep(6.0)
+            writes, publishes, mem, launch_marks = [], [], {}, []
+            for k in (1, 2, 3):
+                gens = {p: e["load_generation"] for p, e in engines().items()}
+                t_write = time.time()
+                swap_to(k)
+                deadline = time.monotonic() + 150
+                while True:
+                    eng = engines()
+                    if all(eng[p]["load_generation"] > gens[p] for p in gens):
+                        break
+                    if errors or time.monotonic() > deadline:
+                        fail(f"reload {k}: the engines did not step within 150 s "
+                             f"(generations {gens}, client errors {errors[:3]}):\n{srv.log()}")
+                    time.sleep(0.2)
+                if any(eng[p]["load_generation"] != gens[p] + 1 for p in gens):
+                    fail(f"reload {k}: a generation stepped twice: {gens} -> "
+                         f"{ {p: eng[p]['load_generation'] for p in eng} }")
+                writes.append(t_write)
+                publishes.append({p: eng[p]["last_load"] for p in eng})
+                launch_marks.append(eng["authorization"]["launches"])
+                for p in ("authorization", "admission"):
+                    last = eng[p]["last_load"]
+                    print(f"reload {k} {p} engine ({card}): write to swap "
+                          f"{last['published_unix'] - t_write:.3f} s, compile seconds "
+                          f"{json.dumps(last['compile_seconds'])}", flush=True)
+                if k in (1, 3):
+                    dm = eng["authorization"]["device_memory"]
+                    mem[k] = {"nvidia-smi": gpu_memory_mib(srv.proc.pid),
+                              "allocated": dm["allocated"] / 2**20,
+                              "reserved": dm["reserved"] / 2**20}
+                time.sleep(4.0)
+            launch_marks.append(engines()["authorization"]["launches"])
+            stop.set()
+            for th in threads:
+                th.join(timeout=120)
+            if any(th.is_alive() for th in threads):
+                fail("reload: a client thread did not finish within 120 s")
+            if errors:
+                fail(f"reload: client errors {errors[:3]}")
+
+            # every answer is that of a version live while it was in flight
+            engine_of = {"/v1/authorize": "authorization", "/v1/admit": "admission"}
+            problems = []  # every check's failure, reported together at the end
+            flips = 0
+            for path, recs in records.items():
+                pubs = [pb[engine_of[path]]["published_unix"] for pb in publishes]
+                bounds = [float("-inf")] + pubs + [float("inf")]
+                changed = [0, 0, 0, 0]
+                # answers no live version gives, by the version live at
+                # their answer: deadline expiries apart from the rest
+                odd = {}
+                for sent, done, i, got, _dt in recs:
+                    live = [v for v in range(4) if bounds[v] < done and bounds[v + 1] > sent]
+                    key = keyf[path](got)
+                    if not any(key == want[path][v][i] for v in live):
+                        flips += 1
+                        kind = "deadline" if "deadline of" in json.dumps(got) else "other"
+                        at = odd.setdefault(f"version {live[-1]}", {})
+                        at[kind] = at.get(kind, 0) + 1
+                        if flips <= 3:
+                            print(f"reload flip {path} body {i}: live versions {live}, got "
+                                  f"{json.dumps(got)}", flush=True)
+                    if len(live) == 1 and live[0] and key != want[path][live[0] - 1][i]:
+                        changed[live[0]] += 1
+                if odd:
+                    print(f"reload {path}: answers of no live version {json.dumps(odd)}",
+                          flush=True)
+                print(f"reload {path}: {len(recs)} answers, answers unlike the previous "
+                      f"version's after reloads 1-3: {changed[1:]}", flush=True)
+                need = (1, 2, 3) if path == "/v1/admit" else (1, 3)
+                if any(changed[k] < 1 for k in need):
+                    problems.append(f"{path}: a reload changed no answer: {changed[1:]}")
+            print(f"reload flips: {flips}", flush=True)
+            if flips:
+                problems.append(f"{flips} answers are no version's live while in flight")
+
+            # serving before each write and while each reload compiled,
+            # and the first request sent after each swap
+            for k, (t_write, pub) in enumerate(zip(writes, publishes), start=1):
+                c0 = min(pub[p]["started_unix"] for p in pub)
+                c1 = max(pub[p]["published_unix"] for p in pub)
+                for path, recs in records.items():
+                    row = []
+                    for label, lo, hi in (("before", t_write - 5.0, t_write),
+                                          ("compiling", c0, c1)):
+                        lat = [dt for _s, done, _i, _g, dt in recs if lo <= done < hi]
+                        row.append(f"{label} {len(lat) / max(hi - lo, 1e-9):.1f} requests/s "
+                                   f"p99 {pct(lat, 99) * 1e3 if lat else float('nan'):.3f} ms "
+                                   f"max {max(lat, default=float('nan')) * 1e3:.3f} ms")
+                    p_swap = pub[engine_of[path]]["published_unix"]
+                    first = min((r for r in recs if r[0] > p_swap), key=lambda r: r[0],
+                                default=None)
+                    fb = f"{first[4] * 1e3:.3f} ms" if first else "none"
+                    print(f"reload {k} {path} ({card}): {'; '.join(row)} (compile window "
+                          f"{c1 - c0:.3f} s); first request after the swap {fb}", flush=True)
+
+            # both kernels launched on each new plane
+            for k in (1, 2, 3):
+                a, b = launch_marks[k - 1], launch_marks[k]
+                if not all(b[n] > a[n] for n in a):
+                    problems.append(f"reload {k}: launches did not rise after the swap: "
+                                    f"{a} -> {b}")
+            launches = launch_marks[-1]
+            text = http_get(mport, "/metrics")[1].decode()
+            fallback = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                           if line.startswith("cedar_authorizer_fallback_batches_total{"))
+            compiles = [line for line in text.splitlines()
+                        if line.startswith("cedar_compile_seconds_count{")]
+            print(f"reload launches {json.dumps(launches)}, fallback batches {fallback:g}, "
+                  f"{'; '.join(compiles)}", flush=True)
+            if fallback:
+                problems.append(f"{fallback:g} fallback batches")
+            plane = max(e["device_bytes"] for e in engines().values()) / 2**20
+            print(f"reload card memory of the server, MiB ({card}; nvidia-smi's per-process "
+                  f"figure where it lists the server, and the server's allocator): after reload "
+                  f"1 {json.dumps(mem[1])}, after reload 3 {json.dumps(mem[3])}; one plane "
+                  f"{plane:.1f} MiB", flush=True)
+            for what in ("nvidia-smi", "allocated", "reserved"):
+                if mem[1][what] is not None and mem[3][what] - mem[1][what] > plane:
+                    problems.append(f"card memory ({what}) grew by "
+                                    f"{mem[3][what] - mem[1][what]:.1f} MiB over reloads 2-3, "
+                                    f"more than one plane ({plane:.1f} MiB)")
+            took, rss = srv.terminate()
+            print(f"reload webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+            if problems:
+                fail("reload: " + "; ".join(problems))
+        finally:
+            stop.set()
+            srv.kill()
+    print(f"reload phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
 
 if __name__ == "__main__":
     main()

@@ -355,8 +355,9 @@ def test_webhook_server_on_card_equals_cpu_engine(cuda):
 def test_engine_warmup_launches_per_bucket(cuda):
     """warmup(128) takes buckets 1, 8, 32 and 128: per bucket one words
     launch, one groups launch (want_full) and one words launch with the
-    in-launch bitset compaction; the answers after it equal the CPU
-    engine's."""
+    in-launch bitset compaction. They count into the engine's
+    warmup_launches, not into the served launch counts; the answers after
+    it equal the CPU engine's."""
     from cedar_tpu_torch.corpus.synth import synth_corpus
     from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
 
@@ -368,7 +369,7 @@ def test_engine_warmup_launches_per_bucket(cuda):
     cuda_match.reset_launch_counts()
     want_launches = {"match_groups_kernel": 4, "match_words_kernel": 8}
     assert gpu.warmup(128) == want_launches
-    assert cuda_match.launch_counts() == want_launches
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 0}
     assert gpu.stats["warmup_launches"] == want_launches
     items = corpus.sar_items(300, seed=1)
     assert [key(r) for r in gpu.evaluate_batch(items)] == [key(r) for r in cpu.evaluate_batch(items)]
@@ -465,3 +466,41 @@ def test_admit_server_on_card_launches_both_kernels(cuda):
     assert got == [r.to_admission_review() for r in cpu.handle_raw(bodies)]
     assert launches["match_words_kernel"] > 0 and launches["match_groups_kernel"] > 0
     assert srv.metrics.fallback_batches_total.value(path="admission", reason="evaluator_error") == 0
+
+
+@pytest.mark.cuda
+def test_reload_publishes_a_warmed_plane(cuda):
+    """A reload on the card (TorchPolicyEngine.load with max_batch, as
+    the webhook's reloader calls it) publishes a set that is already
+    warm: its float plane W_f32 exists and its TMA maps are encoded, the
+    warm-up's launches counted apart from the served ones, so the first
+    served call on it encodes no map and answers as the CPU engine; the
+    old set is released once nothing serves from it."""
+    import gc
+    import weakref
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.lang import PolicySet
+
+    key = lambda r: (r[0], sorted(x.policy for x in r[1].reasons), sorted(r[1].errors))  # noqa: E731
+    corpus = synth_corpus(400, seed=6)
+    gpu, cpu = TorchPolicyEngine(), TorchPolicyEngine(device="cpu")
+    gpu.load(corpus.tiers(), max_batch=128)
+    old = weakref.ref(gpu.compiled_set)
+    tiers = [PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]]
+    cuda_match.reset_launch_counts()
+    stats = gpu.load(tiers, max_batch=128)
+    cpu.load(tiers)
+    assert gpu.load_generation == 2 and stats["compile_seconds"]["warm"] > 0
+    cs = gpu.compiled_set
+    assert cs._W_f32 is not None and cs.plane_maps
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 0}
+    maps = dict(cs.plane_maps)
+    items = corpus.sar_items(64, seed=2)
+    assert [key(r) for r in gpu.evaluate_batch(items)] == [key(r) for r in cpu.evaluate_batch(items)]
+    assert cs.plane_maps == maps
+    assert cuda_match.launch_counts()["match_groups_kernel"] + \
+        cuda_match.launch_counts()["match_words_kernel"] > 0
+    gc.collect()
+    assert old() is None
