@@ -25,9 +25,22 @@ recompiles both engines in full, the authorization engine first; each new
 plane is placed and warmed on the device and only then swapped in. A
 reload that fails is logged and leaves the previous plane serving; the
 next tick tries again. With ``--backend interpreter`` the tickers alone
-keep the answers current. Flags of the JAX CLI that this port does not
-serve (breaker, cache, fleet, tenancy, tracing, incremental compile, ...)
-do not exist here, so argparse rejects them.
+keep the answers current.
+
+Resilience, as the JAX CLI deploys it: a circuit breaker per engine
+(``--breaker-*``; 0 failures disables it), a DeviceRecovery per engine
+that rebuilds the plane on the card after a fatal device error, and the
+Supervisor watchdog (``--supervisor-*``; interval 0 disables both) over
+both batchers and every directory store's reload ticker. While a breaker
+is open its endpoint answers the failure posture (NoOpinion +
+evaluationError, the admission fail-mode); nothing re-runs on the
+interpreter. ``--confirm-non-prod-inject-errors`` opens the
+``/chaos/*`` control endpoints and allows ``--chaos-scenario`` (a builtin
+name or a scenario JSON file, armed at start).
+
+Flags of the JAX CLI that this port does not serve (cache, fleet,
+tenancy, tracing, incremental compile, the artificial error and deny
+rates, ...) do not exist here, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -60,21 +73,33 @@ log = logging.getLogger(__name__)
 # freed by reference counting), so pausing the collector loses nothing,
 # and once frozen the long-lived sets are skipped by every later
 # collection. After a failed load nothing is frozen: its traceback's
-# cycles must stay collectable.
+# cycles must stay collectable. A device rebuild (server/supervisor.py
+# DeviceRecovery) runs under the same lock with the collector paused and
+# freezes nothing (_rebuild_paused).
 _load_lock = threading.Lock()
 
 
 @contextlib.contextmanager
-def _collector_paused():
+def _collector_paused(freeze: bool = True):
     with _load_lock:
         enabled = gc.isenabled()
         gc.disable()
         try:
             yield
-            gc.freeze()
+            if freeze:
+                gc.freeze()
         finally:
             if enabled:
                 gc.enable()
+
+
+def _rebuild_paused():
+    """A device rebuild's context: serialized with the loads and with the
+    collector paused, but nothing frozen after it. A rebuild follows
+    failed batches, whose exceptions may still be garbage in reference
+    cycles holding the set it replaces; frozen, they would keep that
+    set's card memory for the life of the process."""
+    return _collector_paused(freeze=False)
 
 
 def _fingerprint(stores: TieredPolicyStores) -> tuple:
@@ -156,6 +181,90 @@ class TorchReloader:
             self._thread.join(timeout=join_timeout_s)
 
 
+def _make_breaker(args, name: str):
+    """The circuit breaker of one engine (engine/breaker.py); None when
+    --breaker-failure-threshold is 0."""
+    if args.breaker_failure_threshold <= 0:
+        return None
+    from ..engine.breaker import CircuitBreaker
+
+    latency_ms = args.breaker_latency_threshold_ms
+    if latency_ms <= 0:
+        # the request budget: a device that "succeeds" slower than any
+        # caller waits is breaching (without it a uniformly slow device
+        # never trips: each expiry's failure would be erased by the late
+        # batch completing as a success)
+        latency_ms = args.request_timeout_ms
+    return CircuitBreaker(
+        name=name,
+        failure_threshold=args.breaker_failure_threshold,
+        latency_threshold_s=latency_ms / 1e3 if latency_ms > 0 else None,
+        recovery_s=args.breaker_recovery_seconds,
+        half_open_probes=args.breaker_half_open_probes,
+    )
+
+
+def _arm_startup_scenario(args) -> None:
+    """--chaos-scenario: configure and arm the registry at start, behind
+    the non-prod gate (an armed scenario exists to break serving)."""
+    if not args.chaos_scenario:
+        return
+    if not args.confirm_non_prod_inject_errors:
+        raise ValueError(
+            "--chaos-scenario requires --confirm-non-prod-inject-errors "
+            "(fault injection is never a production default)"
+        )
+    from ..chaos import builtin_scenario, default_registry, load_scenario_file
+
+    scenario = builtin_scenario(args.chaos_scenario)
+    if scenario is None:
+        scenario = load_scenario_file(args.chaos_scenario)
+    default_registry().configure(scenario)
+    default_registry().arm()
+    log.warning("chaos scenario %r ARMED at startup (non-prod gate confirmed)",
+                scenario.get("name", args.chaos_scenario))
+
+
+def _register_supervised(supervisor, server) -> None:
+    """Put the long-lived workers under the watchdog: both paths'
+    batchers and every directory store's reload ticker. The ``threads``
+    providers re-read the live objects, so a revived generation stays
+    covered; a restart abandons live workers only when the probe read a
+    wedge."""
+    from ..server.supervisor import HeartbeatGroup
+
+    def _force(reason: str) -> bool:
+        return reason.startswith("wedged")
+
+    for name, batcher in (
+        ("batcher.authorization", server._batcher),
+        ("batcher.admission", server._adm_raw_batcher),
+        ("batcher.admission_python", server._admission_batcher),
+    ):
+        if batcher is None:
+            continue
+        supervisor.register(
+            name,
+            threads=lambda b=batcher: list(b._threads),
+            restart=lambda reason, b=batcher: b.revive(force=_force(reason)),
+            heartbeat=HeartbeatGroup(lambda b=batcher: b.heartbeats),
+        )
+    stacks = [server.authorizer.stores]
+    if server.admission_handler is not None:
+        stacks.append(server.admission_handler.stores)
+    seen = set()
+    for stores in stacks:
+        for store in stores:
+            if id(store) in seen or not hasattr(store, "ticker_threads"):
+                continue
+            seen.add(id(store))
+            supervisor.register(
+                f"store.directory.{store.name()}",
+                threads=store.ticker_threads,
+                restart=lambda reason, s=store: s.revive(force=_force(reason)),
+            )
+
+
 def build_server(args) -> WebhookServer:
     """stores -> the authorization and admission stacks, each an engine
     loaded from its stores behind its fast path -> WebhookServer. Raises
@@ -178,8 +287,10 @@ def build_server(args) -> WebhookServer:
     )
     admission_fail_open = args.admission_fail_mode == "open"
 
+    _arm_startup_scenario(args)
     metrics = WebhookMetrics()
     fastpath = admission_fastpath = reloader = None
+    recoveries = []
     if args.backend == "interpreter":
         if not len(stores.stores):
             log.warning("no policy stores configured; authorizer will no-opinion")
@@ -222,11 +333,43 @@ def build_server(args) -> WebhookServer:
 
             if args.native_encode_threads > 0:
                 set_encode_threads(args.native_encode_threads)
-            fastpath = SARFastPath(engine, authorizer)
+            guards = {}
+            for name, eng in (("authorization", engine), ("admission", admission_engine)):
+                breaker = _make_breaker(args, name)
+                recovery = None
+                if args.supervisor_interval_seconds > 0:
+                    from ..server.supervisor import DeviceRecovery
+
+                    # the rebuild runs as a load does: one at a time with
+                    # the collector paused, warmed before it is published
+                    recovery = DeviceRecovery(
+                        eng, breaker=breaker, name=name,
+                        warm_max_batch=reloader.max_batch,
+                        rebuild_context=_rebuild_paused,
+                    )
+                    recoveries.append(recovery)
+                guards[name] = {
+                    "breaker": breaker,
+                    "on_device_error": recovery.observe if recovery is not None else None,
+                }
+            fastpath = SARFastPath(engine, authorizer, **guards["authorization"])
             fastpath.prepare()
-            admission_fastpath = AdmissionFastPath(admission_engine, admission_handler)
+            admission_fastpath = AdmissionFastPath(
+                admission_engine, admission_handler, **guards["admission"]
+            )
             admission_fastpath.prepare()
             log.info("native SAR and admission fast paths enabled")
+
+    supervisor = None
+    if args.supervisor_interval_seconds > 0:
+        from ..server.supervisor import Supervisor
+
+        supervisor = Supervisor(
+            interval_s=args.supervisor_interval_seconds,
+            wedge_budget_s=args.supervisor_wedge_seconds,
+        )
+        for recovery in recoveries:
+            supervisor.register_recovery(recovery)
 
     server = WebhookServer(
         authorizer=authorizer,
@@ -247,7 +390,11 @@ def build_server(args) -> WebhookServer:
         admission_fail_open=admission_fail_open,
         metrics=metrics,
         reloader=reloader,
+        supervisor=supervisor,
+        chaos_control_enabled=args.confirm_non_prod_inject_errors,
     )
+    if supervisor is not None:
+        _register_supervised(supervisor, server)
     if fastpath is not None:
         from ..native import _default_encode_threads
 
@@ -351,11 +498,72 @@ def make_parser() -> argparse.ArgumentParser:
         "closed denies (nothing unevaluated is admitted)",
     )
     resilience.add_argument(
+        "--breaker-failure-threshold",
+        type=int,
+        default=5,
+        help="consecutive evaluator errors that trip an engine's circuit "
+        "breaker; while it is open the endpoint answers the failure "
+        "posture without reaching the device (0 disables the breaker)",
+    )
+    resilience.add_argument(
+        "--breaker-latency-threshold-ms",
+        type=float,
+        default=0.0,
+        help="device evaluation latency counted as a breach; consecutive "
+        "breaches also trip the breaker (0 = default to "
+        "--request-timeout-ms: slower than any caller waits is breaching)",
+    )
+    resilience.add_argument(
+        "--breaker-recovery-seconds",
+        type=float,
+        default=10.0,
+        help="how long a tripped breaker stays open before half-open "
+        "recovery probes",
+    )
+    resilience.add_argument(
+        "--breaker-half-open-probes",
+        type=int,
+        default=2,
+        help="consecutive successful probes that close a half-open breaker",
+    )
+    resilience.add_argument(
+        "--supervisor-interval-seconds",
+        type=float,
+        default=1.0,
+        help="watchdog poll interval: dead or wedged worker threads "
+        "(batcher stages, store reload tickers) are restarted, the "
+        "batches they held answered with the failure posture, and fatal "
+        "device errors trigger an engine rebuild on the card (0 disables "
+        "supervision and the rebuild)",
+    )
+    resilience.add_argument(
+        "--supervisor-wedge-seconds",
+        type=float,
+        default=10.0,
+        help="busy-heartbeat age after which a live worker thread counts "
+        "as wedged and is force-restarted (idle workers never trip this)",
+    )
+    resilience.add_argument(
         "--shutdown-grace-seconds",
         type=float,
         default=5.0,
         help="drain window on SIGTERM: /readyz flips to 503, new requests "
         "are shed, in-flight requests get this long to finish",
+    )
+
+    gameday = parser.add_argument_group("gameday")
+    gameday.add_argument(
+        "--confirm-non-prod-inject-errors",
+        action="store_true",
+        help="required gate for fault injection: the /chaos/* control "
+        "endpoints and --chaos-scenario (never set in production)",
+    )
+    gameday.add_argument(
+        "--chaos-scenario",
+        default="",
+        help="arm a chaos scenario at startup: a built-in name "
+        "(kill-decode, device-loss, store-stall, ...) or a scenario JSON "
+        "file; requires --confirm-non-prod-inject-errors",
     )
 
     debug = parser.add_argument_group("debug")

@@ -21,6 +21,18 @@ share one queue-and-slot front end.
 
 A batch whose evaluation (or any stage) raises fails: each of its
 submitters gets a RuntimeError. Nothing here re-runs it on another path.
+
+Supervision (server/supervisor.py): every worker loop beats a
+``Heartbeat``, and ``revive(force=)`` restarts dead (or, forced, wedged)
+workers as a new generation: the superseded one exits at its next loop
+iteration. The pipelined batcher's revive also fails the batches sitting
+in the old generation's hand-off queues and the batch a dead stage held
+when it died, so their submitters answer the failure posture at once, and
+hands their staging back to the pool once no copy can read it
+(``stages.pipeline_discard``). The chaos seams ``pipeline.collect``,
+``pipeline.dispatch_q`` and ``pipeline.decode_q`` (chaos/registry.py)
+fire after a worker takes its batch and before the per-batch
+containment, so a ``kill`` rule unwinds the worker as a crash would.
 """
 
 from __future__ import annotations
@@ -29,8 +41,10 @@ import logging
 import queue as _queue
 import threading
 import time
+from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence, TypeVar
 
+from ..chaos.registry import chaos_fire
 from ..server.supervisor import Heartbeat
 
 log = logging.getLogger(__name__)
@@ -135,6 +149,16 @@ class MicroBatcher:
         self._largest_batch = 0
         # per-stage liveness beacons (server/supervisor.py)
         self.heartbeats: dict = {}
+        # worker generation: revive() bumps it, and every worker loop
+        # checks the epoch it started with, so a superseded (dead, or
+        # wedged and abandoned) generation never races the fresh one for
+        # queued work
+        self._epoch = 0
+        self.revives = 0
+        # (stage, epoch) -> (batch, ctx) a worker holds outside the queues
+        # (claimed, or taken off a hand-off queue, and not yet passed on
+        # or answered): revive() answers the replaced generation's
+        self._in_hand: dict = {}
         self._start_workers()
 
     def _start_workers(self) -> None:
@@ -142,6 +166,71 @@ class MicroBatcher:
         self._thread = threading.Thread(target=self._run, name="micro-batcher", daemon=True)
         self._threads = [self._thread]
         self._thread.start()
+
+    def revive(self, force: bool = False) -> bool:
+        """Restart dead worker threads (the supervisor's hook). ``force``
+        also abandons live-but-wedged workers: the epoch bump makes the old
+        generation exit at its next loop iteration, and fresh workers take
+        over the submit queue. Queued items survive (the new workers
+        evaluate them); a batch a dead worker held is answered with a
+        restart error. Returns False when nothing needed doing (or the
+        batcher is stopped)."""
+        with self._cv:
+            if self._stopped:
+                return False
+            dead = [t for t in self._threads if not t.is_alive()]
+            if not dead and not force:
+                return False
+            self._epoch += 1
+            self.revives += 1
+            self._cv.notify_all()
+            stranded = self._take_in_hand(self._threads)
+            self._start_workers()
+        self._shed_stranded(stranded, force)
+        log.warning(
+            "micro-batcher revived (%d dead worker(s)%s)",
+            len(dead),
+            ", forced" if force else "",
+        )
+        return True
+
+    def _hold(self, stage: str, epoch: int, batch: list, ctx=None) -> None:
+        """Record the batch a worker holds outside the queues."""
+        self._in_hand[(stage, epoch)] = (batch, ctx)
+
+    def _drop(self, stage: str, epoch: int) -> None:
+        self._in_hand.pop((stage, epoch), None)
+
+    def _take_in_hand(self, old_threads) -> list:
+        """Take the batches held by superseded generations (the caller
+        has bumped the epoch), as (stage, batch, ctx, dead): dead when the
+        stage's thread among ``old_threads`` (the generation just
+        replaced) has exited."""
+        alive = {t.name: t.is_alive() for t in old_threads}
+        out = []
+        for (stage, epoch), (batch, ctx) in list(self._in_hand.items()):
+            if epoch == self._epoch:
+                continue
+            del self._in_hand[(stage, epoch)]
+            name = "micro-batcher" if stage == "worker" else f"pipe-{stage}"
+            out.append((stage, batch, ctx, epoch == self._epoch - 1 and not alive.get(name, True)))
+        return out
+
+    def _shed_stranded(self, stranded: list, force: bool) -> None:
+        """Answer the batches held by the replaced generation with a
+        restart error: a dead worker's (and its staging is handed back),
+        and, on a forced revive, a wedged one's (its staging stays with
+        the call that may still use it). A live worker of a revive that
+        was not forced finishes or fails its batch itself."""
+        for stage, batch, ctx, dead in stranded:
+            if not (dead or force):
+                continue
+            self._fail_batch(batch, RuntimeError(f"pipeline {stage} stage restarted; batch shed"))
+            if dead and ctx is not None:
+                self._discard_ctx(ctx)
+
+    def _discard_ctx(self, ctx) -> None:
+        """The serial batcher holds no staging: nothing to hand back."""
 
     def _alive(self) -> bool:
         """True while every worker thread runs: a dead stage means
@@ -171,6 +260,7 @@ class MicroBatcher:
             **self._batch_stats(),
             "max_batch": self.max_batch,
             "window_us": round(self.window_s * 1e6, 1),
+            "revives": self.revives,
             "heartbeats": self._heartbeat_stats(),
         }
 
@@ -245,8 +335,18 @@ class MicroBatcher:
                 # would be mutated concurrently): one fresh error each
                 err = RuntimeError(str(slot.error))
                 err.__cause__ = slot.error
+            else:
+                # the slot's only waiter takes its error off it
+                err, slot.error = slot.error, None
+            # no reference cycle through the raised error: neither the
+            # slot (held by the calling frames its traceback holds) nor
+            # this frame keeps it. A cycle would keep the failed batch's
+            # compiled set (its card memory) alive until a cyclic
+            # collection
+            try:
                 raise err
-            raise slot.error
+            finally:
+                del err
         return slot.result
 
     def stop(self, drain_timeout_s: float = 2.0) -> None:
@@ -277,14 +377,19 @@ class MicroBatcher:
         if slot.key is not None and self._pending.get(slot.key) is entry:
             del self._pending[slot.key]
 
-    def _form_batch(self) -> Optional[list]:
+    def _form_batch(self, epoch: Optional[int] = None) -> Optional[list]:
         """Wait for work and claim one batch under the lock. Returns None
-        when stopped with an empty queue (the worker exits), else a
-        possibly empty batch (every queued item withdrew during the
-        window: never evaluate zero rows)."""
+        when stopped with an empty queue (the worker exits) or when
+        ``epoch`` is no longer current (revive() superseded this worker),
+        else a possibly empty batch (every queued item withdrew during
+        the window: never evaluate zero rows)."""
         with self._cv:
             while not self._queue and not self._stopped:
+                if epoch is not None and self._epoch != epoch:
+                    return None
                 self._cv.wait()
+            if epoch is not None and self._epoch != epoch:
+                return None
             if self._stopped and not self._queue:
                 return None
             # the forming window lets concurrent submitters pile in
@@ -366,15 +471,24 @@ class MicroBatcher:
             raise
 
     def _run_loop(self) -> None:
+        epoch = self._epoch
         hb = self.heartbeats["worker"]
         while True:
+            # while idle, hold nothing of the last batch (its results and
+            # errors reach its compiled set, which a swap may have retired)
+            batch = results = None
             hb.idle()
-            batch = self._form_batch()
+            batch = self._form_batch(epoch)
             if batch is None:
                 return
             if not batch:
                 continue
+            self._hold("worker", epoch, batch)
+            # chaos seam outside the per-batch containment below: a kill
+            # rule unwinds this worker as a crash would
+            chaos_fire("pipeline.collect")
             hb.busy()
+            self._drop("worker", epoch)
             times = batch[0][1].times
             times.eval0 = time.monotonic()
             # the end stamp lands before any waiter wakes
@@ -459,18 +573,120 @@ class PipelinedBatcher(MicroBatcher):
         return all(t.is_alive() for t in self._threads)
 
     def _start_workers(self) -> None:
+        # fresh hand-off queues per worker generation: after a revive() a
+        # superseded (possibly wedged) stage thread still holds ITS
+        # generation's queues, so it can never consume, or block on, the
+        # new stages' work; each stage gets its epoch, queues and
+        # downstream consumer as arguments for the same reason
         for stage in ("collect", "dispatch", "decode"):
             self.heartbeats.setdefault(stage, Heartbeat())
         self._dispatch_q: _queue.Queue = _queue.Queue(maxsize=self.depth)
         self._decode_q: _queue.Queue = _queue.Queue(maxsize=self.depth)
-        self._decoder = threading.Thread(target=self._run_decode, name="pipe-decode", daemon=True)
-        self._dispatcher = threading.Thread(
-            target=self._run_dispatch, name="pipe-dispatch", daemon=True
+        epoch = self._epoch
+        self._decoder = threading.Thread(
+            target=self._run_decode, name="pipe-decode", daemon=True,
+            args=(epoch, self._decode_q),
         )
-        self._thread = threading.Thread(target=self._run_collect, name="pipe-collect", daemon=True)
+        self._dispatcher = threading.Thread(
+            target=self._run_dispatch, name="pipe-dispatch", daemon=True,
+            args=(epoch, self._dispatch_q, self._decode_q, self._decoder),
+        )
+        self._thread = threading.Thread(
+            target=self._run_collect, name="pipe-collect", daemon=True,
+            args=(epoch, self._dispatch_q, self._dispatcher),
+        )
         self._threads = [self._thread, self._dispatcher, self._decoder]
         for t in self._threads:
             t.start()
+
+    def revive(self, force: bool = False) -> bool:
+        """Restart the pipeline after a stage death (or, forced, a wedge):
+        supersede the old worker generation, fail every batch in the old
+        hand-off queues and every batch an old stage held (their slots
+        fail at once with a restart error, so the callers answer the
+        failure posture instead of waiting out their deadlines), hand
+        their staging back (stages.pipeline_discard: once no copy can read
+        it), and start fresh stages with fresh queues. The submit queue
+        survives: the new collector takes it over. Returns False when
+        nothing needed doing (or the batcher is stopped)."""
+        with self._cv:
+            if self._stopped:
+                return False
+            dead = [t for t in self._threads if not t.is_alive()]
+            if not dead and not force:
+                return False
+            self._epoch += 1
+            self.revives += 1
+            old_threads = list(self._threads)
+            old_qs = [self._dispatch_q, self._decode_q]
+            self._cv.notify_all()
+        # wake and retire the surviving old stages: a sentinel unblocks a
+        # blocked get, and the epoch check exits the loop
+        shed = self._shed_queues(old_qs)
+        for q in old_qs:
+            try:
+                q.put_nowait(_SENTINEL)
+            except _queue.Full:
+                pass
+        for t in old_threads:
+            if t.is_alive():
+                t.join(timeout=0.5)
+        # second pass: anything a still-live old stage pushed between the
+        # first drain and its exit
+        shed += self._shed_queues(old_qs)
+        with self._cv:
+            stranded = self._take_in_hand(old_threads)
+        self._shed_stranded(stranded, force)
+        with self._inflight_lock:
+            self._inflight = 0
+        with self._cv:
+            if self._stopped:
+                return False
+            self._start_workers()
+        log.warning(
+            "pipeline revived: %d dead stage(s)%s, %d queued and %d held batch(es) shed",
+            len(dead),
+            ", forced" if force else "",
+            shed,
+            len(stranded),
+        )
+        return True
+
+    def _discard_ctx(self, ctx) -> None:
+        """Hand a failed batch's staging back through the fast path: an
+        encode future (dispatch queue) once it resolves, an encoded or
+        launched context (decode queue, a held batch) now."""
+        discard = getattr(self.stages, "pipeline_discard", None)
+        if discard is None:
+            return
+        if isinstance(ctx, Future):
+            def _done(fut):
+                if not fut.cancelled() and fut.exception() is None:
+                    discard(fut.result())
+            ctx.add_done_callback(_done)
+            return
+        discard(ctx)
+
+    def _shed_item(self, item) -> None:
+        """Fail one hand-off queue item and hand back its staging."""
+        batch, ctx = item
+        self._fail_batch(batch, RuntimeError("pipeline stage restarted; batch shed"))
+        self._discard_ctx(ctx)
+
+    def _shed_queues(self, qs) -> int:
+        """Fail every batch queued in ``qs`` (revive)."""
+        shed = 0
+        for q in qs:
+            while True:
+                try:
+                    item = q.get_nowait()
+                except _queue.Empty:
+                    break
+                if item is _SENTINEL:
+                    continue
+                self._shed_item(item)
+                shed += 1
+        return shed
 
     def debug_stats(self) -> dict:
         with self._inflight_lock:
@@ -487,6 +703,7 @@ class PipelinedBatcher(MicroBatcher):
             "inflight": inflight,
             "inflight_peak": peak,
             "stall_seconds": {k: round(v, 6) for k, v in self._stall_s.items()},
+            "revives": self.revives,
             "heartbeats": self._heartbeat_stats(),
         }
 
@@ -502,8 +719,9 @@ class PipelinedBatcher(MicroBatcher):
         return self.window_s
 
     def _inflight_add(self, n: int) -> None:
+        # a superseded stage's late decrement must not drive it below 0
         with self._inflight_lock:
-            self._inflight += n
+            self._inflight = max(0, self._inflight + n)
             self._inflight_peak = max(self._inflight_peak, self._inflight)
 
     def _encode_timed(self, items, times: _StageTimes):
@@ -533,60 +751,86 @@ class PipelinedBatcher(MicroBatcher):
 
     # --------------------------------------------------------------- stages
 
-    def _run_collect(self) -> None:
+    def _run_collect(self, epoch, dispatch_q, dispatcher) -> None:
         try:
-            self._collect_loop()
+            self._collect_loop(epoch, dispatch_q, dispatcher)
         except BaseException:
             log.critical("pipeline collect stage died on an uncaught exception")
             raise
 
-    def _collect_loop(self) -> None:
+    def _collect_loop(self, epoch, dispatch_q, dispatcher) -> None:
         hb = self.heartbeats["collect"]
         while True:
+            batch = items = fut = None  # see _run_loop
             hb.idle()
-            batch = self._form_batch()
+            batch = self._form_batch(epoch)
             if batch is None:
                 break
             if not batch:
                 continue
+            self._hold("collect", epoch, batch)
+            # chaos seam outside the per-batch containment: a kill rule
+            # unwinds this stage as a crash would
+            chaos_fire("pipeline.collect")
             hb.busy()
             items = [it for it, _ in batch]
             try:
                 fut = self._pool.submit(self._encode_timed, items, batch[0][1].times)
             except RuntimeError as e:  # the pool was shut down
+                self._drop("collect", epoch)
                 self._fail_batch(batch, e)
                 continue
             t0 = time.monotonic()
             self._inflight_add(1)
-            ok = self._put(self._dispatch_q, (batch, fut), self._dispatcher)
+            self._hold("collect", epoch, batch, fut)
+            ok = self._put(dispatch_q, (batch, fut), dispatcher)
+            self._drop("collect", epoch)
+            if self._epoch != epoch:
+                # revived while this put was blocked: nothing consumes
+                # this generation's queue any more
+                self._shed_queues([dispatch_q])
             # blocked on a full dispatch queue: device or decode backpressure
             self._stall("collect", time.monotonic() - t0)
             if not ok:
                 self._inflight_add(-1)
                 self._fail_batch(batch, RuntimeError("pipeline dispatch stage died"))
-        self._put(self._dispatch_q, _SENTINEL, self._dispatcher)
+                self._discard_ctx(fut)
+        if self._epoch == epoch:
+            self._put(dispatch_q, _SENTINEL, dispatcher)
 
-    def _run_dispatch(self) -> None:
+    def _run_dispatch(self, epoch, dispatch_q, decode_q, decoder) -> None:
         try:
-            self._dispatch_loop()
+            self._dispatch_loop(epoch, dispatch_q, decode_q, decoder)
         except BaseException:
             log.critical("pipeline dispatch stage died on an uncaught exception")
             raise
 
-    def _dispatch_loop(self) -> None:
+    def _dispatch_loop(self, epoch, dispatch_q, decode_q, decoder) -> None:
         hb = self.heartbeats["dispatch"]
         while True:
+            item = batch = fut = ctx = None  # see _run_loop
             hb.idle()
-            item = self._dispatch_q.get()
+            item = dispatch_q.get()
+            if self._epoch != epoch:
+                # superseded by revive(): a batch this get raced away from
+                # revive's queue drain must still fail at once
+                if item is not _SENTINEL:
+                    self._shed_item(item)
+                return
+            if item is not _SENTINEL:
+                self._hold("dispatch", epoch, item[0], item[1])
+            # chaos seam after the queue get, outside any per-batch try
+            chaos_fire("pipeline.dispatch_q")
             hb.busy()
             if item is _SENTINEL:
-                self._put(self._decode_q, _SENTINEL, self._decoder)
+                self._put(decode_q, _SENTINEL, decoder)
                 return
             batch, fut = item
             t0 = time.monotonic()
             try:
                 ctx = fut.result()  # the encode worker's result (or its error)
             except BaseException as e:  # noqa: BLE001 — fails this batch
+                self._drop("dispatch", epoch)
                 self._inflight_add(-1)
                 self._fail_batch(batch, e)
                 continue
@@ -597,29 +841,46 @@ class PipelinedBatcher(MicroBatcher):
             try:
                 ctx = self.stages.pipeline_dispatch(ctx)
             except BaseException as e:  # noqa: BLE001 — fails this batch
+                # (the fast path handed its staging back)
+                self._drop("dispatch", epoch)
                 times.dispatch1 = time.monotonic()
                 self._inflight_add(-1)
                 self._fail_batch(batch, e)
                 continue
             times.dispatch1 = time.monotonic()
-            if not self._put(self._decode_q, (batch, ctx), self._decoder):
+            self._hold("dispatch", epoch, batch, ctx)
+            ok = self._put(decode_q, (batch, ctx), decoder)
+            self._drop("dispatch", epoch)
+            if self._epoch != epoch:
+                self._shed_queues([decode_q])  # see _collect_loop
+            if not ok:
                 self._inflight_add(-1)
                 self._fail_batch(batch, RuntimeError("pipeline decode stage died"))
+                self._discard_ctx(ctx)
 
-    def _run_decode(self) -> None:
+    def _run_decode(self, epoch, decode_q) -> None:
         try:
-            self._decode_loop()
+            self._decode_loop(epoch, decode_q)
         except BaseException:
             log.critical("pipeline decode stage died on an uncaught exception")
             raise
 
-    def _decode_loop(self) -> None:
+    def _decode_loop(self, epoch, decode_q) -> None:
         hb = self.heartbeats["decode"]
         while True:
+            item = batch = ctx = results = None  # see _run_loop
             busy = self._inflight > 0
             t0 = time.monotonic()
             hb.idle()
-            item = self._decode_q.get()
+            item = decode_q.get()
+            if self._epoch != epoch:
+                if item is not _SENTINEL:
+                    self._shed_item(item)  # see _dispatch_loop
+                return
+            if item is not _SENTINEL:
+                self._hold("decode", epoch, item[0], item[1])
+            # chaos seam after the queue get, outside any per-batch try
+            chaos_fire("pipeline.decode_q")
             hb.busy()
             if busy:
                 # idle while batches were in flight: the pipeline starved
@@ -635,12 +896,15 @@ class PipelinedBatcher(MicroBatcher):
                 self._record_batch_stages(times)
                 self._complete_batch(batch, results)
             except BaseException as e:  # noqa: BLE001 — fails this batch
+                # (the fast path handed its staging back)
                 if times.decode1 is None:
                     times.decode1 = time.monotonic()
                     self._record_batch_stages(times)
                 self._fail_batch(batch, e)
             finally:
-                self._inflight_add(-1)
+                self._drop("decode", epoch)
+                if self._epoch == epoch:
+                    self._inflight_add(-1)
 
     def stop(self, drain_timeout_s: float = 5.0) -> None:
         """Drain the whole pipeline: the collector pushes every queued

@@ -35,6 +35,7 @@ signal (reasons or errors) wins; the last tier's default applies.
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -42,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..chaos.registry import chaos_fire
 from ..compiler.lower import AUTHZ_SCHEMA_INFO, SchemaInfo, lower_tiers
 from ..compiler.pack import ERROR_IDX, FORBID_IDX, GROUPS_PER_TIER, PERMIT_IDX, pack
 from ..compiler.table import encode_request_codes
@@ -65,6 +67,8 @@ from ..ops.match import (
     n_groups_of,
 )
 from .weights import compiled_set_from_numpy, packed_arrays
+
+log = logging.getLogger(__name__)
 
 _BATCH_BUCKETS = (1, 8, 32, 128, 512, 1024, 2048, 4096, 8192, 16384, 32768)
 # rows per device launch; larger batches run as several launches
@@ -119,14 +123,19 @@ class _StagingPool:
     A buffer goes back to the pool only after the outputs of the launch
     that read it have materialized (finish(), or the fast path's deferred
     resolve): released at launch time, a later batch could overwrite rows
-    an in-flight H2D copy is still reading. A buffer whose release is
-    skipped (an exception unwound past finish) is simply garbage-collected:
-    the pool keeps no record of outstanding buffers, so it can neither leak
-    nor hand one out twice.
+    an in-flight H2D copy is still reading. A buffer whose batch failed
+    after its launch comes back through ``release_after_device``: it waits
+    on an event recorded behind the batch's copies on the serving stream
+    and returns to the pool once the event has completed (checked at each
+    acquire and stats(); nothing blocks on it). Where no event can be
+    recorded or queried (a poisoned CUDA context), the buffer is retired
+    instead: counted back and dropped, never pooled again.
 
-    Occupancy: acquire/release keep an outstanding-buffer count and its
-    peak; a peak above one batch's buffer count shows that a second batch's
-    staging overlapped the first's device work (stats())."""
+    stats() records the buffers acquired and not yet returned or retired
+    (``outstanding``; 0 at rest, failed batches included), its peak, and
+    the buffers waiting on a failed batch's event (``pending``); a peak
+    above one batch's buffer count shows that a second batch's staging
+    overlapped the first's device work."""
 
     # free buffers kept per (shape, dtype); the working set is a handful of
     # bucket shapes
@@ -140,8 +149,13 @@ class _StagingPool:
         self._peak_outstanding = 0
         self._acquires = 0
         self._overlapped_acquires = 0
+        # (CUDA event, buffers) of failed batches: returned once the event
+        # recorded behind their copies has completed
+        self._pending: list = []
+        self._retired = 0
 
     def acquire(self, shape, dtype) -> np.ndarray:
+        self._reap()
         key = (tuple(shape), np.dtype(dtype).str)
         with self._lock:
             self._acquires += 1
@@ -166,7 +180,58 @@ class _StagingPool:
                 if len(bufs) < self._MAX_PER_KEY:
                     bufs.append(a)
 
+    def retire(self, *arrays) -> None:
+        """Count buffers back without pooling them again (their memory goes
+        when the last reference does)."""
+        with self._lock:
+            self._outstanding = max(0, self._outstanding - len(arrays))
+            self._retired += len(arrays)
+
+    def release_after_device(self, arrays, device: torch.device) -> None:
+        """Return the buffers of a batch that failed after (or during) its
+        launch, once no copy can still read them: at once on the CPU, else
+        when an event recorded now on ``device``'s current stream (behind
+        every copy the batch enqueued: the serving threads all launch on
+        the default stream) has completed."""
+        if not arrays:
+            return
+        if device.type != "cuda":
+            self.release(*arrays)
+            return
+        try:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+        except Exception:  # noqa: BLE001 — a poisoned context: nothing reads them
+            log.warning("staging: no event behind a failed batch's copies; retired")
+            self.retire(*arrays)
+            return
+        with self._lock:
+            self._pending.append((event, list(arrays)))
+
+    def _reap(self) -> None:
+        """Return the pending buffers whose event has completed; retire
+        those whose event cannot be queried."""
+        if not self._pending:
+            return
+        with self._lock:
+            pending, self._pending = self._pending, []
+        keep = []
+        for event, arrays in pending:
+            try:
+                done = event.query()
+            except Exception:  # noqa: BLE001 — a poisoned context
+                self.retire(*arrays)
+                continue
+            if done:
+                self.release(*arrays)
+            else:
+                keep.append((event, arrays))
+        if keep:
+            with self._lock:
+                self._pending.extend(keep)
+
     def stats(self) -> dict:
+        self._reap()
         with self._lock:
             return {
                 "pinned": self._pinned,
@@ -174,6 +239,8 @@ class _StagingPool:
                 "peak_outstanding": self._peak_outstanding,
                 "acquires": self._acquires,
                 "overlapped_acquires": self._overlapped_acquires,
+                "pending": sum(len(a) for _e, a in self._pending),
+                "retired": self._retired,
             }
 
 
@@ -327,6 +394,10 @@ class TorchPolicyEngine:
         self._compiled: Optional[_CompiledSet] = None
         self.load_generation = 0
         self._lock = threading.Lock()
+        # one load or rebuild at a time, from compile to publish: a rebuild
+        # must not publish over a load that landed meanwhile, and two
+        # loads must not race (the publish itself takes _lock)
+        self._load_lock = threading.Lock()
         # rows whose diagnostics came from rule bitsets (resolve_flagged
         # and the want_full multi rows) since construction
         self.flagged_rows = 0
@@ -342,6 +413,8 @@ class TorchPolicyEngine:
         # generation, wall-clock start and publish times and compile
         # seconds of the last successful load
         self.last_load: dict = {}
+        # the same of the last successful rebuild_compiled
+        self.last_rebuild: dict = {}
 
     # ------------------------------------------------------------ lifecycle
 
@@ -352,9 +425,14 @@ class TorchPolicyEngine:
         passed to each of ``load_hooks``, and only then swapped in
         atomically. A compile, placement, warm-up or hook that raises
         fails the load: the previous set keeps serving and
-        ``load_generation`` stays. Returns compile stats."""
+        ``load_generation`` stays. Loads and rebuild_compiled run one at a
+        time per engine. Returns compile stats."""
         if not tiers:
             raise ValueError("TorchPolicyEngine.load: at least one tier required")
+        with self._load_lock:
+            return self._load(tiers, max_batch)
+
+    def _load(self, tiers: Sequence[PolicySet], max_batch: Optional[int]) -> dict:
         started = time.time()
         t0 = time.monotonic()
         compiled = lower_tiers(list(tiers), self.schema)
@@ -394,6 +472,57 @@ class TorchPolicyEngine:
             "compile_scope": "full",
             "compile_seconds": seconds,
         }
+
+    def rebuild_compiled(self, max_batch: Optional[int] = None) -> Optional[dict]:
+        """Re-place the current compiled set on the device from its
+        retained host-side pack: the device-loss recovery primitive
+        (server/supervisor.py DeviceRecovery). The PackedPolicySet is host
+        memory and outlives the device's buffers, so nothing is
+        recompiled: a fresh _CompiledSet uploads the plane into new
+        allocations, with its own (empty) TMA maps and float plane, so
+        nothing of the dead set is reused. With ``max_batch`` every bucket
+        is warmed on it (``warmup(max_batch, cs=new)``) and the load hooks
+        run before it is published; the fast paths' host state (native
+        encoder, decode caches: host memory over the same pack) moves
+        across. Runs under the load lock and publishes only if the set it
+        re-placed is still current, so a rebuild never reverts a reload;
+        bumps ``load_generation``. Returns {generation, seconds by phase},
+        or None when there is no set with a pack to rebuild (or a load
+        replaced it). Raises when the device does (a poisoned CUDA context
+        fails here): the current set stays."""
+        with self._load_lock:
+            cs = self._compiled
+            if cs is None or cs.packed is None:
+                return None
+            started = time.time()
+            t0 = time.monotonic()
+            new = compiled_set_from_numpy(packed_arrays(cs.packed), self.device, cs.packed)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t1 = time.monotonic()
+            new.host_state.update(cs.host_state)
+            if max_batch is not None:
+                self.warmup(max_batch, cs=new)
+            for hook in self.load_hooks:
+                hook(new)
+            t2 = time.monotonic()
+            seconds = {
+                "place": round(t1 - t0, 4),
+                "warm": round(t2 - t1, 4),
+                "total": round(t2 - t0, 4),
+            }
+            with self._lock:
+                if self._compiled is not cs:
+                    return None
+                self._compiled = new
+                self.load_generation += 1
+                self.last_rebuild = {
+                    "generation": self.load_generation,
+                    "started_unix": started,
+                    "published_unix": time.time(),
+                    "seconds": seconds,
+                }
+                return dict(self.last_rebuild)
 
     def warmup(self, max_batch: int = 1, cs: Optional[_CompiledSet] = None) -> dict:
         """Take every device path of a compiled set (``cs``, else the
@@ -445,6 +574,10 @@ class TorchPolicyEngine:
     def evaluate_batch(
         self, items: Sequence[Tuple[EntityMap, Request]]
     ) -> List[Tuple[str, Diagnostics]]:
+        # chaos seam: this path's device launch (the gated rows' re-run
+        # and the Python path's batches); an injected fatal error here
+        # exercises the breaker and the device recovery as a lost device
+        chaos_fire("engine.dispatch")
         cs = self._compiled
         if cs is None:
             raise RuntimeError("TorchPolicyEngine: no policy set loaded")
@@ -586,6 +719,7 @@ class TorchPolicyEngine:
             "warmup_launches": warmup_launches,
             "staging": self._staging.stats(),
             "last_load": dict(self.last_load),
+            "last_rebuild": dict(self.last_rebuild),
         }
         cs = self._compiled
         if cs is not None:
@@ -722,6 +856,9 @@ class TorchPolicyEngine:
                 held.clear()
             return (words, full, bitmap) if want_bits else (words, full)
 
+        # the staging this launch holds until finish(): a caller whose
+        # batch fails before finish() hands it back (engine/fastpath.py)
+        finish.held = held
         return finish
 
     def match_bits_arrays(

@@ -24,8 +24,19 @@ Python path:
     interpreter-fallback policies).
 
 Nothing else falls back: a native encoder that cannot be built raises, and
-so does a device failure. There is no breaker and no degrade to the
-Python path for a whole batch.
+so does a device failure. A whole batch never degrades to the Python
+path. Each fast path may sit behind a circuit breaker (engine/breaker.py,
+``breaker=``): while it is open a batch raises BreakerOpen before it is
+encoded; a failed batch feeds it and the device-error observer
+(``on_device_error=``, server/supervisor.py DeviceRecovery.observe) and
+raises; a batch that decodes records its dispatch-to-decode latency as a
+success. The caller answers a raised batch with the failure posture.
+A failed batch's staging buffers go back to the pool once no copy can
+still read them (engine/evaluator.py _StagingPool.release_after_device).
+
+Chaos seams (chaos/registry.py): ``engine.encode`` at each chunk's
+encode, ``engine.dispatch`` at each chunk's launch, ``engine.decode``
+before each chunk's readback.
 
 _RawFastPath holds the chunked pipeline: chunk k+1's C++ encode overlaps
 chunk k's device work; clean rows decode once per distinct verdict word;
@@ -55,6 +66,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..chaos.registry import chaos_fire
 from ..lang.authorize import ALLOW, DENY, Diagnostics, Reason
 from ..native import (
     F_ADM_ERROR,
@@ -79,6 +91,7 @@ from ..server.authorizer import (
     record_to_cedar_resource,
 )
 from ..server.sar import get_authorizer_attributes
+from .breaker import BreakerOpen, guarded_call, record_device_failure
 from .evaluator import (
     _BATCH_BUCKETS,
     BITS_INCALL_MAX,
@@ -174,8 +187,21 @@ class _RawFastPath:
     # take the shared payload objects in one fancy-index scatter
     _EMIT_IDENTITY = True
 
-    def __init__(self, engine: TorchPolicyEngine):
+    def __init__(self, engine: TorchPolicyEngine, breaker=None, on_device_error=None):
         self.engine = engine
+        # optional CircuitBreaker (engine/breaker.py): while open, batches
+        # raise BreakerOpen before reaching the device; device outcomes
+        # (errors and latency) feed it
+        self.breaker = breaker
+        # optional (exc) -> bool observer of device-plane exceptions
+        # (server/supervisor.py DeviceRecovery.observe): a fatal error
+        # trips the breaker and rebuilds the engine off the serving path
+        self.on_device_error = on_device_error
+        # the serving server's WebhookMetrics and this path's label
+        # (authorization / admission): the fallback-batch counts; None
+        # records nothing
+        self.metrics = None
+        self.metrics_path = "raw"
         self._build_lock = threading.Lock()
         # guards the counters below: the pipeline's encode, dispatch and
         # decode threads and the serial path update them concurrently
@@ -277,15 +303,64 @@ class _RawFastPath:
         pack = _WordPacker()
         pending = []
         lo = 0
-        for size in _chunk_sizes(len(bodies), self._CHUNK, self._TAIL_CHUNK):
-            chunk = bodies[lo : lo + size]
-            lo += size
-            pending.append((chunk, self._prepare_chunk(snap, chunk, word_pack=pack)))
-        pack.flush()
-        self._note_packed(pack)
-        ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in pending]
-        self._resolve_deferred(snap, ctxs)
+        try:
+            for size in _chunk_sizes(len(bodies), self._CHUNK, self._TAIL_CHUNK):
+                chunk = bodies[lo : lo + size]
+                lo += size
+                pending.append((chunk, self._prepare_chunk(snap, chunk, word_pack=pack)))
+            pack.flush()
+            self._note_packed(pack)
+            ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in pending]
+            self._resolve_deferred(snap, ctxs)
+        except BaseException:
+            self._discard_held(_launched_held(pending), launched=True)
+            raise
         return _concat_results(ctxs)
+
+    def _guarded_process(self, bodies: Sequence[bytes], snap: _Snapshot) -> list:
+        """process_raw behind the breaker (engine/breaker.py guarded_call):
+        an open breaker raises BreakerOpen, a raising batch feeds the
+        breaker and the observer and raises, a success records its
+        latency. Nothing re-runs the batch elsewhere."""
+        return guarded_call(
+            self.breaker,
+            lambda: self.process_raw(bodies, snap),
+            self.metrics_path,
+            on_error=self.on_device_error,
+            metrics=self.metrics,
+        )
+
+    def _device_failed(self, exc: BaseException) -> None:
+        """A pipeline stage of a batch raised: feed the breaker, the
+        observer and the evaluator_error count (the batch then fails with
+        the posture)."""
+        log.error("%s pipelined batch failed: %r", self.metrics_path, exc)
+        record_device_failure(
+            self.breaker, exc, self.metrics_path, self.on_device_error, self.metrics
+        )
+
+    def _discard_held(self, helds, launched: bool) -> None:
+        """Return the staging buffers of a batch that will not finish: at
+        once when nothing launched from them, else once the device's
+        copies from them are done (_StagingPool.release_after_device)."""
+        staging = self.engine._staging
+        for held in helds:
+            if not held:
+                continue
+            if launched:
+                staging.release_after_device(list(held), self.engine.device)
+            else:
+                staging.release(*held)
+            held.clear()
+
+    def pipeline_discard(self, ctx) -> None:
+        """Return the staging of a batch whose stage died or that a
+        revive shed (engine/batcher.py): ``ctx`` as pipeline_encode or
+        pipeline_dispatch returned it."""
+        if ctx[0] == "enc":
+            self._discard_held([enc[-1] for _chunk, enc in ctx[2]], launched=False)
+        elif ctx[0] == "run":
+            self._discard_held(_launched_held(ctx[2]), launched=True)
 
     # ------------------------------------------------- pipelined stage API
     #
@@ -294,9 +369,9 @@ class _RawFastPath:
     # read), pipeline_dispatch on the one dispatch thread (every launch of
     # the batch, none waited for), pipeline_decode on the decode thread
     # (the only wait on the device, then the decode and the deferred
-    # rows). The answers equal process_raw's. A stage that raises
-    # propagates: the batcher fails that batch, and nothing re-runs it on
-    # another path.
+    # rows). The answers equal process_raw's. A stage that raises feeds
+    # the breaker and the device-error observer and propagates: the
+    # batcher fails that batch, and nothing re-runs it on another path.
 
     def _pipeline_ready(self) -> bool:
         """The path's readiness gate (store initial loads), as its serial
@@ -304,15 +379,22 @@ class _RawFastPath:
         raise NotImplementedError
 
     def pipeline_encode(self, bodies: Sequence[bytes]):
-        """Stage 1: snapshot, readiness and the C++ encode of every chunk
-        into staging buffers. Before every store's initial load completes
-        the rows answer from the exact path now (the readiness semantics,
-        which evaluates nothing) and the later stages pass them through.
-        If a chunk's encode raises, the buffers of the chunks encoded
-        before it go back to the pool (no launch has read them)."""
+        """Stage 1: snapshot, readiness, the breaker and the C++ encode of
+        every chunk into staging buffers. Before every store's initial
+        load completes the rows answer from the exact path now (the
+        readiness semantics, which evaluates nothing) and the later stages
+        pass them through. An open breaker raises BreakerOpen (a batch
+        queued before it opened answers the posture without reaching the
+        device). If a chunk's encode raises, the buffers of the chunks
+        encoded before it go back to the pool (no launch has read them)
+        and the failure feeds the breaker."""
         snap = self._current_snapshot()
         if not self._pipeline_ready():
             return ("direct", [self._fallback_row(b) for b in bodies])
+        if self.breaker is not None and not self.breaker.allow():
+            if self.metrics is not None:
+                self.metrics.record_fallback_batch(self.metrics_path, "breaker_open")
+            raise BreakerOpen(BreakerOpen.MESSAGE)
         encs = []
         lo = 0
         try:
@@ -320,9 +402,10 @@ class _RawFastPath:
                 chunk = bodies[lo : lo + size]
                 lo += size
                 encs.append((chunk, self._encode_chunk(snap, chunk)))
-        except BaseException:
-            for _chunk, enc in encs:
-                self.engine._staging.release(*enc[-1])
+        except BaseException as e:
+            self._discard_held([enc[-1] for _chunk, enc in encs], launched=False)
+            if isinstance(e, Exception):
+                self._device_failed(e)
             raise
         return ("enc", snap, encs)
 
@@ -334,13 +417,23 @@ class _RawFastPath:
         if ctx[0] == "direct":
             return ctx
         _, snap, encs = ctx
+        t0 = time.monotonic()
         pack = _WordPacker()
-        launched = [
-            (chunk, self._launch_chunk(snap, enc, word_pack=pack)) for chunk, enc in encs
-        ]
-        pack.flush()
+        launched = []
+        try:
+            for chunk, enc in encs:
+                launched.append((chunk, self._launch_chunk(snap, enc, word_pack=pack)))
+            pack.flush()
+        except BaseException as e:
+            # a launch may have read some chunks' buffers already
+            self._discard_held(
+                [enc[-1] for _chunk, enc in encs] + _launched_held(launched), launched=True
+            )
+            if isinstance(e, Exception):
+                self._device_failed(e)
+            raise
         self._note_packed(pack)
-        return ("run", snap, launched)
+        return ("run", snap, launched, t0)
 
     def pipeline_decode(self, ctx) -> list:
         """Stage 3: wait for the batch's device results, decode the clean
@@ -348,9 +441,19 @@ class _RawFastPath:
         in order."""
         if ctx[0] == "direct":
             return ctx[1]
-        _, snap, launched = ctx
-        ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in launched]
-        self._resolve_deferred(snap, ctxs)
+        _, snap, launched, t0 = ctx
+        try:
+            ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in launched]
+            self._resolve_deferred(snap, ctxs)
+        except BaseException as e:
+            # a CUDA fault of an earlier launch surfaces here, at the
+            # first synchronization: the observer hangs on every stage
+            self._discard_held(_launched_held(launched), launched=True)
+            if isinstance(e, Exception):
+                self._device_failed(e)
+            raise
+        if self.breaker is not None:
+            self.breaker.record_success(time.monotonic() - t0)
         return _concat_results(ctxs)
 
     def _note_packed(self, pack: _WordPacker) -> None:
@@ -386,9 +489,11 @@ class _RawFastPath:
         ride the chunk (`held`) and go back to the pool only in the
         deferred resolve, after every readback of the batch has
         materialized. If the encode raises, no launch has read them, and
-        they go straight back; an exception after the launch abandons them
-        to the GC: a buffer that might still back an in-flight copy never
-        re-enters the pool."""
+        they go straight back; if the batch fails after its launch, they
+        go back once the device's copies from them are done
+        (_discard_held): a buffer that might still back an in-flight copy
+        never re-enters the pool before that."""
+        chaos_fire("engine.encode")
         n = len(bodies)
         staging = self.engine._staging
         pad_L = snap.cs.packed.L
@@ -444,6 +549,7 @@ class _RawFastPath:
         chunks get their flagged rows' bitsets in the same launch;
         `word_pack` routes the words of larger ones into the batch-wide
         packed D2H copy."""
+        chaos_fire("engine.dispatch")
         results, py_rows, idx, ok_codes, ok_extras, aux, held = enc
         fin = None
         if idx is not None:
@@ -459,7 +565,12 @@ class _RawFastPath:
         """Encode one chunk natively and launch its device match; the
         device runs while the caller prepares the next chunk."""
         t0 = time.monotonic()
-        pre = self._launch_chunk(snap, self._encode_chunk(snap, bodies), word_pack=word_pack)
+        enc = self._encode_chunk(snap, bodies)
+        try:
+            pre = self._launch_chunk(snap, enc, word_pack=word_pack)
+        except BaseException:
+            self._discard_held([enc[-1]], launched=True)
+            raise
         self._add_stage_s("encode", time.monotonic() - t0)
         return pre
 
@@ -491,6 +602,7 @@ class _RawFastPath:
         if fin is None:
             self._record_routing(len(bodies), len(py_rows), 0, 0, 0)
             return ctx
+        chaos_fire("engine.decode")
         t0 = time.monotonic()
         out = fin()
         words, bitmap = out[0], (out[2] if len(out) == 3 else None)
@@ -575,8 +687,8 @@ class _RawFastPath:
         pass: one batched Python re-run for the gated rows and one
         cross-chunk bitset gather for the flagged rows. Then, every device
         readback of the batch having materialized, the chunks' staging
-        buffers go back to the pool (an exception above skips this on
-        purpose: abandoned buffers are garbage-collected)."""
+        buffers go back to the pool (after an exception above, the
+        caller's _discard_held returns them once the device is done)."""
         gated = [(ctx, k) for ctx in ctxs for k in ctx["gate_rows"]]
         if gated:
             g_res = self._run_gated([ctx["bodies"][int(ctx["idx"][k])] for ctx, k in gated])
@@ -607,7 +719,19 @@ class _RawFastPath:
         for ctx in ctxs:
             if ctx["held"]:
                 staging.release(*ctx["held"])
-                ctx["held"] = []
+                ctx["held"].clear()
+
+
+def _launched_held(launched) -> list:
+    """The staging lists of launched chunks [(chunk, pre)]: the encode's
+    buffers (pre[-1]) and those the launch itself holds until its
+    finish() (pre[5].held)."""
+    out = []
+    for _chunk, pre in launched:
+        out.append(pre[-1])
+        if pre[5] is not None:
+            out.append(pre[5].held)
+    return out
 
 
 def _concat_results(ctxs: List[dict]) -> list:
@@ -665,21 +789,22 @@ def _gather_flag_bits(engine, snap, ctxs) -> dict:
 class SARFastPath(_RawFastPath):
     """Batch evaluator over raw SubjectAccessReview JSON bodies."""
 
-    def __init__(self, engine: TorchPolicyEngine, authorizer: CedarWebhookAuthorizer):
-        super().__init__(engine)
+    def __init__(self, engine: TorchPolicyEngine, authorizer: CedarWebhookAuthorizer,
+                 breaker=None, on_device_error=None):
+        super().__init__(engine, breaker=breaker, on_device_error=on_device_error)
         self.authorizer = authorizer
 
     def authorize_raw(self, bodies: Sequence[bytes]) -> List[Result]:
         """Evaluate a batch of raw SAR JSON bodies -> [(decision, reason,
-        error)]. Raises when the native encoder cannot be built or the
-        device fails."""
+        error)]. Raises when the native encoder cannot be built, the
+        device fails or the breaker is open."""
         snap = self._current_snapshot()
         if not self.authorizer.ready():
             # NoOpinion until every store's initial load completes
             # (authorizer.go:58-66); the gates still apply, so every row
             # takes the exact path
             return [self._python_fallback(b) for b in bodies]
-        return self.process_raw(bodies, snap)
+        return self._guarded_process(bodies, snap)
 
     def _pipeline_ready(self) -> bool:
         return self.authorizer.ready()
@@ -828,19 +953,21 @@ class AdmissionFastPath(_RawFastPath):
 
     _EMIT_IDENTITY = False
 
-    def __init__(self, engine: TorchPolicyEngine, handler):
-        super().__init__(engine)
+    def __init__(self, engine: TorchPolicyEngine, handler, breaker=None,
+                 on_device_error=None):
+        super().__init__(engine, breaker=breaker, on_device_error=on_device_error)
         self.handler = handler  # CedarAdmissionHandler: Python path + readiness
 
     def handle_raw(self, bodies: Sequence[bytes]) -> List[AdmissionResponse]:
         """Evaluate a batch of raw AdmissionReview JSON bodies. Raises when
-        the native encoder cannot be built or the device fails."""
+        the native encoder cannot be built, the device fails or the
+        breaker is open."""
         snap = self._current_snapshot()
         if not self.handler._ready():
             # every request is allowed until the stores' initial loads
             # complete (handler.go:49-57); the exact path answers that
             return [self._py_one(b) for b in bodies]
-        return self.process_raw(bodies, snap)
+        return self._guarded_process(bodies, snap)
 
     def _pipeline_ready(self) -> bool:
         return self.handler._ready()

@@ -19,7 +19,12 @@ reference's internal/server/server.go + health.go), for two entry points:
     and latency histogram, with ``<error>`` as the label on errors;
   * a plain-HTTP health and metrics server (default 127.0.0.1:10289):
     ``/healthz``, ``/readyz`` (503 while draining or before every store's
-    initial load), ``/metrics`` and ``/debug/engine``.
+    initial load), ``/metrics``, ``/debug/engine``, ``/debug/supervisor``
+    (the watchdog's components, the device recoveries, the quarantine)
+    and ``/debug/chaos`` (the chaos registry); and the game-day control
+    ``POST /chaos/{configure,arm,disarm,reset}``, which answers 403
+    unless the server was built with ``chaos_control_enabled`` (the CLI's
+    ``--confirm-non-prod-inject-errors``).
 
 Requests reach the device through each path's micro-batcher
 (engine/batcher.py, pipelined when ``pipeline_depth`` > 0) in front of its
@@ -28,9 +33,21 @@ launch. Without a fast path (``--backend interpreter``, or
 ``--no-native``) the request thread answers through the authorizer, and
 admission reviews through the handler (batched over the engine when the
 handler has a batched backend). A failed batch is never re-run on another
-path: its requests answer the error. The server starts the policy
-reloader (cli/webhook.py TorchReloader) with its listeners; stop() stops
-it and the stores' reload tickers.
+path: its requests answer the error.
+
+Each fast path may sit behind a circuit breaker (engine/breaker.py). While
+it is open a request answers the failure posture before it is submitted
+(it neither queues nor launches): NoOpinion with the evaluationError
+"evaluation error: device breaker open" on /v1/authorize, the admission
+fail-mode (code 500) on /v1/admit; the JAX server re-runs it on the
+interpreter instead. A deadline expiry whose batch held the request on
+the device (not ``DeadlineExceeded.queued``) feeds the breaker: a hung
+device never returns a batch to feed it otherwise. The ``response`` chaos
+seam (chaos/registry.py) sees every clean /v1/authorize answer.
+
+The server starts the policy reloader (cli/webhook.py TorchReloader) and
+the supervisor (server/supervisor.py) with its listeners; stop() stops
+the supervisor first, then the reloader and the stores' reload tickers.
 """
 
 from __future__ import annotations
@@ -45,8 +62,12 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..chaos.registry import chaos_fire, default_registry
+from ..chaos.scenario import ScenarioError, load_scenario
 from ..engine.batcher import DeadlineExceeded, MicroBatcher, PipelinedBatcher
+from ..engine.breaker import BreakerOpen
 from ..entities.admission import AdmissionRequest, review_request_uid
+from ..stores.quarantine import quarantine_registry
 from .admission import AdmissionResponse, CedarAdmissionHandler
 from .authorizer import (
     DECISION_ALLOW,
@@ -128,12 +149,19 @@ class WebhookServer:
         admission_fail_open: Optional[bool] = None,
         metrics: Optional[WebhookMetrics] = None,
         reloader=None,
+        supervisor=None,
+        chaos_control_enabled: bool = False,
     ):
         self.authorizer = authorizer
         self.metrics = metrics or WebhookMetrics()
         # recompiles the engines when the stores change (cli/webhook.py
         # TorchReloader): started with the listeners, stopped with them
         self.reloader = reloader
+        # the watchdog (server/supervisor.py Supervisor): started with the
+        # listeners, stopped first; /debug/supervisor serves its status
+        self.supervisor = supervisor
+        # POST /chaos/* answers 403 unless set (the non-prod gate)
+        self.chaos_control_enabled = chaos_control_enabled
 
         def eval_batcher(fast, serial_fn, path):
             """pipeline_depth > 0: the three-stage PipelinedBatcher over
@@ -141,6 +169,9 @@ class WebhookServer:
             batch N); 0: the serial MicroBatcher over serial_fn. Both give
             the same answers."""
             self.metrics.add_fastpath(path, fast)
+            # the fast path counts its fallback batches into this server
+            fast.metrics = self.metrics
+            fast.metrics_path = path
             if pipeline_depth > 0:
                 return PipelinedBatcher(
                     fast,
@@ -229,6 +260,10 @@ class WebhookServer:
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
             decision, reason, error = self._authorize(body, request_id, start)
+            if error is None:
+                # the registry's `response` seam: one attribute read
+                # unless a game day armed it
+                decision, reason, error = chaos_fire("response", (decision, reason, error))
             return sar_response(decision, reason, error)
         finally:
             label = "<error>" if error else _DECISION_LABEL[decision]
@@ -243,6 +278,8 @@ class WebhookServer:
         without a fast path, through the authorizer in this thread. The
         batcher gets what remains of the request's budget since ``start``."""
         if self._batcher is not None:
+            if not self._breaker_admits(self.fastpath, "authorization"):
+                return DECISION_NO_OPINION, "", f"evaluation error: {BreakerOpen.MESSAGE}"
             timeout = None
             if self.request_timeout_s is not None:
                 timeout = self.request_timeout_s - (time.monotonic() - start)
@@ -250,6 +287,11 @@ class WebhookServer:
                 return self._batcher.submit(body, timeout=timeout)
             except DeadlineExceeded as e:
                 self.metrics.record_deadline_exceeded("authorization")
+                if not e.queued:
+                    # the device held the request: feed the breaker. An
+                    # expiry that burned in the submit queue is overload,
+                    # not a sick device, and spares it
+                    self._record_breaker_timeout(self.fastpath)
                 return DECISION_NO_OPINION, "", f"evaluation error: {e}"
             except Exception as e:  # noqa: BLE001 — always answer the apiserver
                 log.exception("fastpath authorize requestId=%s failed", request_id)
@@ -296,9 +338,15 @@ class WebhookServer:
             return self.request_timeout_s - (time.monotonic() - start)
 
         if self._adm_raw_batcher is not None:
+            if not self._breaker_admits(self.admission_fastpath, "admission"):
+                return self._admission_fail_mode(
+                    _loads_or_none(body), BreakerOpen(BreakerOpen.MESSAGE)
+                )
             try:
                 return self._adm_raw_batcher.submit(body, timeout=remaining()).to_admission_review()
             except DeadlineExceeded as e:
+                if not e.queued:
+                    self._record_breaker_timeout(self.admission_fastpath)
                 return self._admission_deadline(body, e)
             except Exception as e:  # noqa: BLE001 — always answer the apiserver
                 log.exception("admission fastpath failed")
@@ -327,6 +375,29 @@ class WebhookServer:
             log.exception("admit failed")
             return self._admission_fail_mode(review, e)
 
+    def _breaker_admits(self, fastpath, path: str) -> bool:
+        """False when the fast path's circuit breaker is open: the request
+        then answers the posture without being submitted (the batcher's
+        stages may be wedged inside a hung device call, and queueing
+        behind them would burn the request's budget), counted as one
+        breaker_open fallback."""
+        breaker = getattr(fastpath, "breaker", None)
+        if breaker is None or breaker.allow():
+            return True
+        self.metrics.record_fallback_batch(path, "breaker_open")
+        return False
+
+    @staticmethod
+    def _record_breaker_timeout(fastpath) -> None:
+        """A deadline expiry the device held is a failure signal: a wedged
+        evaluator never returns, so the fast path's own accounting never
+        feeds the breaker. Consecutive expiries trip it, which stops
+        requests queueing behind the stuck batcher (_breaker_admits) until
+        half-open probes find the device answering again."""
+        breaker = getattr(fastpath, "breaker", None)
+        if breaker is not None:
+            breaker.record_failure()
+
     def _admission_fail_mode(self, review, e) -> dict:
         """The configured fail-open/fail-closed answer for a review whose
         evaluation crashed or ran out of deadline budget: allowed or
@@ -354,7 +425,19 @@ class WebhookServer:
             ("admission", self._adm_raw_batcher, self.admission_fastpath),
         ):
             if batcher is not None:
-                doc[path] = {"pipeline": batcher.debug_stats(), "engine": _engine_doc(fast.engine)}
+                breaker = fast.breaker
+                doc[path] = {
+                    "pipeline": batcher.debug_stats(),
+                    "engine": _engine_doc(fast.engine),
+                    "breaker": None if breaker is None else breaker.state,
+                }
+        return doc
+
+    def debug_supervisor(self) -> dict:
+        """The /debug/supervisor document: the watchdog's status ({} when
+        the server has none) and the poison-object quarantine."""
+        doc = self.supervisor.status() if self.supervisor is not None else {}
+        doc["quarantine"] = quarantine_registry().snapshot()
         return doc
 
     def _make_handler(server):  # noqa: N805 — bound as a class closure
@@ -430,6 +513,17 @@ class WebhookServer:
                 if data:
                     self.wfile.write(data)
 
+            def _send_json(self, doc: dict, code: int = 200):
+                self._send(json.dumps(doc).encode(), "application/json", code)
+
+            def _debug(self, name: str, fn):
+                try:
+                    doc = fn()
+                except Exception:  # noqa: BLE001 — debug must not 500
+                    log.exception("%s failed", name)
+                    doc = {"error": f"{name} failed"}
+                self._send_json(doc)
+
             def do_GET(self):
                 if self.path == "/healthz":
                     self._send(b"", "")
@@ -438,14 +532,59 @@ class WebhookServer:
                 elif self.path == "/metrics":
                     self._send(server.metrics.expose().encode(), "text/plain; version=0.0.4")
                 elif self.path == "/debug/engine":
-                    try:
-                        doc = server.debug_engine()
-                    except Exception:  # noqa: BLE001 — debug must not 500
-                        log.exception("engine stats failed")
-                        doc = {"error": "engine stats failed"}
-                    self._send(json.dumps(doc).encode(), "application/json")
+                    self._debug("engine stats", server.debug_engine)
+                elif self.path == "/debug/supervisor":
+                    self._debug("supervisor status", server.debug_supervisor)
+                elif self.path == "/debug/chaos":
+                    self._debug("chaos stats", default_registry().stats)
                 else:
                     self.send_error(404)
+
+            def do_POST(self):
+                """Game-day control: POST /chaos/configure with a scenario
+                JSON body, then /chaos/arm; /chaos/disarm stops injection at
+                once; /chaos/reset also drops the scenario. Each answers the
+                registry's stats. 403 without the non-prod gate."""
+                if not self.path.startswith("/chaos/"):
+                    self.send_error(404)
+                    return
+                if not server.chaos_control_enabled:
+                    self._send_json(
+                        {"error": "chaos control is disabled; start the webhook "
+                                  "with --confirm-non-prod-inject-errors"},
+                        403,
+                    )
+                    return
+                try:
+                    length = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    self.send_error(400, "bad Content-Length")
+                    return
+                if length < 0 or length > MAX_BODY_BYTES:
+                    self.send_error(413, "request body too large")
+                    return
+                raw = self.rfile.read(length) if length else b""
+                registry = default_registry()
+                try:
+                    if self.path == "/chaos/configure":
+                        registry.configure(load_scenario(raw or b"{}"))
+                    elif self.path == "/chaos/arm":
+                        registry.arm()
+                    elif self.path == "/chaos/disarm":
+                        registry.disarm()
+                    elif self.path == "/chaos/reset":
+                        registry.reset()
+                    else:
+                        self.send_error(404)
+                        return
+                except (ScenarioError, ValueError) as e:
+                    self._send_json({"error": str(e)}, 400)
+                    return
+                except Exception as e:  # noqa: BLE001 — report, never crash
+                    log.exception("chaos control %s failed", self.path)
+                    self._send_json({"error": str(e)}, 500)
+                    return
+                self._send_json(registry.stats())
 
         return MetricsHandler
 
@@ -469,6 +608,8 @@ class WebhookServer:
         ).start()
         if self.reloader is not None:
             self.reloader.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
         log.info(
             "serving on %s://%s:%d (metrics http://%s:%d)",
             "https" if self.certfile else "http",
@@ -489,6 +630,9 @@ class WebhookServer:
         in-flight requests, stop the listeners, then drain and join the
         batcher (every accepted request still gets its answer)."""
         grace = self.drain_grace_s if drain_grace_s is None else drain_grace_s
+        if self.supervisor is not None:
+            # first: reviving a stage mid-teardown would race the joins
+            self.supervisor.stop()
         self.begin_drain()
         deadline = time.monotonic() + grace
         with self._inflight_cv:

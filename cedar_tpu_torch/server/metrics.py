@@ -8,9 +8,13 @@ internal/server/metrics/metrics.go):
     ``cedar_authorizer_request_duration_seconds{decision}``;
   * ``cedar_authorizer_deadline_exceeded_total{path}``,
     ``cedar_authorizer_requests_shed_total{path}`` (drain) and
-    ``cedar_authorizer_fallback_batches_total{path,reason}``, which the
-    port never increments (no path re-runs a batch on the interpreter), so
-    /metrics shows it at 0;
+    ``cedar_authorizer_fallback_batches_total{path,reason}``: the JAX
+    name and reasons, so dashboards carry over, but in the port the work
+    it counts was answered with the failure posture (NoOpinion +
+    evaluationError, the admission fail-mode), never re-run on the
+    interpreter. ``breaker_open``: a request the open breaker answered
+    before it reached the batcher, or a queued batch it stopped at encode;
+    ``evaluator_error``: a batch whose device evaluation raised;
   * ``cedar_batch_occupancy{path}``,
     ``cedar_pipeline_stall_seconds_total{path,stage}`` and
     ``cedar_pipeline_stage_seconds{path,stage}`` from the batcher;
@@ -29,7 +33,17 @@ carry a ``path`` label: ``authorization`` for /v1/authorize and
 authorization-only, as in the JAX package.
 
 Each server owns one ``WebhookMetrics`` (its own registry), so two servers
-in one process never mix their counts.
+in one process never mix their counts. The resilience families belong to
+objects of the process rather than of one server (the breakers, the
+supervisor, the device recoveries, the chaos registry's seams), so they
+are process-wide, as in the JAX package, with its module-level record
+functions; every server's /metrics renders them:
+
+  * ``cedar_authorizer_breaker_state{engine}`` (0 closed, 1 open, 2
+    half-open) and ``cedar_authorizer_breaker_transitions_total{engine,to}``;
+  * ``cedar_supervisor_restarts_total{component,replica}``;
+  * ``cedar_device_rebuilds_total``;
+  * ``cedar_chaos_injections_total{seam,kind}``.
 """
 
 from __future__ import annotations
@@ -212,6 +226,90 @@ class _FastPathFamilies:
         return routing.collect() + transfers.collect() + chunks.collect()
 
 
+class _ProcessFamilies:
+    """The process-wide resilience families (module docstring)."""
+
+    def __init__(self):
+        self.breaker_state = Gauge(
+            f"{SUBSYSTEM}_breaker_state",
+            "Circuit breaker state per evaluation engine: 0 closed (device "
+            "plane healthy), 1 open (requests answer the failure posture "
+            "without reaching the device), 2 half-open (probing recovery).",
+            ["engine"],
+        )
+        self.breaker_transitions_total = Counter(
+            f"{SUBSYSTEM}_breaker_transitions_total",
+            "Circuit breaker state transitions partitioned by engine and "
+            "destination state.",
+            ["engine", "to"],
+        )
+        self.supervisor_restarts_total = Counter(
+            "cedar_supervisor_restarts_total",
+            "Component restarts performed by the supervisor watchdog, "
+            "partitioned by component and replica (empty on the single-engine "
+            "path). Dead threads and wedged (stale busy heartbeat) stages "
+            "both count; batches held by a restarted stage are answered with "
+            "the failure posture rather than stranded.",
+            ["component", "replica"],
+        )
+        self.device_rebuilds_total = Counter(
+            "cedar_device_rebuilds_total",
+            "Engine rebuilds performed by the device-loss recovery: a fatal "
+            "device error tripped the breaker, the compiled set was re-placed "
+            "on the card from its retained host-side pack and warmed there "
+            "before it was published, and the breaker re-armed half-open.",
+            [],
+        )
+        self.chaos_injections_total = Counter(
+            "cedar_chaos_injections_total",
+            "Faults injected by the chaos plane, partitioned by seam and kind "
+            "(error / latency / corrupt / kill / response_error / "
+            "response_deny). Nonzero only while a game-day scenario is armed; "
+            "it should never move outside game days.",
+            ["seam", "kind"],
+        )
+        self.device_rebuilds_total.inc(0)
+        self._families = (
+            self.breaker_state, self.breaker_transitions_total,
+            self.supervisor_restarts_total, self.device_rebuilds_total,
+            self.chaos_injections_total,
+        )
+
+    def collect(self) -> List[str]:
+        out: List[str] = []
+        for family in self._families:
+            out.extend(family.collect())
+        return out
+
+
+_PROCESS = _ProcessFamilies()
+
+
+def process_metrics() -> _ProcessFamilies:
+    """The process-wide resilience families (module docstring)."""
+    return _PROCESS
+
+
+def set_breaker_state(engine: str, state_code: int) -> None:
+    _PROCESS.breaker_state.set(state_code, engine=engine)
+
+
+def record_breaker_transition(engine: str, to_state: str) -> None:
+    _PROCESS.breaker_transitions_total.inc(engine=engine, to=to_state)
+
+
+def record_supervisor_restart(component: str, replica: str = "") -> None:
+    _PROCESS.supervisor_restarts_total.inc(component=component, replica=replica)
+
+
+def record_device_rebuild() -> None:
+    _PROCESS.device_rebuilds_total.inc()
+
+
+def record_chaos_injection(seam: str, kind: str) -> None:
+    _PROCESS.chaos_injections_total.inc(seam=seam, kind=kind)
+
+
 class WebhookMetrics:
     """One server's metric families (module docstring) and the record
     functions its serving code calls."""
@@ -244,9 +342,13 @@ class WebhookMetrics:
         ))
         self.fallback_batches_total = reg(Counter(
             f"{SUBSYSTEM}_fallback_batches_total",
-            "Evaluation work served by the Python interpreter fallback instead "
-            "of the device plane, partitioned by path and reason. The port has "
-            "no such fallback: it stays 0.",
+            "Evaluation work the device plane did not serve, partitioned by "
+            "path and reason (breaker_open: the circuit breaker rejected the "
+            "work, per request before the batcher or per queued batch at "
+            "encode; evaluator_error: the device evaluation raised, per "
+            "batch). The port has no interpreter fallback: this work was "
+            "answered with the failure posture (NoOpinion + evaluationError, "
+            "the admission fail-mode), not re-run.",
             ["path", "reason"],
         ))
         for path in ("admission", "authorization"):
@@ -294,6 +396,8 @@ class WebhookMetrics:
             ["phase", "scope"],
             [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120],
         ))
+
+        reg(_PROCESS)
 
     def add_fastpath(self, path: str, fastpath) -> None:
         """Render this fast path's routing and packed-decode counts."""

@@ -13,7 +13,11 @@ hash, so a tick over unchanged files costs reads and hashes.
 ``content_generation()`` steps when a re-read changes the content; the
 webhook's reloader (cli/webhook.py TorchReloader) polls it and recompiles
 the device planes. ``load_policies()`` re-reads on demand; ``close()``
-stops the ticker.
+stops the ticker. The supervisor (server/supervisor.py) watches the
+ticker through ``ticker_threads()`` and restarts it with ``revive()``.
+A re-read fires the ``store.load`` chaos seam first: an injected stall
+delays it, an injected error skips it, and either way the previous set
+keeps serving.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import os
 import threading
 from typing import Dict, Optional, Tuple
 
+from ..chaos.registry import ChaosError, chaos_fire
 from ..lang.authorize import PolicySet
 from ..lang.lexer import ParseError
 from ..lang.parser import parse_policies
@@ -68,10 +73,36 @@ class DirectoryPolicyStore:
 
     def _reload_loop(self) -> None:
         while not self._stop.wait(self.refresh_interval_s):
+            if self._ticker is not threading.current_thread():
+                return  # superseded by revive(): a fresh ticker owns re-reads
             try:
                 self.load_policies()
             except Exception:  # noqa: BLE001 — the previous set keeps serving
                 log.exception("directory store re-read failed; serving the previous set")
+
+    def ticker_threads(self) -> list:
+        """The reload ticker thread (the supervisor's liveness probe);
+        none once the store is closed."""
+        if self._ticker is None or self._stop.is_set():
+            return []
+        return [self._ticker]
+
+    def revive(self, force: bool = False) -> bool:
+        """Restart a dead (or, forced, wedged) reload ticker (the
+        supervisor's hook); serving is unaffected either way: the previous
+        policy set keeps answering. False when nothing needed doing (the
+        store is closed, has no ticker, or its ticker lives)."""
+        t = self._ticker
+        if self._stop.is_set() or t is None:
+            return False
+        if t.is_alive() and not force:
+            return False
+        log.warning("directory store: restarting reload ticker")
+        self._ticker = threading.Thread(
+            target=self._reload_loop, name="directory-store-reload", daemon=True
+        )
+        self._ticker.start()
+        return True
 
     def load_policies(self) -> None:
         with self._load_lock:
@@ -79,7 +110,13 @@ class DirectoryPolicyStore:
 
     def _load_policies(self) -> None:
         try:
+            # chaos seam: a latency rule is the "store stalls" game day, an
+            # error rule a failed re-read; both leave the previous set
+            chaos_fire("store.load")
             entries = sorted(os.listdir(self.directory))
+        except ChaosError as e:
+            log.error("policy directory load failed (injected): %s", e)
+            return
         except OSError as e:
             log.error("Error reading policy directory: %s", e)
             return

@@ -51,6 +51,13 @@ class QuarantineRegistry:
         with self._lock:
             return (component, name) in self._items
 
+    def snapshot(self) -> dict:
+        """Every quarantined object, oldest first (/debug/supervisor)."""
+        with self._lock:
+            items = [dict(e) for e in self._items.values()]
+        items.sort(key=lambda e: e["since_unix"])
+        return {"count": len(items), "objects": items}
+
 
 _default: Optional[QuarantineRegistry] = None
 _default_lock = threading.Lock()

@@ -90,7 +90,7 @@ Phases, each a hard failure with a nonzero exit:
      connection fails the phase. --profile: then a lone request's stage
      split in this process (one thread, torch.profiler, and an
      in-process PipelinedBatcher).
-  9. admission (this slice's main path): phase 8's policy files plus
+  9. admission: phase 8's policy files plus
      admission policies (the forbid set of the JAX package's native
      admission tests, the repo demo's demo-require-owner-label, and an
      interpreter-fallback forbid whose scope the plane gates) in one
@@ -113,7 +113,7 @@ Phases, each a hard failure with a nonzero exit:
      requests/s, p50 / p99, mean and largest batch, the mixed window per
      endpoint, both engines' plane shapes, the server's peak RSS and the
      phase's wall time; SIGTERM must end the server with code 0.
-  10. live policy reload (this slice's main path): phase 9's files in one
+  10. live policy reload: phase 9's files in one
      directory store with refreshInterval 30s (its minimum), served by the
      CLI with --reload-seconds 1, --request-timeout-ms 10000 and both
      engines. While 32 clients POST
@@ -140,9 +140,44 @@ Phases, each a hard failure with a nonzero exit:
      after each swap; the server's card memory after reloads 1 and 3
      (nvidia-smi's per-process figure where it lists the server, and the
      server's allocator counts from /debug/engine); the phase's wall time.
+     Its server runs with the breaker's trip thresholds and the
+     supervisor's wedge budget at the CLI defaults, plus phase 11's
+     --confirm-non-prod-inject-errors, --breaker-recovery-seconds 2 and
+     --supervisor-interval-seconds 0.5, and its chaos registry disarmed.
+  11. resilience (this slice's main path), on phase 10's server once
+     phase 10's checks passed, its directory back at version 0: 32
+     clients on /v1/authorize and 32 on /v1/admit without pause through
+     four fault windows, each armed over POST /chaos/configure and
+     /chaos/arm: (a) non-fatal engine.dispatch errors, disarmed once both
+     breakers read open (one seam serves both engines, so a fixed count
+     could trip one alone): while a path's breaker is open it forms no
+     batch, with both open no kernel launches, the open breaker's answers
+     have a p99 under 50 ms, and both close by their half-open probes;
+     (b) the builtin device-loss scenario, disarmed once both engines'
+     DeviceRecovery saw the fatal error: each rebuilds its plane on the
+     card once (cedar_device_rebuilds_total 2, one per engine), both
+     breakers close, both kernels launch on the rebuilt planes and, 3 s
+     after, the server's allocator is within one plane of before; (c) the
+     builtin
+     kill-decode: the supervisor revives the dead decode stage within 2 x
+     its interval of the arm; (d) the builtin store-stall: the directory
+     store's next re-read stalls and serving goes on with no posture
+     answer. Every answer is the expected one (the oracle's, version 0),
+     or, for a request in flight during windows a-c, the failure posture
+     (NoOpinion + evaluationError, the admission fail-mode with code 500)
+     and in window a only until its path's breaker closed. After the
+     traffic stops, both engines' staging shows 0 outstanding buffers.
+     Prints per window the times to open / close / rebuild / revive,
+     requests/s and p99 in the 3 s before, during and the 3 s after, the
+     answer counts by kind, the rebuild's phases and the allocator before
+     and after; the phase's resilience metrics and wall time.
+
+Phases 8, 9 and 10 also check that /metrics shows no breaker transition,
+no supervisor restart and no device rebuild.
 
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
-reload phase); it prints no result lines.
+reload phase), ``--only-resilience`` phases 1, 2, 10 and 11; neither
+prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -778,6 +813,9 @@ def main() -> None:
     ap.add_argument("--only-reload", action="store_true",
                     help="run phases 1, 2 and 10 only (a quick check of the reload phase); "
                          "prints no result lines")
+    ap.add_argument("--only-resilience", action="store_true",
+                    help="run phases 1, 2, 10 and 11 only (phase 11 runs on phase 10's "
+                         "server); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
@@ -841,9 +879,10 @@ def main() -> None:
         fail("the built library has no IGMMA instruction: the kernels do not use "
              "the int8 tensor cores")
 
-    if args.only_reload:
+    if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
-        reload_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        reload_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
+                     then=resilience_then(args, card) if args.only_resilience else None)
         return
 
     # ---- 3. kernel parity (launches here are not main-path launches)
@@ -1303,18 +1342,21 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 9. admission: /v1/admit on the same CLI, beside /v1/authorize
     admission_launches = admission_phase(args, card, big, big_expected)
 
-    # ---- 10. live policy reload under traffic on both endpoints
-    reload_launches = reload_phase(args, card, g_batch)
+    # ---- 10. live policy reload under traffic on both endpoints, then
+    # ---- 11. resilience: chaos windows on the same server
+    reload_launches, resilience_launches = reload_phase(
+        args, card, g_batch, then=resilience_then(args, card))
 
     # each kernel's launches on this slice's main path, the traffic across
-    # phase 10's reloads (counted in the server process); and on the
+    # phase 11's windows (counted in the server process); and on the
     # earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": reload_launches[k],
+            "launches": resilience_launches[k],
+            "launches_resilience": resilience_launches[k],
             "launches_reload": reload_launches[k],
             "launches_admission": admission_launches[k],
             "launches_webhook": webhook_launches[k],
@@ -1653,6 +1695,9 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
                 fail(f"webhook traffic should launch both kernels: {launches}")
             if fallback:
                 fail(f"webhook: {fallback:g} fallback batches")
+            quiet = resilience_quiet("webhook", text)
+            if quiet:
+                fail("; ".join(quiet))
 
             took, rss = srv.terminate()
             print(f"webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
@@ -1689,6 +1734,25 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
         if args.profile:
             profile_stages(card, x_fast, bodies[:200])
         return launches, expected_clean
+
+
+def metric_total(text: str, family: str) -> float:
+    """The sum of every series of one family on /metrics."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(family + "{") or line.startswith(family + " "))
+
+
+RESILIENCE_FAMILIES = ("cedar_authorizer_breaker_transitions_total",
+                       "cedar_supervisor_restarts_total", "cedar_device_rebuilds_total")
+
+
+def resilience_quiet(label: str, text: str) -> list:
+    """Phases 8-10 serve with the breaker and the supervisor at the CLI
+    defaults: no breaker transition, no supervisor restart and no device
+    rebuild may show on /metrics. Prints the three; returns the problems."""
+    got = {f: metric_total(text, f) for f in RESILIENCE_FAMILIES}
+    print(f"{label} resilience: " + ", ".join(f"{f} {v:g}" for f, v in got.items()), flush=True)
+    return [f"{label}: {f} is {v:g}, want 0" for f, v in got.items() if v]
 
 
 def metric_values(text: str, family: str, label: str, path: str) -> dict:
@@ -1821,6 +1885,9 @@ def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
                 fail(f"admission traffic took no row down {missing}: {routing}")
             if fallback:
                 fail(f"admission: {fallback:g} fallback batches")
+            quiet = resilience_quiet("admission", text)
+            if quiet:
+                fail("; ".join(quiet))
 
             # the mixed window: both endpoints at once, from 32 clients each
             n_mix = 2048
@@ -1889,10 +1956,12 @@ def gpu_memory_mib(pid: int):
     return None
 
 
-def reload_phase(args, card: str, sars: list) -> dict:
+def reload_phase(args, card: str, sars: list, then=None):
     """Phase 10 (module docstring): `sars` are phase 8's gated SAR bodies.
     Returns the server's kernel launch counts over the phase's traffic
-    (its served counts: they start at 0, warm-ups count apart)."""
+    (its served counts: they start at 0, warm-ups count apart), and what
+    ``then`` returned: phase 11, run on this server once phase 10's
+    checks have passed."""
     from cedar_tpu_torch.corpus.synth import synth_source
 
     t_phase = time.monotonic()
@@ -1939,8 +2008,14 @@ def reload_phase(args, card: str, sars: list) -> dict:
         # webhook: the phase holds the swap contract, and the serving cost
         # of a reload (the compile shares the interpreter lock with 64
         # closed-loop clients) is reported as latency, with no target
+        # the breaker trips and the supervisor's wedge budget at the CLI
+        # defaults; phase 11's chaos control, a 2 s recovery and a 0.5 s
+        # watchdog interval (neither changes whether anything trips or
+        # restarts, only how fast it recovers)
         srv = Webhook(cfg, tmp, "webhook-reload", grace,
-                      ("--reload-seconds", "1", "--request-timeout-ms", "10000"))
+                      ("--reload-seconds", "1", "--request-timeout-ms", "10000",
+                       "--confirm-non-prod-inject-errors", "--breaker-recovery-seconds", "2",
+                       "--supervisor-interval-seconds", "0.5"))
         port, mport = srv.port, srv.mport
         stop = threading.Event()
         threads = []
@@ -2116,6 +2191,7 @@ def reload_phase(args, card: str, sars: list) -> dict:
                   f"{'; '.join(compiles)}", flush=True)
             if fallback:
                 problems.append(f"{fallback:g} fallback batches")
+            problems += resilience_quiet("reload", text)
             plane = max(e["device_bytes"] for e in engines().values()) / 2**20
             print(f"reload card memory of the server, MiB ({card}; nvidia-smi's per-process "
                   f"figure where it lists the server, and the server's allocator): after reload "
@@ -2126,16 +2202,476 @@ def reload_phase(args, card: str, sars: list) -> dict:
                     problems.append(f"card memory ({what}) grew by "
                                     f"{mem[3][what] - mem[1][what]:.1f} MiB over reloads 2-3, "
                                     f"more than one plane ({plane:.1f} MiB)")
+            if problems:
+                fail("reload: " + "; ".join(problems))
+            print(f"reload phase wall time ({card}): {time.monotonic() - t_phase:.1f} s",
+                  flush=True)
+            after = None
+            if then is not None:
+                # version 3 is version 0: the expected answers of the base
+                after = then(srv, pools, {path: want[path][0] for path in want}, keyf)
             took, rss = srv.terminate()
             print(f"reload webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
                   f"({card}): {rss}", flush=True)
-            if problems:
-                fail("reload: " + "; ".join(problems))
         finally:
             stop.set()
             srv.kill()
-    print(f"reload phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches, after
+
+
+class Traffic:
+    """Closed-loop clients on both endpoints without pause: 32 per path,
+    each on its own keep-alive connection, cycling over its pool. Records
+    (sent unix, done unix, path, body index, answer, seconds) per answer;
+    a client error is kept and fails the phase."""
+
+    def __init__(self, port: int, pools: dict, per_path: int = 32):
+        self.port, self.pools, self.per_path = port, pools, per_path
+        self.records: list = []
+        self.errors: list = []
+        self._stop = threading.Event()
+        self._next = {path: 0 for path in pools}
+        self._lock = threading.Lock()
+        self._threads = [threading.Thread(target=self._client, args=(path,))
+                         for path in pools for _ in range(per_path)]
+
+    def _client(self, path):
+        c = Client(self.port, path)
+        pool = self.pools[path]
+        try:
+            while not self._stop.is_set():
+                with self._lock:
+                    i = self._next[path] % len(pool)
+                    self._next[path] += 1
+                sent = time.time()
+                got, dt = c.post(pool[i])
+                self.records.append((sent, time.time(), path, i, got, dt))
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.errors.append(f"{path}: {e!r}")
+        finally:
+            c.close()
+
+    def start(self):
+        for th in self._threads:
+            th.start()
+
+    def stop(self):
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=120)
+        if any(th.is_alive() for th in self._threads):
+            self.errors.append("a client thread did not finish within 120 s")
+
+
+def posture_kind(path: str, got: dict):
+    """The failure posture an answer carries: "breaker" (the open breaker
+    answered before the batcher), "failed" (a failed or shed batch), or
+    None for an evaluated answer."""
+    if path == "/v1/authorize":
+        err = got.get("evaluationError") or ""
+        if got["allowed"] or got["denied"] or not err.startswith("evaluation error: "):
+            return None
+    else:
+        err = got["status"]["message"]
+        if got["status"]["code"] != 500 or not err.startswith("evaluation error ("):
+            return None
+    return "breaker" if err.endswith("device breaker open") else "failed"
+
+
+def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) -> dict:
+    """Phase 11 (module docstring) on phase 10's server, its directory
+    back at version 0: four chaos windows under 32 + 32 clients. Returns
+    the server's served kernel launches over the phase."""
+    t_phase = time.monotonic()
+    port, mport = srv.port, srv.mport
+    interval = 0.5  # --supervisor-interval-seconds of phase 10's server
+    recovery = 2.0  # --breaker-recovery-seconds
+    paths = {"/v1/authorize": "authorization", "/v1/admit": "admission"}
+    problems = []
+
+    def chaos(action, doc=None):
+        data = json.dumps(doc).encode() if doc is not None else b""
+        req = urllib.request.Request(f"http://127.0.0.1:{mport}/chaos/{action}", data=data,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            if r.status != 200:
+                fail(f"resilience: /chaos/{action} answered {r.status}")
+            return json.loads(r.read())
+
+    def engine_doc():
+        doc = srv.debug_engine()
+        return {p: doc[p] for p in paths.values()}
+
+    def supervisor_doc():
+        return json.loads(http_get(mport, "/debug/supervisor")[1])
+
+    def metrics_text():
+        return http_get(mport, "/metrics")[1].decode()
+
+    traffic = Traffic(port, pools)
+    launches0 = engine_doc()["authorization"]["engine"]["launches"]
+    text0 = metrics_text()
+    traffic.start()
+    time.sleep(3.0)
+    windows = []
+
+    def window(name):
+        w = {"name": name, "t0": time.time()}
+        windows.append(w)
+        return w
+
+    # ---- (a) the breaker trips and recovers: non-fatal dispatch errors
+    # until both breakers read open, then none
+    w = window("breaker")
+    chaos("configure", {"name": "breaker-trip", "seed": 31, "faults": [
+        {"seam": "engine.dispatch", "kind": "error",
+         "message": "injected dispatch fault (not fatal)"}]})
+    chaos("arm")
+    # (unix, {engine: state}, launches, {engine: batches_total}, drained):
+    # drained when no request waits in either batcher and no batch is in
+    # either pipeline (those in flight at a trip passed the breaker before
+    # it opened)
+    samples = []
+    opened, closed = {}, {}
+    deadline = time.monotonic() + 40
+    while len(closed) < 2:
+        doc = engine_doc()
+        now = time.time()
+        states = {e: doc[e]["breaker"] for e in doc}
+        samples.append((now, states, doc["authorization"]["engine"]["launches"],
+                        {e: doc[e]["pipeline"]["batches_total"] for e in doc},
+                        all(doc[e]["pipeline"]["inflight"] == 0 and doc[e]["pipeline"]["queue"] == 0
+                            for e in doc)))
+        for e, st in states.items():
+            if st == "open" and e not in opened:
+                opened[e] = now
+            if e in opened and st == "closed" and e not in closed:
+                closed[e] = now
+        if len(opened) == 2 and not w.get("disarmed"):
+            chaos("disarm")
+            w["disarmed"] = now
+        if time.monotonic() > deadline or traffic.errors:
+            fail(f"resilience (a): breakers opened {opened}, closed {closed} within 40 s "
+                 f"(client errors {traffic.errors[:3]}):\n{srv.log()}")
+        time.sleep(0.025)
+    w["opened"], w["closed"] = opened, closed
+    w["t_end"] = max(closed.values())
+    # while open: no batch formed for that path, and with both open no
+    # launch, once the batches in flight at the trip have drained (a
+    # batch claimed before the trip fails at encode, without a launch)
+    for e in paths.values():
+        episode = [s for s in samples if s[1][e] == "open" and s[4]]
+        if episode and episode[-1][3][e] != episode[0][3][e]:
+            problems.append(f"(a) {e}: batches formed while its breaker was open "
+                            f"({episode[0][3][e]} -> {episode[-1][3][e]})")
+    both = [s for s in samples if all(v == "open" for v in s[1].values())]
+    both = both[next((k for k, s in enumerate(both) if s[4]), len(both)):]
+    if len(both) < 2:
+        problems.append(f"(a) no window with both breakers open long enough to read: "
+                        f"opened {opened}")
+    elif both[-1][2] != both[0][2]:
+        problems.append(f"(a) launches rose with both breakers open: {both[0][2]} -> "
+                        f"{both[-1][2]}")
+    w["both_open_s"] = both[-1][0] - both[0][0] if len(both) > 1 else 0.0
+    w["launches_both_open"] = (both[0][2], both[-1][2]) if both else None
+    time.sleep(3.0)
+
+    # ---- (b) device loss: the builtin scenario; disarmed once both
+    # engines' recoveries have seen a fatal error
+    w = window("device-loss")
+    doc = engine_doc()
+    mem_before = doc["authorization"]["engine"]["device_memory"]["allocated"]
+    plane = max(doc[e]["engine"]["device_bytes"] for e in doc)
+    builtin = chaos_builtin("device-loss")
+    chaos("configure", builtin)
+    chaos("arm")
+    deadline = time.monotonic() + 60
+    seen, rebuilt = {}, {}
+    while len(rebuilt) < 2:
+        rec = supervisor_doc()["device_recovery"]
+        now = time.time()
+        for e, st in rec.items():
+            if e not in seen and (st["rebuilding"] or st["rebuilds"] or st["failures"]):
+                seen[e] = now
+            if st["rebuilds"] and e not in rebuilt:
+                rebuilt[e] = now
+        if len(seen) == 2 and not w.get("disarmed"):
+            chaos("disarm")
+            w["disarmed"] = now
+        if time.monotonic() > deadline or traffic.errors:
+            fail(f"resilience (b): recoveries {rec} within 60 s (client errors "
+                 f"{traffic.errors[:3]}):\n{srv.log()}")
+        time.sleep(0.025)
+    deadline = time.monotonic() + 30
+    while True:
+        doc = engine_doc()
+        if all(doc[e]["breaker"] == "closed" for e in doc):
+            break
+        if time.monotonic() > deadline:
+            fail(f"resilience (b): breakers did not close after the rebuild: "
+                 f"{ {e: doc[e]['breaker'] for e in doc} }")
+        time.sleep(0.025)
+    w["t_end"] = time.time()
+    rec = supervisor_doc()["device_recovery"]
+    w["rebuild"] = {e: rec[e]["last_rebuild"] for e in rec}
+    w["seen"], w["rebuilt"] = seen, rebuilt
+    mark = doc["authorization"]["engine"]["launches"]
+    time.sleep(3.0)
+    doc = engine_doc()
+    later = doc["authorization"]["engine"]["launches"]
+    # once traffic has run on the rebuilt planes for 3 s
+    mem_after = doc["authorization"]["engine"]["device_memory"]["allocated"]
+    if not all(later[k] > mark[k] for k in mark):
+        problems.append(f"(b) launches did not rise after the rebuild: {mark} -> {later}")
+    for e, st in rec.items():
+        if (st["rebuilds"], st["failures"]) != (1, 0):
+            problems.append(f"(b) {e}: {st['rebuilds']} rebuilds, {st['failures']} failures, "
+                            "want 1 and 0")
+    rebuilds_total = metric_total(metrics_text(), "cedar_device_rebuilds_total")
+    if rebuilds_total != 2:
+        problems.append(f"(b) cedar_device_rebuilds_total {rebuilds_total:g}, want 1 per engine")
+    if abs(mem_after - mem_before) > plane:
+        problems.append(f"(b) card memory moved {(mem_after - mem_before) / 2**20:.1f} MiB "
+                        f"over the rebuild, more than one plane ({plane / 2**20:.1f} MiB)")
+    w["memory_mib"] = (mem_before / 2**20, mem_after / 2**20, plane / 2**20)
+    w["launches_after"] = (mark, later)
+
+    # ---- (c) a decode stage killed
+    w = window("kill-decode")
+    sup0 = supervisor_doc()["components"]
+    chaos("configure", chaos_builtin("kill-decode"))
+    t_arm = time.time()
+    chaos("arm")
+    deadline = time.monotonic() + 20
+    while True:
+        comps = supervisor_doc()["components"]
+        restarted = [c for c in comps if comps[c]["restarts"] > sup0[c]["restarts"]]
+        if restarted:
+            break
+        if time.monotonic() > deadline:
+            fail(f"resilience (c): no stage revived within 20 s: {comps}\n{srv.log()}")
+        time.sleep(0.02)
+    w["t_revived"] = time.time()
+    w["revived"] = {c: comps[c]["last_event"] for c in restarted}
+    w["arm_to_revive_s"] = w["t_revived"] - t_arm
+    chaos("disarm")
+    if restarted[0] not in ("batcher.authorization", "batcher.admission") or len(restarted) != 1:
+        problems.append(f"(c) restarted {restarted}, want one batcher")
+    if w["arm_to_revive_s"] > 2 * interval + 0.1:
+        problems.append(f"(c) the stage was revived {w['arm_to_revive_s']:.3f} s after the "
+                        f"kill was armed, want within 2 x {interval} s")
+    time.sleep(3.0)
+    w["t_end"] = time.time()
+
+    # ---- (d) the store stalls on re-read: serving goes on
+    w = window("store-stall")
+    chaos("configure", chaos_builtin("store-stall"))
+    chaos("arm")
+    deadline = time.monotonic() + 45
+    while True:
+        stats = json.loads(http_get(mport, "/debug/chaos")[1])
+        calls = stats["seams"].get("store.load", {}).get("calls", 0)
+        if calls:
+            break
+        if time.monotonic() > deadline:
+            fail("resilience (d): the directory store did not re-read within 45 s")
+        time.sleep(0.1)
+    w["t_stall"] = time.time()
+    time.sleep(3.0)  # the 2 s stall, and a second more
+    chaos("reset")
+    w["t_end"] = time.time()
+    time.sleep(1.0)
+
+    traffic.stop()
+    if traffic.errors:
+        fail(f"resilience: client errors {traffic.errors[:3]}")
+    doc = engine_doc()
+    launches1 = doc["authorization"]["engine"]["launches"]
+    launches = {k: launches1[k] - launches0[k] for k in launches1}
+    # the staging of every failed, shed and stranded batch came back
+    deadline = time.monotonic() + 10
+    while True:
+        staging = {e: engine_doc()[e]["engine"]["staging"] for e in paths.values()}
+        if all(st["outstanding"] == 0 for st in staging.values()) or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    for e, st in staging.items():
+        if st["outstanding"]:
+            problems.append(f"{e}: staging outstanding {st['outstanding']} at rest")
+    text = metrics_text()
+
+    # ---- the answers: a request in flight during a fault window may
+    # answer the posture (the breaker window's only until its path's
+    # breaker closed; the store-stall window's never); every other answer
+    # must be the expected one
+    recs = list(traffic.records)
+    flips = 0
+    for w in windows:
+        w["counts"] = {"expected": 0, "breaker": 0, "failed": 0}
+        w["breaker_lat"] = []
+    for sent, done, path, i, got, dt in recs:
+        w = next((w for w in windows if sent < w["t_end"] and done >= w["t0"]), None)
+        if keyf[path](got) == want[path][i]:
+            if w is not None:
+                w["counts"]["expected"] += 1
+            continue
+        kind = posture_kind(path, got)
+        allowed = w is not None and kind is not None and w["name"] != "store-stall"
+        if allowed and w["name"] == "breaker" and sent >= w["closed"][paths[path]]:
+            allowed = False
+        if not allowed:
+            flips += 1
+            if w is not None and kind is not None:
+                w["counts"][kind] += 1
+            if flips <= 3:
+                print(f"resilience flip ({w['name'] if w else 'no window'}) {path} body {i}: "
+                      f"{json.dumps(got)}", flush=True)
+            continue
+        w["counts"][kind] += 1
+        if kind == "breaker":
+            w["breaker_lat"].append(dt)
+    for w in windows:
+        lo, hi = w["t0"], w["t_end"]
+        stats = []
+        for label, a, b in (("before", lo - 3.0, lo), ("during", lo, hi), ("after", hi, hi + 3.0)):
+            lat = [r[5] for r in recs if a <= r[1] < b]
+            stats.append(f"{label} {len(lat) / max(b - a, 1e-9):.1f} requests/s p99 "
+                         f"{pct(lat, 99) * 1e3 if lat else float('nan'):.3f} ms")
+        counts, breaker_lat = w["counts"], w["breaker_lat"]
+        extra = ""
+        if w["name"] == "breaker":
+            extra = (f"; open after {json.dumps({e: round(t - lo, 3) for e, t in w['opened'].items()})}"
+                     f" s, closed after "
+                     f"{json.dumps({e: round(t - lo, 3) for e, t in w['closed'].items()})} s, "
+                     f"both open {w['both_open_s']:.3f} s with launches "
+                     f"{json.dumps(w['launches_both_open'])}")
+            # the open breaker answers without queueing behind a batch:
+            # faster than the served answers before the fault. Its
+            # absolute p99 under 64 closed-loop clients is the HTTP
+            # layer's (the yardstick below), printed against 50 ms
+            served = [r[5] for r in recs if lo - 3.0 <= r[1] < lo]
+            if breaker_lat and served and pct(breaker_lat, 99) >= pct(served, 99):
+                problems.append(f"(a) p99 of the open breaker's answers "
+                                f"{pct(breaker_lat, 99) * 1e3:.3f} ms, not below the served "
+                                f"answers' {pct(served, 99) * 1e3:.3f} ms before the fault")
+            if not breaker_lat:
+                problems.append("(a) no request was answered by an open breaker")
+            extra += (f"; open-breaker answers p99 "
+                      f"{'under' if breaker_lat and pct(breaker_lat, 99) < 0.05 else 'not under'}"
+                      f" 50 ms")
+        elif w["name"] == "device-loss":
+            extra = (f"; fatal seen after "
+                     f"{json.dumps({e: round(t - lo, 3) for e, t in w['seen'].items()})} s, "
+                     f"rebuilt after "
+                     f"{json.dumps({e: round(t - lo, 3) for e, t in w['rebuilt'].items()})} s, "
+                     f"closed after {hi - lo:.3f} s; rebuild {json.dumps(w['rebuild'])}; "
+                     f"allocator MiB before / after / one plane "
+                     f"{json.dumps([round(x, 2) for x in w['memory_mib']])}; launches at close "
+                     f"-> 3 s later {json.dumps(w['launches_after'])}")
+        elif w["name"] == "kill-decode":
+            extra = (f"; revived {w['arm_to_revive_s']:.3f} s after the arm: "
+                     f"{json.dumps(w['revived'])}")
+        elif w["name"] == "store-stall":
+            extra = f"; the store's re-read stalled {w['t_stall'] - lo:.3f} s into the window"
+        lat_b = (f", open-breaker answers p99 {pct(breaker_lat, 99) * 1e3:.3f} ms max "
+                 f"{max(breaker_lat) * 1e3:.3f} ms" if breaker_lat else "")
+        print(f"resilience ({w['name']}, {card}): {'; '.join(stats)}; answers "
+              f"{json.dumps(counts)}{lat_b}{extra}", flush=True)
+        if w["name"] == "store-stall" and (counts["breaker"] or counts["failed"]):
+            problems.append(f"(d) {counts['breaker'] + counts['failed']} posture answers")
+        if w["name"] in ("breaker", "device-loss") and not (counts["breaker"] or counts["failed"]):
+            problems.append(f"({w['name']}) no posture answer: the fault did not bite")
+    print(f"resilience flips: {flips}", flush=True)
+    yard = http_yardstick(pools)
+    print(f"resilience yardstick ({card}): the same 32 + 32 clients against a Python "
+          f"http.server answering a constant document: {yard['rps']:.1f} requests/s, p50 "
+          f"{yard['p50'] * 1e3:.3f} ms, p99 {yard['p99'] * 1e3:.3f} ms", flush=True)
+    if flips:
+        problems.append(f"{flips} answers neither the expected one nor the posture")
+    fallback = metric_total(text, "cedar_authorizer_fallback_batches_total")
+    res = {f: metric_total(text, f) - metric_total(text0, f) for f in RESILIENCE_FAMILIES}
+    print(f"resilience metrics over the phase: {json.dumps(res)}, fallback batches "
+          f"{fallback:g} (answered with the posture); launches {json.dumps(launches)}; "
+          f"staging {json.dumps(staging)}", flush=True)
+    if res["cedar_supervisor_restarts_total"] != 1:
+        problems.append(f"{res['cedar_supervisor_restarts_total']:g} supervisor restarts, want 1")
+    if not all(launches.values()):
+        problems.append(f"a kernel was not launched in the phase: {launches}")
+    print(f"resilience phase wall time ({card}): {time.monotonic() - t_phase:.1f} s",
+          flush=True)
+    if problems:
+        fail("resilience: " + "; ".join(problems))
     return launches
+
+
+def resilience_then(args, card: str):
+    """Phase 11 as the continuation reload_phase runs on its server."""
+    return lambda srv, pools, want, keyf: resilience_phase(args, card, srv, pools, want, keyf)
+
+
+_YARDSTICK_SERVER = r"""
+import json, sys
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+DOC = json.dumps({"status": {"allowed": False, "denied": False, "reason": "",
+                             "evaluationError": "evaluation error: device breaker open"},
+                  "response": {"uid": "", "allowed": True, "status": {"code": 500}}}).encode()
+class Server(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = 1024
+class Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    def log_message(self, *args):
+        pass
+    def do_POST(self):
+        self.rfile.read(int(self.headers.get("Content-Length") or 0))
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(DOC)))
+        self.end_headers()
+        self.wfile.write(DOC)
+Server(("127.0.0.1", int(sys.argv[1])), Handler).serve_forever()
+"""
+
+
+def http_yardstick(pools: dict) -> dict:
+    """The HTTP layer's own bound on this host: phase 11's clients (32 +
+    32, closed loop) against a Python http.server (the webhook's server
+    class) that answers a constant document and does nothing else, for
+    3 s after 1 s of warm-up."""
+    port = free_port()
+    proc = subprocess.Popen([sys.executable, "-c", _YARDSTICK_SERVER, str(port)])
+    try:
+        deadline = time.monotonic() + 30
+        while True:
+            try:
+                with socket.create_connection(("127.0.0.1", port), timeout=1):
+                    break
+            except OSError:
+                if time.monotonic() > deadline:
+                    fail("the yardstick server did not listen within 30 s")
+                time.sleep(0.1)
+        traffic = Traffic(port, pools)
+        traffic.start()
+        time.sleep(1.0)
+        t0 = time.time()
+        time.sleep(3.0)
+        t1 = time.time()
+        traffic.stop()
+        if traffic.errors:
+            fail(f"yardstick: client errors {traffic.errors[:3]}")
+        lat = [r[5] for r in traffic.records if t0 <= r[1] < t1]
+        return {"rps": len(lat) / (t1 - t0), "p50": pct(lat, 50), "p99": pct(lat, 99)}
+    finally:
+        proc.kill()
+        proc.wait(timeout=30)
+
+
+def chaos_builtin(name: str) -> dict:
+    """A builtin scenario of the port's chaos package."""
+    from cedar_tpu_torch.chaos.scenario import BUILTIN_SCENARIOS
+
+    return BUILTIN_SCENARIOS[name]
+
 
 if __name__ == "__main__":
     main()

@@ -504,3 +504,118 @@ def test_reload_publishes_a_warmed_plane(cuda):
         cuda_match.launch_counts()["match_words_kernel"] > 0
     gc.collect()
     assert old() is None
+
+
+@pytest.mark.cuda
+def test_rebuild_compiled_on_the_10k_plane(cuda):
+    """The device-loss rebuild on the card, at the serving plane's size:
+    the set is re-placed into new allocations with its own TMA maps (none
+    carried over from the old set's plane), warmed before it is
+    published; both kernels are bit-equal to their plain versions on the
+    rebuilt plane, the engine's answers equal the CPU engine's, and the
+    old set's memory is freed (the allocator stays within one plane)."""
+    import gc
+    import weakref
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+
+    key = lambda r: (r[0], sorted(x.policy for x in r[1].reasons), sorted(r[1].errors))  # noqa: E731
+    corpus = synth_corpus(10000, seed=0)
+    gpu, cpu = TorchPolicyEngine(), TorchPolicyEngine(device="cpu")
+    gpu.load(corpus.tiers(), max_batch=128)
+    cpu.load(corpus.tiers())
+    old = gpu.compiled_set
+    old_maps = set(old.plane_maps)
+    old_ptr = old.Wt_dev.data_ptr()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    plane = old.device_bytes
+    gen = gpu.load_generation
+    cuda_match.reset_launch_counts()
+    stats = gpu.rebuild_compiled(max_batch=128)
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 0}
+    new = gpu.compiled_set
+    assert stats["generation"] == gen + 1 and gpu.load_generation == gen + 1
+    assert new.Wt_dev.data_ptr() != old_ptr and new.plane_maps and new._W_f32 is not None
+    assert not (set(new.plane_maps) & old_maps)
+    assert all(k[0] == new.Wt_dev.data_ptr() for k in new.plane_maps)
+    ref = weakref.ref(old)
+    del old
+    gc.collect()
+    torch.cuda.synchronize()
+    assert ref() is None
+    assert torch.cuda.memory_allocated() - before <= plane
+    # both kernels against their plain versions on the rebuilt plane
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, new.act_rows_dev.shape[0], size=(64, new.packed.table.n_slots),
+                         dtype=np.int32)
+    extras = np.full((64, 1), new.L, dtype=np.int32)
+    lit = plain.lit_matrix_codes(torch.from_numpy(codes).to(cuda),
+                                 torch.from_numpy(extras).to(cuda), new.act_rows_dev)
+    ops = (new.W_dev, new.thresh_dev, new.rule_group_dev, new.rule_policy_dev)
+    cpu_ops = [t.cpu() for t in ops]
+    w_k = cuda_match.match_words(lit, *ops, new.n_tiers, new.has_gate, plane_maps=new.plane_maps)
+    w_p = cuda_match.match_words(lit.cpu(), *cpu_ops, new.n_tiers, new.has_gate)
+    assert torch.equal(w_k.cpu(), w_p)
+    f_k, l_k = cuda_match.match_groups(lit, *ops, new.n_groups, plane_maps=new.plane_maps)
+    f_p, l_p = cuda_match.match_groups(lit.cpu(), *cpu_ops, new.n_groups)
+    assert torch.equal(f_k.cpu(), f_p) and torch.equal(l_k.cpu(), l_p)
+    items = corpus.sar_items(256, seed=4)
+    assert [key(r) for r in gpu.evaluate_batch(items)] == [key(r) for r in cpu.evaluate_batch(items)]
+
+
+_STICKY_FAULT = r"""
+import json
+import torch
+from cedar_tpu_torch.corpus.synth import synth_corpus
+from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+from cedar_tpu_torch.server.supervisor import DeviceRecovery, is_fatal_device_error
+
+engine = TorchPolicyEngine()
+engine.load(synth_corpus(200, seed=1).tiers(), max_batch=8)
+out = {"raised": None}
+try:
+    x = torch.zeros(4, device="cuda")
+    x[torch.tensor([1 << 20], device="cuda")] += 1  # out of range: a device-side assert
+    torch.cuda.synchronize()
+except Exception as e:
+    out["raised"] = f"{type(e).__name__}: {e}"[:400]
+    out["fatal"] = is_fatal_device_error(e)
+try:
+    engine.rebuild_compiled(max_batch=8)
+    out["rebuild"] = "ok"
+except Exception as e:
+    out["rebuild"] = f"{type(e).__name__}: {e}"[:400]
+    out["rebuild_fatal"] = is_fatal_device_error(e)
+rec = DeviceRecovery(engine, name="sticky", warm_max_batch=8)
+out["recovery"] = [rec.rebuild_now(), rec.rebuilds, rec.failures]
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+def test_sticky_fault_is_fatal_and_the_rebuild_fails(cuda):
+    """A real sticky fault, in a subprocess (it poisons the CUDA context
+    for the life of the process): the raised error classifies as fatal,
+    and a following rebuild raises, so DeviceRecovery counts a failure
+    and leaves the breaker open; nothing in-process can recover it."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", _STICKY_FAULT], env=env, cwd=str(repo),
+                          capture_output=True, text=True, timeout=600)
+    lines = [x for x in proc.stdout.splitlines() if x.startswith("RESULT ")]
+    assert lines, proc.stdout[-2000:] + proc.stderr[-4000:]
+    out = json.loads(lines[-1][len("RESULT "):])
+    print(out)
+    assert out["raised"] and out["fatal"] is True, out
+    assert out["rebuild"] != "ok", out
+    assert out["recovery"] == [False, 0, 1], out

@@ -479,9 +479,11 @@ def test_staging_released_when_the_encode_raises(monkeypatch):
 
 
 def test_staging_abandoned_when_the_launch_raises(monkeypatch):
-    """An exception after the encode (here: the launch) propagates and
-    abandons the held buffers: they never re-enter the pool, where a later
-    batch could overwrite rows an in-flight copy still reads."""
+    """An exception after the encode (here: the launch) propagates, and
+    the held buffers are no longer abandoned: they go back to the pool
+    once no copy can read them (on the card behind an event recorded
+    after the batch's copies; on the CPU, where no copy is in flight, at
+    once), and the outstanding count returns to 0."""
     p = Paths(SETS["srv"])
     acquired = _track_acquires(monkeypatch, p.engine)
 
@@ -491,7 +493,9 @@ def test_staging_abandoned_when_the_launch_raises(monkeypatch):
     monkeypatch.setattr(p.engine, "match_arrays_launch", boom)
     with pytest.raises(RuntimeError, match="injected launch failure"):
         p.fast.authorize_raw([sar(user=f"u{i}") for i in range(20)])
-    assert acquired and not ({id(a) for a in acquired} & _pool_ids(p.engine))
+    assert acquired and {id(a) for a in acquired} <= _pool_ids(p.engine)
+    st = p.engine.staging_stats()
+    assert (st["outstanding"], st["pending"], st["retired"]) == (0, 0, 0)
 
 
 def test_staging_peak_outstanding_and_reuse(monkeypatch):

@@ -730,7 +730,9 @@ def test_failure_answers_error_and_never_the_interpreter(small_stack, monkeypatc
     """A failure anywhere on the device path answers every request of the
     failed batch NoOpinion with an evaluationError naming it. Nothing
     re-runs the batch on the interpreter: no per-row exact path, no
-    authorizer, no store walk, no fallback-batch count."""
+    authorizer, no store walk. Each failed batch counts once as an
+    evaluator_error fallback batch (the JAX family, answered with the
+    posture here), never as breaker_open (no breaker is wired)."""
     engine, fast, calls, make = small_stack
     what, attr, repl, depth = FAILURES[where]
     target = {"fast": fast, "engine": engine, "cuda_match": cuda_match}[what]
@@ -752,9 +754,12 @@ def test_failure_answers_error_and_never_the_interpreter(small_stack, monkeypatc
             assert "batch evaluation failed" in st["evaluationError"]
             assert ("match_words_kernel launch failed" if where == "kernel-launch"
                     else "injected device failure") in st["evaluationError"]
-        assert calls == []
+        assert [c for c in calls if c != "record_fallback_batch"] == []
+        failed = srv.metrics.fallback_batches_total.value(
+            path="authorization", reason="evaluator_error")
+        assert 1 <= failed <= 8 and calls.count("record_fallback_batch") == failed
         assert srv.metrics.fallback_batches_total.value(
-            path="authorization", reason="evaluator_error") == 0
+            path="authorization", reason="breaker_open") == 0
         # the server goes on serving once the fault is gone
         monkeypatch.undo()
         status, doc = request(srv.bound_port, "POST", "/v1/authorize", DEMO_BODIES["sam-get-pods"])

@@ -47,12 +47,16 @@ PORTED_FLAGS = [
     "--secure-port", "--metrics-port", "--cert-dir", "--tls-cert-file",
     "--tls-private-key-file", "--insecure", "--request-timeout-ms",
     "--shutdown-grace-seconds", "--admission-fail-mode", "-v",
+    "--breaker-failure-threshold", "--breaker-latency-threshold-ms",
+    "--breaker-recovery-seconds", "--breaker-half-open-probes",
+    "--supervisor-interval-seconds", "--supervisor-wedge-seconds",
+    "--confirm-non-prod-inject-errors", "--chaos-scenario",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
     ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
     ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--decision-cache-size", "8"],
-    ["--breaker-failure-threshold", "3"], ["--tpu-reload-seconds", "1"],
+    ["--artificial-error-rate", "0.1"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
 permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
