@@ -1,17 +1,20 @@
-"""API types: CedarConfig, the webhook's store configuration.
+"""API types: the cedar.k8s.aws/v1alpha1 Policy CRD and CedarConfig.
 
-Behavior parity with the reference's api/v1alpha1/config_types.go (the
-JAX package's apis/v1alpha1.py): Go-style Duration JSON (accepts "1m30s"
-strings or integer nanoseconds), the store-config union with defaulting,
-and validation including the 30s-168h refresh bounds. The Policy CRD
-types are not part of the port yet (no CRD store).
+Behavior parity with the upstream project's api/v1alpha1/policy_types.go
+and config_types.go (the JAX package's apis/v1alpha1.py): Go-style
+Duration JSON (accepts "1m30s" strings or integer nanoseconds), the
+store-config union with defaulting, and validation including the
+30s–168h refresh bounds.
 """
 
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
+
+GROUP = "cedar.k8s.aws"
+VERSION = "v1alpha1"
 
 STORE_TYPE_DIRECTORY = "directory"
 STORE_TYPE_CRD = "crd"
@@ -73,6 +76,58 @@ def parse_duration(v: Any) -> int:
 SECOND = 1_000_000_000
 MINUTE = 60 * SECOND
 HOUR = 3600 * SECOND
+
+
+# --------------------------------------------------------------- Policy CRD
+
+
+@dataclass
+class PolicyValidation:
+    """spec.validation (reference policy_types.go:30-44)."""
+
+    enforced: bool = False
+    validation_mode: str = VALIDATION_MODE_STRICT
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "PolicyValidation":
+        d = d or {}
+        return cls(
+            enforced=bool(d.get("enforced", False)),
+            validation_mode=d.get("validationMode", VALIDATION_MODE_STRICT),
+        )
+
+
+@dataclass
+class PolicySpec:
+    content: str = ""
+    validation: PolicyValidation = field(default_factory=PolicyValidation)
+
+
+@dataclass
+class PolicyObject:
+    """The cluster-scoped Policy CRD (reference policy_types.go:71)."""
+
+    name: str = ""
+    uid: str = ""
+    annotations: Dict[str, str] = field(default_factory=dict)
+    labels: Dict[str, str] = field(default_factory=dict)
+    spec: PolicySpec = field(default_factory=PolicySpec)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PolicyObject":
+        meta = d.get("metadata", {}) or {}
+        spec = d.get("spec", {}) or {}
+        return cls(
+            name=meta.get("name", ""),
+            uid=meta.get("uid", ""),
+            annotations=dict(meta.get("annotations", {}) or {}),
+            labels=dict(meta.get("labels", {}) or {}),
+            spec=PolicySpec(
+                content=spec.get("content", ""),
+                validation=PolicyValidation.from_dict(spec.get("validation")),
+            ),
+        )
+
 
 
 # -------------------------------------------------------------- CedarConfig
@@ -180,9 +235,10 @@ class StoreConfig:
 class CedarConfig:
     stores: List[StoreConfig] = field(default_factory=list)
     # spec.validationMode: load-time posture of the static policy-set
-    # analysis (cedar_tpu/analysis): strict rejects a load carrying
-    # blocking findings, permissive annotates only, partial drops just the
-    # offending policies from the compiled set (docs/analysis.md).
+    # analysis (the JAX package's analysis/; not in the port yet): strict
+    # rejects a load carrying blocking findings, permissive annotates
+    # only, partial drops just the offending policies from the compiled
+    # set (docs/analysis.md).
     validation_mode: str = VALIDATION_MODE_PERMISSIVE
 
     @classmethod

@@ -3,7 +3,10 @@
     python -m cedar_tpu_torch.cli.webhook --config store-config.json --insecure
 
 Wiring of the JAX package's cli/webhook.py for two engines and two entry
-points: read the store config, build the tiered stores, and compile two
+points: read the store config, build the tiered stores (directory, CRD and
+Verified Permissions stores in any tier order; a CRD store watches the
+apiserver of ``--kubeconfig``, which may be JSON and then needs no
+PyYAML), wait for their initial loads, and compile two
 tier stacks on ``--device`` (CUDA unless ``--device cpu`` is given;
 without CUDA the start fails), each into its own TorchPolicyEngine: the
 authorization stack (the stores) and the admission stack (the same stores
@@ -19,19 +22,26 @@ engine. ``--admission-fail-mode`` says what /v1/admit answers when an
 evaluation fails or outlives its deadline.
 
 Policy reload: each directory store re-reads its files every
-refreshInterval (StoreConfig), and one TorchReloader polls the stores'
-content generations every ``--reload-seconds``. When they change it
-recompiles both engines in full, the authorization engine first; each new
-plane is placed and warmed on the device and only then swapped in. A
-reload that fails is logged and leaves the previous plane serving; the
-next tick tries again. With ``--backend interpreter`` the tickers alone
-keep the answers current.
+refreshInterval (StoreConfig), a CRD store applies each Policy object
+event of its watch, and one TorchReloader polls the stores' content
+generations every ``--reload-seconds``. When they change it reloads both
+engines, the authorization engine first. Both engines compile
+incrementally (``--shard-buckets`` buckets per tier): only the (tier,
+bucket) shards whose content changed are re-lowered, so a one-object CRD
+edit re-lowers only its own shards; ``--no-incremental-compile``
+recompiles the whole corpus on every reload. Each new plane is packed,
+placed and warmed on the device and only then swapped in. A reload that
+fails is logged and leaves the previous plane (and its shard map)
+serving; the next tick tries again. A relist or a metadata-only Policy
+update leaves the content generations, so nothing reloads. With
+``--backend interpreter`` the stores alone keep the answers current.
 
 Resilience, as the JAX CLI deploys it: a circuit breaker per engine
 (``--breaker-*``; 0 failures disables it), a DeviceRecovery per engine
 that rebuilds the plane on the card after a fatal device error, and the
 Supervisor watchdog (``--supervisor-*``; interval 0 disables both) over
-both batchers and every directory store's reload ticker. While a breaker
+both batchers, every directory store's reload ticker and every CRD
+store's list+watch thread. While a breaker
 is open its endpoint answers the failure posture (NoOpinion +
 evaluationError, the admission fail-mode); nothing re-runs on the
 interpreter. ``--confirm-non-prod-inject-errors`` opens the
@@ -39,8 +49,8 @@ interpreter. ``--confirm-non-prod-inject-errors`` opens the
 name or a scenario JSON file, armed at start).
 
 Flags of the JAX CLI that this port does not serve (cache, fleet,
-tenancy, tracing, incremental compile, the artificial error and deny
-rates, ...) do not exist here, so argparse rejects them.
+tenancy, tracing, partition specs, the artificial error and deny rates,
+...) do not exist here, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import logging
 import signal
 import sys
 import threading
+import time
 from typing import List, Optional
 
 from ..server.admission import CedarAdmissionHandler, allow_all_admission_policy_store
@@ -112,14 +123,16 @@ def _fingerprint(stores: TieredPolicyStores) -> tuple:
 
 
 class TorchReloader:
-    """Recompiles the engines whenever the stores' contents change.
+    """Reloads the engines whenever the stores' contents change.
 
     One reloader drives any number of (engine, tier stores) targets, in
     order, off one fingerprint of the shared dynamic stores (the
     authorization and admission stacks differ only by the constant
-    allow-all tail). Each target's load is a full compile, placed and
-    warmed on the device before the engine publishes it
-    (TorchPolicyEngine.load with ``max_batch``). A failed load is logged,
+    allow-all tail). Each target's load (incremental or full, as the
+    engine was built) is placed and warmed on the device before the
+    engine publishes it (TorchPolicyEngine.load with ``max_batch``); each
+    is logged with its compile scope and dirty shards, and ``on_load`` is
+    called with its stats and ``engine=`` the engine's name. A failed load is logged,
     the target keeps its previous set, and the next tick tries it again;
     the fingerprint is kept per target, so a healthy target does not
     recompile while another keeps failing."""
@@ -157,9 +170,11 @@ class TorchReloader:
                 continue
             self._fps[idx] = fp
             changed = True
-            log.info("engine [%d] loaded generation %d: %s", idx, engine.load_generation, stats)
+            log.info("engine [%d] loaded generation %d (%s compile, %d of %d shards dirty): %s",
+                     idx, engine.load_generation, stats["compile_scope"],
+                     stats["dirty_shards"], stats["shards"], stats)
             if self.on_load is not None:
-                self.on_load(stats)
+                self.on_load(stats, engine=engine.name)
         return changed
 
     def run_forever(self) -> None:
@@ -227,7 +242,8 @@ def _arm_startup_scenario(args) -> None:
 
 def _register_supervised(supervisor, server) -> None:
     """Put the long-lived workers under the watchdog: both paths'
-    batchers and every directory store's reload ticker. The ``threads``
+    batchers, every directory store's reload ticker and every CRD store's
+    list+watch thread (``store.crd.<name>``). The ``threads``
     providers re-read the live objects, so a revived generation stays
     covered; a restart abandons live workers only when the probe read a
     wedge."""
@@ -255,20 +271,41 @@ def _register_supervised(supervisor, server) -> None:
     seen = set()
     for stores in stacks:
         for store in stores:
-            if id(store) in seen or not hasattr(store, "ticker_threads"):
+            if id(store) in seen:
                 continue
             seen.add(id(store))
-            supervisor.register(
-                f"store.directory.{store.name()}",
-                threads=store.ticker_threads,
-                restart=lambda reason, s=store: s.revive(force=_force(reason)),
-            )
+            if hasattr(store, "watch_threads"):
+                supervisor.register(
+                    f"store.crd.{store.name()}",
+                    threads=store.watch_threads,
+                    restart=lambda reason, s=store: s.revive(force=_force(reason)),
+                )
+            elif hasattr(store, "ticker_threads"):
+                supervisor.register(
+                    f"store.directory.{store.name()}",
+                    threads=store.ticker_threads,
+                    restart=lambda reason, s=store: s.revive(force=_force(reason)),
+                )
+
+
+def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
+    """Block until every store's initial load is complete (a CRD store's
+    first list, made from its own thread), logging every 10 s while one
+    is not."""
+    t0 = last = time.monotonic()
+    while not all(s.initial_policy_load_complete() for s in stores):
+        if time.monotonic() - last >= 10.0:
+            last = time.monotonic()
+            waiting = [s.name() for s in stores if not s.initial_policy_load_complete()]
+            log.info("waiting %.0f s for the initial policy load of %s", last - t0, waiting)
+        time.sleep(poll_s)
 
 
 def build_server(args) -> WebhookServer:
     """stores -> the authorization and admission stacks, each an engine
-    loaded from its stores behind its fast path -> WebhookServer. Raises
-    when the device is unavailable, a store type is not ported, or the
+    loaded from its stores behind its fast path -> WebhookServer. With the
+    device backend it first waits for the stores' initial loads. Raises
+    when the device is unavailable, a validationMode is not ported, or the
     native encoder or the kernels cannot be built."""
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
@@ -280,7 +317,7 @@ def build_server(args) -> WebhookServer:
     if args.config:
         with open(args.config) as f:
             config = parse_config(f.read())
-    stores = cedar_config_stores(config)
+    stores = cedar_config_stores(config, kubeconfig_path=args.kubeconfig or None)
     # admission gets the allow-all final tier (main.go:111-116)
     admission_stores = TieredPolicyStores(
         list(stores.stores) + [allow_all_admission_policy_store()]
@@ -303,8 +340,11 @@ def build_server(args) -> WebhookServer:
             raise ValueError("--backend device needs at least one policy store (--config)")
         from ..engine.evaluator import TorchPolicyEngine
 
-        engine = TorchPolicyEngine(device=args.device)
-        admission_engine = TorchPolicyEngine(device=args.device)
+        incremental = not args.no_incremental_compile
+        engine = TorchPolicyEngine(device=args.device, incremental=incremental,
+                                   shard_buckets=args.shard_buckets, name="authorization")
+        admission_engine = TorchPolicyEngine(device=args.device, incremental=incremental,
+                                             shard_buckets=args.shard_buckets, name="admission")
         # every load warms its plane on the device before the swap: nvcc
         # and every first-use cost of the device paths then, not inside
         # the first requests' deadlines (the CPU's plain versions have no
@@ -318,6 +358,7 @@ def build_server(args) -> WebhookServer:
             max_batch=args.max_batch if engine.device.type == "cuda" else 1,
             on_load=metrics.record_compile,
         )
+        _wait_for_stores(stores)
         reloader.reload_if_changed(raise_errors=True)
         log.info("engines on %s loaded and warmed up: warm-up launches %s / %s",
                  engine.device, engine.warmup_launches, admission_engine.warmup_launches)
@@ -410,6 +451,11 @@ def make_parser() -> argparse.ArgumentParser:
     cedar = parser.add_argument_group("cedar")
     cedar.add_argument("--config", default="", help="Cedar store config file (YAML/JSON)")
     cedar.add_argument(
+        "--kubeconfig", default="",
+        help="kubeconfig for the CRD policy store (JSON needs no PyYAML; "
+        "empty = $KUBECONFIG)",
+    )
+    cedar.add_argument(
         "--backend",
         default="device",
         choices=["interpreter", "device"],
@@ -422,7 +468,24 @@ def make_parser() -> argparse.ArgumentParser:
         type=float,
         default=5.0,
         help="poll interval of the reloader: when a store's content changed, "
-        "both engines recompile in full and swap in their new planes",
+        "both engines recompile (incrementally unless "
+        "--no-incremental-compile) and swap in their new planes",
+    )
+    cedar.add_argument(
+        "--shard-buckets",
+        type=int,
+        default=0,
+        help="tier/bucket shards per tier for incremental compilation "
+        "(compiler/shard.py): a CRD edit re-lowers only its own shard, "
+        "so finer sharding = faster edits, coarser = fewer shards to "
+        "hash. 0 = the default, 64",
+    )
+    cedar.add_argument(
+        "--no-incremental-compile",
+        action="store_true",
+        help="disable shard-granular incremental compilation: every "
+        "reload re-lowers the whole corpus (the pre-shard behavior; "
+        "escape hatch)",
     )
     cedar.add_argument(
         "--device",

@@ -28,6 +28,15 @@ Devices: constructed with ``device=None`` the engine runs on CUDA and
 raises when CUDA is absent; only an explicit ``device="cpu"`` selects the
 CPU, where every kernel wrapper takes its plain version.
 
+Incremental compile (``incremental=True``; compiler/shard.py): a load
+re-lowers only the (tier, bucket) shards whose content hash changed and
+reassembles the plane from the cached slices; pack, placement and warm-up
+stay whole (each set has its own plane, TMA maps and float plane on the
+card). Every set carries its shard lineage (``PlaneState``, as the JAX
+package's). The shard map a compile produced is committed only once its
+set is published, so a load that fails after its compile (placement,
+warm-up, a load hook) leaves the map of the plane that serves.
+
 Tier semantics mirror the reference's TieredPolicyStores
 (internal/server/store/store.go:25-42): first tier with any explicit
 signal (reasons or errors) wins; the last tier's default applies.
@@ -35,10 +44,12 @@ signal (reasons or errors) wins; the last tier's default applies.
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
-from typing import List, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +57,7 @@ import torch
 from ..chaos.registry import chaos_fire
 from ..compiler.lower import AUTHZ_SCHEMA_INFO, SchemaInfo, lower_tiers
 from ..compiler.pack import ERROR_IDX, FORBID_IDX, GROUPS_PER_TIER, PERMIT_IDX, pack
+from ..compiler.shard import DEFAULT_SHARD_BUCKETS, ShardCompiler
 from ..compiler.table import encode_request_codes
 from ..lang.authorize import ALLOW, DENY, Diagnostics, PolicySet, Reason
 from ..lang.entities import EntityMap
@@ -80,6 +92,30 @@ SERVING_CHUNK = 16384
 # compaction (want_bits) and fetches flagged rows' bitsets afterwards
 # (engine/fastpath.py _BITS_INCALL_MAX aliases it)
 BITS_INCALL_MAX = 4096
+
+
+# process-wide structural plane ids: every full compile (or tier-topology
+# change, device rebuild) gets a fresh id, so shard generations of two
+# structurally different planes are never compared
+_plane_structs = itertools.count(1)
+
+
+@dataclass
+class PlaneState:
+    """Shard lineage of one compiled set (the JAX package's PlaneState,
+    without its partition and mesh fields, which the port does not serve).
+
+    ``shard_gens`` steps per dirty shard on an incremental reload;
+    ``structural`` changes whenever the whole plane is new (full compile,
+    tier-topology change, device rebuild). The dicts are never mutated
+    once the set is published: a load builds fresh copies."""
+
+    structural: int
+    shard_gens: Dict[str, int] = field(default_factory=dict)
+    shard_hashes: Dict[str, str] = field(default_factory=dict)
+    policy_shard: Dict[str, str] = field(default_factory=dict)
+    scope: str = "full"  # how this plane came to be serving
+    dirty: Tuple[str, ...] = ()
 
 
 def _round_bucket(n: int, buckets) -> int:
@@ -350,6 +386,8 @@ class _CompiledSet:
         self.act_rows_dev = torch.from_numpy(act_rows).to(dev)
         self.plane_maps: dict = {}
         self._W_f32: Optional[torch.Tensor] = None
+        # shard lineage (PlaneState), set by the engine before it publishes
+        self.plane: Optional[PlaneState] = None
         # host state that lives and dies with this set, keyed by its
         # owner: the fast paths keep their native encoder and decode
         # caches here (engine/fastpath.py), so nothing outside the set
@@ -388,11 +426,29 @@ class TorchPolicyEngine:
         self,
         schema: Optional[SchemaInfo] = None,
         device=None,
+        incremental: bool = False,
+        shard_buckets: int = DEFAULT_SHARD_BUCKETS,
+        name: str = "authorization",
     ):
+        """``incremental``: shard-granular compile (module docstring) over
+        ``shard_buckets`` buckets per tier (0 or None: the default, 64).
+        ``name`` labels the engine's shard gauges on /metrics."""
         self.schema = schema or AUTHZ_SCHEMA_INFO
         self.device = resolve_device(device)
+        self.name = name
         self._compiled: Optional[_CompiledSet] = None
         self.load_generation = 0
+        self.incremental = bool(incremental)
+        self.shard_buckets = int(shard_buckets or DEFAULT_SHARD_BUCKETS)
+        self._shard_compiler: Optional[ShardCompiler] = None
+        # shard generation values are never reused, so a removed and
+        # re-added shard never takes an old generation back
+        self._shard_gen_seq = itertools.count(1)
+        # the PlaneState of this engine's last published load: the next
+        # load continues its lineage only while it still serves
+        self._last_plane: Optional[PlaneState] = None
+        # how the serving plane last changed: full / incremental / rebuild
+        self.last_adoption_scope = "none"
         self._lock = threading.Lock()
         # one load or rebuild at a time, from compile to publish: a rebuild
         # must not publish over a load that landed meanwhile, and two
@@ -419,14 +475,19 @@ class TorchPolicyEngine:
     # ------------------------------------------------------------ lifecycle
 
     def load(self, tiers: Sequence[PolicySet], max_batch: Optional[int] = None) -> dict:
-        """Full compile (lower_tiers + pack) of a tiered policy set, placed
-        on the device, warmed there when ``max_batch`` is given
+        """Compile a tiered policy set (in full with lower_tiers, or only
+        its dirty shards when the engine is incremental) and pack it,
+        place it on the device, warm it there when ``max_batch`` is given
         (``warmup(max_batch, cs=new)`` before anything can serve from it),
-        passed to each of ``load_hooks``, and only then swapped in
-        atomically. A compile, placement, warm-up or hook that raises
-        fails the load: the previous set keeps serving and
-        ``load_generation`` stays. Loads and rebuild_compiled run one at a
-        time per engine. Returns compile stats."""
+        pass it to each of ``load_hooks``, and only then swap it in
+        atomically and commit its shard map. A compile, placement, warm-up
+        or hook that raises fails the load: the previous set keeps
+        serving, ``load_generation`` stays and the shard map stays that of
+        the serving set. Loads and rebuild_compiled run one at a time per
+        engine. Returns compile stats: the shape, ``compile_scope``
+        (full / incremental), ``shards``, ``dirty_shards``,
+        ``warm_skipped`` (always False: every set is warmed) and
+        ``compile_seconds`` by phase (``hash`` only when incremental)."""
         if not tiers:
             raise ValueError("TorchPolicyEngine.load: at least one tier required")
         with self._load_lock:
@@ -435,7 +496,17 @@ class TorchPolicyEngine:
     def _load(self, tiers: Sequence[PolicySet], max_batch: Optional[int]) -> dict:
         started = time.time()
         t0 = time.monotonic()
-        compiled = lower_tiers(list(tiers), self.schema)
+        seconds = {}
+        if self.incremental:
+            if self._shard_compiler is None:
+                self._shard_compiler = ShardCompiler(self.schema, buckets=self.shard_buckets)
+            compiled, info = self._shard_compiler.compile(list(tiers))
+            seconds["hash"] = round(info["phase_seconds"]["hash"], 4)
+            seconds["lower"] = round(info["phase_seconds"]["lower"], 4)
+        else:
+            compiled = lower_tiers(list(tiers), self.schema)
+            info = {"compile_scope": "full", "shards": 0, "dirty_shards": 0}
+            seconds["lower"] = round(time.monotonic() - t0, 4)
         t1 = time.monotonic()
         packed = pack(compiled)
         t2 = time.monotonic()
@@ -443,18 +514,22 @@ class TorchPolicyEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         t3 = time.monotonic()
+        # the prior set is the serving one: loads hold the load lock
+        new.plane = self._next_plane(self._compiled, info)
         if max_batch is not None:
             self.warmup(max_batch, cs=new)
         for hook in self.load_hooks:
             hook(new)
         t4 = time.monotonic()
-        seconds = {
-            "lower": round(t1 - t0, 4),
-            "pack": round(t2 - t1, 4),
-            "place": round(t3 - t2, 4),
-            "warm": round(t4 - t3, 4),
-            "total": round(t4 - t0, 4),
-        }
+        seconds.update(
+            pack=round(t2 - t1, 4),
+            place=round(t3 - t2, 4),
+            warm=round(t4 - t3, 4),
+            total=round(t4 - t0, 4),
+        )
+        scope = info["compile_scope"]
+        shards = {"compile_scope": scope, "shards": info["shards"],
+                  "dirty_shards": info["dirty_shards"]}
         with self._lock:
             self._compiled = new
             self.load_generation += 1
@@ -463,14 +538,74 @@ class TorchPolicyEngine:
                 "started_unix": started,
                 "published_unix": time.time(),
                 "compile_seconds": seconds,
+                **shards,
             }
+        if self.incremental:
+            self._shard_compiler.commit(info)
+        self._last_plane = new.plane
+        self.last_adoption_scope = scope
         return {
             **compiled.stats(),
             "L": packed.L,
             "R": packed.R,
             "native_opaque_policies": packed.native_opaque,
-            "compile_scope": "full",
+            **shards,
+            "warm_skipped": False,
             "compile_seconds": seconds,
+        }
+
+    def _next_plane(self, prior: Optional[_CompiledSet], info: dict) -> PlaneState:
+        """PlaneState for a freshly compiled set (the JAX package's
+        _next_plane): continue the prior plane's lineage (same structural
+        id, the dirty shards' generations stepped) only on an incremental
+        compile over the plane this engine's own last load published; a
+        rebuild in between broke the lineage, so the set gets a fresh
+        structural id."""
+        scope = info.get("compile_scope")
+        prev_plane = prior.plane if prior is not None else None
+        continues = (
+            scope == "incremental"
+            and prev_plane is not None
+            and prev_plane is self._last_plane
+        )
+        hashes = dict(info.get("shard_hashes", ()))
+        if continues:
+            gens = {sid: g for sid, g in prev_plane.shard_gens.items() if sid in hashes}
+            for sid in info.get("dirty", ()):
+                if sid in hashes:
+                    gens[sid] = next(self._shard_gen_seq)
+            for sid in hashes:
+                gens.setdefault(sid, next(self._shard_gen_seq))
+            structural = prev_plane.structural
+        else:
+            structural = next(_plane_structs)
+            gens = {sid: next(self._shard_gen_seq) for sid in hashes}
+        return PlaneState(
+            structural=structural,
+            shard_gens=gens,
+            shard_hashes=hashes,
+            policy_shard=dict(info.get("policy_shard", ())),
+            scope=scope or "full",
+            dirty=tuple(info.get("dirty", ())),
+        )
+
+    def shard_status(self) -> dict:
+        """The /debug/engine shard document: the serving plane's shard
+        count and hashes (the first 256, 12 hex digits each), the scope
+        and dirty set of the load that made it, and its structural id."""
+        cs = self._compiled
+        pl = cs.plane if cs is not None else None
+        if pl is None:
+            return {"scope": self.last_adoption_scope, "shards": 0}
+        hashes = dict(sorted(pl.shard_hashes.items())[:256])
+        return {
+            "scope": pl.scope,
+            "last_adoption_scope": self.last_adoption_scope,
+            "shards": len(pl.shard_hashes),
+            "dirty": list(pl.dirty),
+            "structural": pl.structural,
+            "hashes": {sid: h[:12] for sid, h in hashes.items()},
+            "hashes_truncated": len(pl.shard_hashes) > 256,
         }
 
     def rebuild_compiled(self, max_batch: Optional[int] = None) -> Optional[dict]:
@@ -486,7 +621,10 @@ class TorchPolicyEngine:
         encoder, decode caches: host memory over the same pack) moves
         across. Runs under the load lock and publishes only if the set it
         re-placed is still current, so a rebuild never reverts a reload;
-        bumps ``load_generation``. Returns {generation, seconds by phase},
+        bumps ``load_generation``. The rebuilt set keeps the shard
+        generations and hashes under a fresh structural id (the JAX
+        package's rebuild); the shard map, which describes the same pack,
+        stays. Returns {generation, seconds by phase},
         or None when there is no set with a pack to rebuild (or a load
         replaced it). Raises when the device does (a poisoned CUDA context
         fails here): the current set stays."""
@@ -501,6 +639,14 @@ class TorchPolicyEngine:
                 torch.cuda.synchronize(self.device)
             t1 = time.monotonic()
             new.host_state.update(cs.host_state)
+            if cs.plane is not None:
+                new.plane = PlaneState(
+                    structural=next(_plane_structs),
+                    shard_gens=dict(cs.plane.shard_gens),
+                    shard_hashes=dict(cs.plane.shard_hashes),
+                    policy_shard=cs.plane.policy_shard,
+                    scope="rebuild",
+                )
             if max_batch is not None:
                 self.warmup(max_batch, cs=new)
             for hook in self.load_hooks:
@@ -516,6 +662,7 @@ class TorchPolicyEngine:
                     return None
                 self._compiled = new
                 self.load_generation += 1
+                self.last_adoption_scope = "rebuild"
                 self.last_rebuild = {
                     "generation": self.load_generation,
                     "started_unix": started,

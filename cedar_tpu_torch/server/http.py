@@ -112,8 +112,15 @@ class _HTTPServer(ThreadingHTTPServer):
 def _engine_doc(engine) -> dict:
     """The engine's /debug/engine entry: load generation, the loaded
     set's shape, staging and the kernels' launch counts (engine.stats),
-    and the interpreter-fallback policies the plane carries."""
-    doc = {"load_generation": engine.load_generation, **engine.stats}
+    the serving plane's shard lineage (``shards``: shard count and
+    hashes, the last load's scope and dirty set), and the
+    interpreter-fallback policies the plane carries."""
+    doc = {
+        "name": engine.name,
+        "load_generation": engine.load_generation,
+        **engine.stats,
+        "shards": engine.shard_status(),
+    }
     cs = engine.compiled_set
     packed = cs.packed if cs is not None else None
     if packed is not None:

@@ -23,9 +23,13 @@ internal/server/metrics/metrics.go):
     fast path's own counts at scrape time;
   * ``cedar_native_encode_threads``;
   * ``cedar_compile_seconds{phase,scope}``: one observation per phase
-    (lower, pack, place, warm, total) of every engine load, the initial
-    ones and each reload's; scope is always ``full`` (every load
-    recompiles the whole corpus).
+    (hash, lower, pack, place, warm, total) of every engine load, the
+    initial ones and each reload's; scope ``full`` (the whole corpus
+    lowered) or ``incremental`` (only the dirty shards); ``hash`` only
+    from incremental engines;
+  * ``cedar_policy_shards{engine}`` and ``cedar_dirty_shards{engine}``:
+    the shards of each engine's serving plane and those its last load
+    re-lowered (0 from an engine without incremental compile).
 
 The batch, pipeline, deadline, shed, routing and packed-decode families
 carry a ``path`` label: ``authorization`` for /v1/authorize and
@@ -43,7 +47,9 @@ functions; every server's /metrics renders them:
     half-open) and ``cedar_authorizer_breaker_transitions_total{engine,to}``;
   * ``cedar_supervisor_restarts_total{component,replica}``;
   * ``cedar_device_rebuilds_total``;
-  * ``cedar_chaos_injections_total{seam,kind}``.
+  * ``cedar_chaos_injections_total{seam,kind}``;
+  * ``cedar_worker_deaths_total{component,replica}`` (a CRD store's
+    list+watch thread that died: ``crd.watch``).
 """
 
 from __future__ import annotations
@@ -268,11 +274,20 @@ class _ProcessFamilies:
             "it should never move outside game days.",
             ["seam", "kind"],
         )
+        self.worker_deaths_total = Counter(
+            "cedar_worker_deaths_total",
+            "Long-lived worker threads that exited on an uncaught exception, "
+            "partitioned by component (crd.watch: a CRD store's list+watch "
+            "thread) and replica (empty on the single-engine path). Any "
+            "nonzero rate is a bug or an injected fault; the supervisor "
+            "restarts the worker.",
+            ["component", "replica"],
+        )
         self.device_rebuilds_total.inc(0)
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
-            self.chaos_injections_total,
+            self.chaos_injections_total, self.worker_deaths_total,
         )
 
     def collect(self) -> List[str]:
@@ -308,6 +323,10 @@ def record_device_rebuild() -> None:
 
 def record_chaos_injection(seam: str, kind: str) -> None:
     _PROCESS.chaos_injections_total.inc(seam=seam, kind=kind)
+
+
+def record_worker_death(component: str, replica: str = "") -> None:
+    _PROCESS.worker_deaths_total.inc(component=component, replica=replica)
 
 
 class WebhookMetrics:
@@ -389,12 +408,26 @@ class WebhookMetrics:
 
         self.compile_seconds = reg(Histogram(
             "cedar_compile_seconds",
-            "Policy-set compilation latency partitioned by phase (lower = "
-            "lowering, pack = plane assembly, place = device placement, warm = "
-            "the new plane's warm-up on the device before the swap, total) and "
-            "scope (full = the whole corpus recompiled).",
+            "Policy-set compilation latency partitioned by phase (hash = the "
+            "shard plan's content hashes, lower = lowering, pack = plane "
+            "assembly, place = device placement, warm = the new plane's "
+            "warm-up on the device before the swap, total) and scope (full = "
+            "the whole corpus lowered, incremental = only the dirty shards).",
             ["phase", "scope"],
             [0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30, 60, 120],
+        ))
+        self.policy_shards = reg(Gauge(
+            "cedar_policy_shards",
+            "Tier/bucket shards in the engine's current compiled plane, "
+            "partitioned by engine.",
+            ["engine"],
+        ))
+        self.dirty_shards = reg(Gauge(
+            "cedar_dirty_shards",
+            "Shards recompiled by the engine's LAST reload (0 after a no-op "
+            "reload, 1 after a single-policy CRD edit, = cedar_policy_shards "
+            "after a full compile), partitioned by engine.",
+            ["engine"],
         ))
 
         reg(_PROCESS)
@@ -432,11 +465,14 @@ class WebhookMetrics:
         if seconds >= 0:
             self.pipeline_stage_seconds.observe(seconds, path=path, stage=stage)
 
-    def record_compile(self, stats: dict) -> None:
-        """One engine load's compile stats (TorchPolicyEngine.load)."""
+    def record_compile(self, stats: dict, engine: str = "authorization") -> None:
+        """One engine load's compile stats (TorchPolicyEngine.load): its
+        phase seconds and the engine's shard gauges."""
         scope = stats.get("compile_scope", "full")
         for phase, seconds in stats["compile_seconds"].items():
             self.compile_seconds.observe(seconds, phase=phase, scope=scope)
+        self.policy_shards.set(stats.get("shards", 0), engine=engine)
+        self.dirty_shards.set(stats.get("dirty_shards", 0), engine=engine)
 
     def set_native_encode_threads(self, n: int) -> None:
         self.native_encode_threads.set(n)

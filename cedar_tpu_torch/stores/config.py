@@ -2,10 +2,10 @@
 
 Behavior parity with the reference's internal/server/store/config.go (the
 JAX package's stores/config.py): ParseConfig (YAML/JSON + validation) and
-CedarConfigStores (the ordered store list). The port serves directory
-stores only: a CRD or Verified Permissions store, or a validationMode
-that needs the load-time policy analysis (strict, partial), raises
-ValueError naming what is missing rather than serving without it.
+CedarConfigStores (the ordered store list: directory, CRD and Verified
+Permissions stores, in any tier order). A validationMode that needs the
+load-time policy analysis (strict, partial) raises ValueError naming what
+is missing rather than serving without it.
 """
 
 from __future__ import annotations
@@ -14,10 +14,14 @@ import json
 from typing import Optional
 
 from ..apis.v1alpha1 import (
+    STORE_TYPE_CRD,
     STORE_TYPE_DIRECTORY,
+    STORE_TYPE_VERIFIED_PERMISSIONS,
     VALIDATION_MODE_PERMISSIVE,
     CedarConfig,
 )
+from .avp import VerifiedPermissionsPolicyStore
+from .crd import CRDPolicyStore
 from .directory import DirectoryPolicyStore
 from .store import TieredPolicyStores
 
@@ -39,27 +43,49 @@ def parse_config(data: str) -> CedarConfig:
     return config
 
 
-def cedar_config_stores(config: Optional[CedarConfig]) -> TieredPolicyStores:
+def cedar_config_stores(
+    config: Optional[CedarConfig],
+    kubeconfig_path: Optional[str] = None,
+    avp_client=None,
+) -> TieredPolicyStores:
+    """The config's stores in tier order. A CRD store watches the
+    apiserver named by ``kubeconfig_path`` (else $KUBECONFIG) from its own
+    thread; a Verified Permissions store uses ``avp_client`` (else boto3,
+    which must then be installed)."""
     if config is None:
         return TieredPolicyStores([])
     if config.validation_mode != VALIDATION_MODE_PERMISSIVE:
         raise ValueError(
             f".spec.validationMode {config.validation_mode!r} needs the "
-            "load-time policy analysis, which the port does not have yet; "
-            f"use {VALIDATION_MODE_PERMISSIVE!r}"
+            "load-time policy analysis (the validationMode gate), which is "
+            "the port's next store slice and not served yet; use "
+            f"{VALIDATION_MODE_PERMISSIVE!r}"
         )
     stores = []
-    for i, sd in enumerate(config.stores):
-        if sd.type != STORE_TYPE_DIRECTORY:
-            raise ValueError(
-                f".spec.stores[{i}]: store type {sd.type!r} is not in the port "
-                f"yet (the CRD and Verified Permissions stores are not "
-                f"ported); only {STORE_TYPE_DIRECTORY!r} stores are served"
+    for sd in config.stores:
+        if sd.type == STORE_TYPE_DIRECTORY:
+            stores.append(
+                DirectoryPolicyStore(
+                    sd.directory_store.path,
+                    refresh_interval_s=sd.directory_store.refresh_interval_ns / 1e9,
+                )
             )
-        stores.append(
-            DirectoryPolicyStore(
-                sd.directory_store.path,
-                refresh_interval_s=sd.directory_store.refresh_interval_ns / 1e9,
+        elif sd.type == STORE_TYPE_CRD:
+            stores.append(
+                CRDPolicyStore(
+                    kubeconfig_path=kubeconfig_path,
+                    kubeconfig_context=sd.crd_store.kubeconfig_context,
+                )
             )
-        )
+        elif sd.type == STORE_TYPE_VERIFIED_PERMISSIONS:
+            vp = sd.verified_permissions_store
+            stores.append(
+                VerifiedPermissionsPolicyStore(
+                    vp.policy_store_id,
+                    client=avp_client,
+                    refresh_interval_s=vp.refresh_interval_ns / 1e9,
+                    region=vp.aws_region,
+                    profile=vp.aws_profile,
+                )
+            )
     return TieredPolicyStores(stores)

@@ -115,7 +115,8 @@ Phases, each a hard failure with a nonzero exit:
      phase's wall time; SIGTERM must end the server with code 0.
   10. live policy reload: phase 9's files in one
      directory store with refreshInterval 30s (its minimum), served by the
-     CLI with --reload-seconds 1, --request-timeout-ms 10000 and both
+     CLI with --reload-seconds 1, --request-timeout-ms 10000,
+     --no-incremental-compile (every reload recompiles in full) and both
      engines. While 32 clients POST
      SARs (phase 8's gated bodies) and 32 POST AdmissionReviews without
      pause, three edits land, each an atomic swap of the store's directory
@@ -144,7 +145,7 @@ Phases, each a hard failure with a nonzero exit:
      supervisor's wedge budget at the CLI defaults, plus phase 11's
      --confirm-non-prod-inject-errors, --breaker-recovery-seconds 2 and
      --supervisor-interval-seconds 0.5, and its chaos registry disarmed.
-  11. resilience (this slice's main path), on phase 10's server once
+  11. resilience, on phase 10's server once
      phase 10's checks passed, its directory back at version 0: 32
      clients on /v1/authorize and 32 on /v1/admit without pause through
      four fault windows, each armed over POST /chaos/configure and
@@ -172,12 +173,44 @@ Phases, each a hard failure with a nonzero exit:
      answer counts by kind, the rebuild's phases and the allocator before
      and after; the phase's resilience metrics and wall time.
 
-Phases 8, 9 and 10 also check that /metrics shows no breaker transition,
-no supervisor restart and no device rebuild.
+  12. the CRD store with incremental reloads (this slice's main path): a
+     standard-library fake apiserver (FakeApiServer: list, watch stream,
+     410) on 127.0.0.1, its kubeconfig written as JSON, serving phase
+     10's policy set as Policy objects: synth_corpus(--policies, --seed)
+     in objects of 10 policies (synth-0000, ...), the gated policies in
+     one, the admission policies in one (L 6144 x R 10240 on both
+     engines). The CLI with --kubeconfig, --reload-seconds 1,
+     --request-timeout-ms 10000 and incremental compile over 64 buckets.
+     32 clients POST phase 8's gated SARs and 32 AdmissionReviews
+     without pause while five events go out on the watch: (1) one
+     object's first policy replaced by a forbid on every list, (2) a
+     one-policy object added with phase 10's forbid, (3) it deleted, (4)
+     a metadata-only MODIFIED, (5) the watch streams closed and the next
+     watch answered 410, so the store relists the same content. Checks:
+     after each of 1-3 both engines' load_generation steps with
+     compile_scope incremental, no more dirty shards than the object has
+     policies (10, 1, 1), and a lower phase below a quarter of the
+     engine's first (full) load's; after 4 and 5 no engine reloads within
+     3 reloader ticks; every answer is that of a version live while the
+     request was in flight (the oracle: the port's interpreter over a CRD
+     store fed the same objects; 0 flips, a deadline expiry counts as a
+     flip); both kernels' served launch counts rise after each swap; no
+     fallback batch, no breaker transition; the card memory after the
+     third reload within one plane of after the first; SIGTERM ends the
+     server with code 0. Prints per event and engine the time from the
+     event to the swap, the dirty and total shards and the compile
+     seconds by phase (hash, lower, pack, place, warm) beside the first
+     full load's and phase 10's full reloads'; per endpoint requests/s
+     and p99 in the 5 s before each event and while it compiles (after
+     it, for events 4 and 5); the server's peak RSS and the phase's wall
+     time.
+
+Phases 8, 9, 10 and 12 also check that /metrics shows no breaker
+transition, no supervisor restart and no device rebuild.
 
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
-reload phase), ``--only-resilience`` phases 1, 2, 10 and 11; neither
-prints result lines.
+reload phase), ``--only-resilience`` phases 1, 2, 10 and 11, and
+``--only-crd`` phases 1, 2 and 12; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -612,11 +645,33 @@ def _oracle(name: str):
     twin ("gated"), or, for "admission", the interpreter admission handler
     over phase 9's directory plus the allow-all tier; "dir-authorize:<dir>"
     and "dir-admit:<dir>" name the authorizer and the admission handler
-    over a directory store of <dir> (phase 10's versions)."""
+    over a directory store of <dir> (phase 10's versions);
+    "crd-authorize:<file>" and "crd-admit:<file>" the same over a CRD
+    store fed the Policy objects listed in the JSON <file> (phase 12's
+    versions: the policy ids are the served ones)."""
     if name not in _ORACLES:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
 
-        if name.startswith("dir-"):
+        if name.startswith("crd-"):
+            from cedar_tpu_torch.server.admission import (
+                CedarAdmissionHandler,
+                allow_all_admission_policy_store,
+            )
+            from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+            from cedar_tpu_torch.stores.crd import CRDPolicyStore
+
+            kind, path = name[len("crd-"):].split(":", 1)
+            with open(path) as f:
+                store = CRDPolicyStore(source=_ListedObjects(json.load(f)))
+            while not store.initial_policy_load_complete():
+                time.sleep(0.01)
+            store.close()
+            if kind == "admit":
+                _ORACLES[name] = CedarAdmissionHandler(TieredPolicyStores(
+                    [store, allow_all_admission_policy_store()]))
+            else:
+                _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([store]))
+        elif name.startswith("dir-"):
             from cedar_tpu_torch.server.admission import (
                 CedarAdmissionHandler,
                 allow_all_admission_policy_store,
@@ -649,6 +704,22 @@ def _oracle(name: str):
             ps = corpus.tiers()[0] if name == "synth" else gated_policy_set(corpus)
             _ORACLES[name] = CedarWebhookAuthorizer(TieredPolicyStores([MemoryStore(name, ps)]))
     return _ORACLES[name]
+
+
+class _ListedObjects:
+    """A CRD store's watch source over fixed Policy object documents: its
+    list answers them, its watch waits for the store to stop."""
+
+    def __init__(self, docs: list):
+        self.docs = docs
+
+    def list(self):
+        from cedar_tpu_torch.apis.v1alpha1 import PolicyObject
+
+        return [PolicyObject.from_dict(d) for d in self.docs]
+
+    def watch(self, on_event, stop):
+        stop.wait()
 
 
 def admission_oracle(handler, body: bytes) -> dict:
@@ -687,7 +758,7 @@ def _oracle_answers(task):
     from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
 
     name, bodies = task
-    if name == "admission" or name.startswith("dir-admit:"):
+    if name == "admission" or name.startswith(("dir-admit:", "crd-admit:")):
         return [admission_oracle(_oracle(name), b) for b in bodies]
     attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
     return [canon(sar_response(d, r)) for d, r in _oracle(name).authorize_batch(attrs)]
@@ -816,6 +887,9 @@ def main() -> None:
     ap.add_argument("--only-resilience", action="store_true",
                     help="run phases 1, 2, 10 and 11 only (phase 11 runs on phase 10's "
                          "server); prints no result lines")
+    ap.add_argument("--only-crd", action="store_true",
+                    help="run phases 1, 2 and 12 only (the CRD store with incremental "
+                         "reloads); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
@@ -879,6 +953,10 @@ def main() -> None:
         fail("the built library has no IGMMA instruction: the kernels do not use "
              "the int8 tensor cores")
 
+    if args.only_crd:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        crd_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
         reload_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
@@ -1347,15 +1425,19 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     reload_launches, resilience_launches = reload_phase(
         args, card, g_batch, then=resilience_then(args, card))
 
+    # ---- 12. the CRD store: Policy object events, incremental reloads
+    crd_launches = crd_phase(args, card, g_batch)
+
     # each kernel's launches on this slice's main path, the traffic across
-    # phase 11's windows (counted in the server process); and on the
-    # earlier paths
+    # phase 12's object events (counted in the server process); and on
+    # the earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": resilience_launches[k],
+            "launches": crd_launches[k],
+            "launches_crd": crd_launches[k],
             "launches_resilience": resilience_launches[k],
             "launches_reload": reload_launches[k],
             "launches_admission": admission_launches[k],
@@ -1956,6 +2038,11 @@ def gpu_memory_mib(pid: int):
     return None
 
 
+# phase 10's full-compile seconds by phase, per reload and engine: phase 12
+# prints its incremental ones beside them
+PHASE10_COMPILE: list = []
+
+
 def reload_phase(args, card: str, sars: list, then=None):
     """Phase 10 (module docstring): `sars` are phase 8's gated SAR bodies.
     Returns the server's kernel launch counts over the phase's traffic
@@ -2007,13 +2094,16 @@ def reload_phase(args, card: str, sars: list, then=None):
         # a 10 s request budget, the Kubernetes default for an admission
         # webhook: the phase holds the swap contract, and the serving cost
         # of a reload (the compile shares the interpreter lock with 64
-        # closed-loop clients) is reported as latency, with no target
+        # closed-loop clients) is reported as latency, with no target;
+        # full recompiles (--no-incremental-compile), the yardstick phase
+        # 12's incremental reloads are printed beside
         # the breaker trips and the supervisor's wedge budget at the CLI
         # defaults; phase 11's chaos control, a 2 s recovery and a 0.5 s
         # watchdog interval (neither changes whether anything trips or
         # restarts, only how fast it recovers)
         srv = Webhook(cfg, tmp, "webhook-reload", grace,
                       ("--reload-seconds", "1", "--request-timeout-ms", "10000",
+                       "--no-incremental-compile",
                        "--confirm-non-prod-inject-errors", "--breaker-recovery-seconds", "2",
                        "--supervisor-interval-seconds", "0.5"))
         port, mport = srv.port, srv.mport
@@ -2027,7 +2117,8 @@ def reload_phase(args, card: str, sars: list, then=None):
             for k in range(3):
                 tasks[(k, "/v1/authorize")] = (f"dir-authorize:{vdirs[k]}", sars)
                 tasks[(k, "/v1/admit")] = (f"dir-admit:{vdirs[k]}", adms)
-            answers = interpreter_answers(tasks, args.policies, args.seed, piece=64)
+            # one piece per (version, endpoint): a worker builds one oracle
+            answers = interpreter_answers(tasks, args.policies, args.seed, piece=n_pool)
             keyf = {"/v1/authorize": lambda a: reason_key(a, {}),
                     "/v1/admit": adm_key}
             # the oracle's admission answers are whole AdmissionReviews
@@ -2101,6 +2192,7 @@ def reload_phase(args, card: str, sars: list, then=None):
                 launch_marks.append(eng["authorization"]["launches"])
                 for p in ("authorization", "admission"):
                     last = eng[p]["last_load"]
+                    PHASE10_COMPILE.append((k, p, last["compile_seconds"]))
                     print(f"reload {k} {p} engine ({card}): write to swap "
                           f"{last['published_unix'] - t_write:.3f} s, compile seconds "
                           f"{json.dumps(last['compile_seconds'])}", flush=True)
@@ -2664,6 +2756,444 @@ def http_yardstick(pools: dict) -> dict:
     finally:
         proc.kill()
         proc.wait(timeout=30)
+
+
+POLICIES_PATH = "/apis/cedar.k8s.aws/v1alpha1/policies"
+
+
+class FakeApiServer:
+    """A standard-library stand-in for the kube-apiserver's Policy CRD
+    endpoints (cedar.k8s.aws/v1alpha1), over plain HTTP on 127.0.0.1, port
+    0. ``GET .../policies`` lists every object with the list's
+    ``metadata.resourceVersion``; ``?watch=true&resourceVersion=N`` streams
+    each event after N as one JSON object per line, flushed per event,
+    and holds the stream open for later events up to ``hold_s`` (then
+    closes it; a client reconnects from its last version); a watch from a
+    version at or before the compaction point answers 410 Gone. apply() /
+    touch() / delete() make ADDED / MODIFIED / DELETED events; expire()
+    compacts every version before now and closes the open streams, so the
+    next watch is refused and the client relists."""
+
+    def __init__(self, hold_s: float = 5.0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.hold_s = hold_s
+        self.rv = 1
+        self.items: dict = {}  # name -> Policy object document
+        self.events: list = []  # (resourceVersion, watch event)
+        self.compacted = 0
+        self.epoch = 0  # bumped to close the open watch streams
+        self.list_calls = 0
+        self.watches: list = []  # resourceVersion of each watch request
+        self.cond = threading.Condition()
+        api = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.0"  # a stream ends when it closes
+
+            def log_message(self, *args):
+                pass
+
+            def _json(self, code: int, doc: dict) -> None:
+                body = json.dumps(doc).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                from urllib.parse import parse_qs, urlsplit
+
+                url = urlsplit(self.path)
+                if url.path != POLICIES_PATH:
+                    self._json(404, {"kind": "Status", "code": 404})
+                    return
+                query = parse_qs(url.query)
+                if query.get("watch") == ["true"]:
+                    api._watch(self, query.get("resourceVersion", [""])[0])
+                    return
+                with api.cond:
+                    api.list_calls += 1
+                    doc = {"kind": "PolicyList",
+                           "metadata": {"resourceVersion": str(api.rv)},
+                           "items": list(api.items.values())}
+                self._json(200, doc)
+
+        class Server(ThreadingHTTPServer):
+            daemon_threads = True
+
+        self.httpd = Server(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    @property
+    def port(self) -> int:
+        return self.httpd.server_address[1]
+
+    def kubeconfig(self, path: str) -> str:
+        """Write a JSON kubeconfig for this server to `path`."""
+        cfg = {"apiVersion": "v1", "kind": "Config", "current-context": "fake",
+               "contexts": [{"name": "fake", "context": {"cluster": "fake", "user": "fake"}}],
+               "clusters": [{"name": "fake",
+                             "cluster": {"server": f"http://127.0.0.1:{self.port}"}}],
+               "users": [{"name": "fake", "user": {"token": "fake-token"}}]}
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+
+    def _watch(self, handler, since: str) -> None:
+        with self.cond:
+            self.watches.append(since)
+            if since and int(since) <= self.compacted:
+                refused = True
+            else:
+                refused = False
+                rv = int(since) if since else self.rv
+                epoch = self.epoch
+        if refused:
+            handler._json(410, {"kind": "Status", "code": 410, "reason": "Expired"})
+            return
+        handler.send_response(200)
+        handler.send_header("Content-Type", "application/json")
+        handler.end_headers()
+        deadline = time.monotonic() + self.hold_s
+        while True:
+            with self.cond:
+                pending = [(r, e) for r, e in self.events if r > rv]
+                while not pending and self.epoch == epoch:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        return
+                    self.cond.wait(left)
+                    pending = [(r, e) for r, e in self.events if r > rv]
+                if self.epoch != epoch:
+                    return
+            try:
+                for r, event in pending:
+                    handler.wfile.write(json.dumps(event).encode() + b"\n")
+                    handler.wfile.flush()
+                    rv = r
+            except OSError:
+                return
+
+    def _emit(self, kind: str, doc: dict) -> None:
+        with self.cond:
+            self.rv += 1
+            doc = json.loads(json.dumps(doc))
+            doc["metadata"]["resourceVersion"] = str(self.rv)
+            if kind == "DELETED":
+                self.items.pop(doc["metadata"]["name"], None)
+            else:
+                self.items[doc["metadata"]["name"]] = doc
+            self.events.append((self.rv, {"type": kind, "object": doc}))
+            self.cond.notify_all()
+
+    def apply(self, name: str, content: str, labels=None, uid: str = "") -> None:
+        """Create or replace a Policy object (ADDED / MODIFIED)."""
+        with self.cond:
+            old = self.items.get(name)
+        meta = {"name": name, "uid": uid or (old["metadata"]["uid"] if old else f"uid-{name}")}
+        if labels:
+            meta["labels"] = dict(labels)
+        self._emit("MODIFIED" if old else "ADDED", {
+            "apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "Policy", "metadata": meta,
+            "spec": {"content": content}})
+
+    def touch(self, name: str) -> None:
+        """A metadata-only MODIFIED: a new resourceVersion and annotation,
+        the same uid and content."""
+        with self.cond:
+            doc = json.loads(json.dumps(self.items[name]))
+        doc["metadata"].setdefault("annotations", {})["touched"] = str(time.time())
+        self._emit("MODIFIED", doc)
+
+    def delete(self, name: str) -> None:
+        with self.cond:
+            doc = self.items[name]
+        self._emit("DELETED", doc)
+
+    def expire(self) -> None:
+        """Compact every version up to now and close the open streams: the
+        next watch from a version the client holds answers 410."""
+        with self.cond:
+            self.rv += 1
+            self.compacted = self.rv - 1
+            self.epoch += 1
+            self.cond.notify_all()
+
+    def shutdown(self) -> None:
+        with self.cond:
+            self.epoch += 1
+            self.cond.notify_all()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+# phase 12's edits: event 1 replaces the first policy of one 10-policy
+# object with a forbid on every list (some SAR answers change); event 2
+# adds a one-policy object with phase 10's forbid as one policy (every
+# watch SAR, every admission delete); event 3 deletes it
+CRD_EDIT_POLICY = 'forbid (principal, action == k8s::Action::"list", resource is k8s::Resource);'
+CRD_FLIP_POLICY = ('forbid (principal, action in [k8s::Action::"watch", '
+                   'k8s::admission::Action::"delete"], resource);\n')
+CRD_EDITED, CRD_FLIP = "synth-0007", "flip"
+
+
+def crd_objects(n_policies: int, seed: int) -> dict:
+    """Phase 12's Policy objects {name: content}: synth_corpus(n, seed)'s
+    policies in objects of 10 (synth-0000, synth-0001, ...), the gated
+    policies of phase 8 in one object and the admission policies of phase
+    9 in one."""
+    from cedar_tpu_torch.corpus.synth import synth_source
+
+    lines = synth_source(n_policies, seed=seed).split("\n")
+    objs = {f"synth-{k:04d}": "\n".join(lines[i:i + 10]) + "\n"
+            for k, i in enumerate(range(0, len(lines), 10))}
+    objs["gated"] = FALLBACK_POLICY + NATIVE_OPAQUE_POLICY
+    objs["admission"] = ADM_POLICIES + ADM_DEMO_OWNER_POLICY + ADM_FALLBACK_POLICY
+    return objs
+
+
+def window_stats(records: list, path: str, lo: float, hi: float) -> str:
+    """requests/s, p99 and max of the answers of `path` done in [lo, hi)."""
+    lat = [r[5] for r in records if r[2] == path and lo <= r[1] < hi]
+    return (f"{len(lat) / max(hi - lo, 1e-9):.1f} requests/s p99 "
+            f"{pct(lat, 99) * 1e3 if lat else float('nan'):.3f} ms max "
+            f"{max(lat, default=float('nan')) * 1e3:.3f} ms")
+
+
+def crd_phase(args, card: str, sars: list) -> dict:
+    """Phase 12 (module docstring): `sars` are phase 8's gated SAR bodies.
+    Returns the server's kernel launch counts over the phase's traffic
+    (its served counts: they start at 0, warm-ups count apart)."""
+    t_phase = time.monotonic()
+    grace = 5.0
+    n_pool = 512
+    pools = {"/v1/authorize": sars[:n_pool], "/v1/admit": admission_bodies(n_pool, args.seed + 10)}
+    base = crd_objects(args.policies, args.seed)
+    _head, rest = base[CRD_EDITED].split("\n", 1)
+    edited = {**base, CRD_EDITED: CRD_EDIT_POLICY + "\n" + rest}
+    # versions 0..3: the base, object edited, + the flip object, and
+    # version 1 again (events 4 and 5 change no content)
+    versions = [base, edited, {**edited, CRD_FLIP: CRD_FLIP_POLICY}, edited]
+    api = FakeApiServer(hold_s=30.0)
+    with tempfile.TemporaryDirectory(prefix="cedar-crd-") as tmp:
+        vfiles = []
+        for k in range(3):
+            vfiles.append(os.path.join(tmp, f"v{k}.json"))
+            with open(vfiles[-1], "w") as f:
+                json.dump([{"metadata": {"name": n, "uid": f"uid-{n}"}, "spec": {"content": c}}
+                           for n, c in versions[k].items()], f)
+        for name, content in base.items():
+            api.apply(name, content)
+        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "crd", "crdStore": {}}]}}, f)
+        # phase 10's serving flags (a 10 s budget; the CLI's breaker and
+        # supervisor defaults), incremental compile at its defaults (64
+        # buckets)
+        srv = Webhook(cfg, tmp, "webhook-crd", grace,
+                      ("--kubeconfig", kube, "--reload-seconds", "1",
+                       "--request-timeout-ms", "10000", "--shard-buckets", "64"))
+        traffic = None
+        try:
+            t0 = time.monotonic()
+            tasks = {}
+            for k in range(3):
+                tasks[(k, "/v1/authorize")] = (f"crd-authorize:{vfiles[k]}", pools["/v1/authorize"])
+                tasks[(k, "/v1/admit")] = (f"crd-admit:{vfiles[k]}", pools["/v1/admit"])
+            # one piece per (version, endpoint): a worker builds one oracle
+            answers = interpreter_answers(tasks, args.policies, args.seed, piece=n_pool)
+            keyf = {"/v1/authorize": lambda a: reason_key(a, {}), "/v1/admit": adm_key}
+            oracle_of = {"/v1/authorize": lambda a: a, "/v1/admit": lambda a: a["response"]}
+            want = {path: [[keyf[path](oracle_of[path](a)) for a in answers[(k % 3, path)]]
+                           for k in (0, 1, 2, 1)]
+                    for path in pools}
+            print(f"crd oracle: {len(tasks) * n_pool} interpreter answers over 3 versions of "
+                  f"{len(base)} Policy objects in {time.monotonic() - t0:.1f} s", flush=True)
+            for path in want:
+                for k in (1, 2, 3):
+                    n = sum(a != b for a, b in zip(want[path][k], want[path][k - 1]))
+                    print(f"crd version {k} changes {n} of {n_pool} {path} answers", flush=True)
+            srv.wait_ready(card)
+
+            def engines():
+                doc = srv.debug_engine()
+                return {p: doc[p]["engine"] for p in ("authorization", "admission")}
+
+            eng0 = engines()
+            first = {p: eng0[p]["last_load"] for p in eng0}
+            for p, e in eng0.items():
+                print(f"crd {p} engine ({card}): L={e['L']} R={e['R']}, {e['shards']['shards']} "
+                      f"shards, first load {first[p]['compile_scope']} compile seconds "
+                      f"{json.dumps(first[p]['compile_seconds'])}", flush=True)
+                if first[p]["compile_scope"] != "full":
+                    fail(f"crd: {p} engine first load {first[p]['compile_scope']}, want full")
+                if args.policies == 10000 and (e["L"], e["R"]) != (6144, 10240):
+                    fail(f"crd: {p} engine at L={e['L']} R={e['R']}, want phase 10's width "
+                         "L=6144 R=10240")
+            if any(eng0["authorization"]["launches"].values()):
+                fail(f"crd: served launches before traffic: {eng0['authorization']['launches']}")
+
+            traffic = Traffic(srv.port, pools)
+            traffic.start()
+            time.sleep(6.0)
+            problems = []  # every check's failure, reported together at the end
+            events = [("modify", lambda: api.apply(CRD_EDITED, edited[CRD_EDITED]), 10),
+                      ("add", lambda: api.apply(CRD_FLIP, CRD_FLIP_POLICY), 1),
+                      ("delete", lambda: api.delete(CRD_FLIP), 1),
+                      ("metadata-only", lambda: api.touch("admission"), None),
+                      ("relist", api.expire, None)]
+            times, publishes, mem, launch_marks = [], [], {}, []
+            for k, (label, fire, max_dirty) in enumerate(events, start=1):
+                gens = {p: e["load_generation"] for p, e in engines().items()}
+                lists = api.list_calls
+                t_event = time.time()
+                fire()
+                times.append(t_event)
+                if max_dirty is None:
+                    # no content change: wait for the relist (event 5),
+                    # then three reloader ticks
+                    deadline = time.monotonic() + 60
+                    while label == "relist" and api.list_calls <= lists:
+                        if time.monotonic() > deadline:
+                            fail(f"crd event {k} ({label}): the store did not relist in 60 s")
+                        time.sleep(0.1)
+                    time.sleep(3.5)
+                    eng = engines()
+                    stepped = {p: eng[p]["load_generation"] - gens[p] for p in gens}
+                    print(f"crd event {k} ({label}, {card}): generations stepped {stepped} in "
+                          f"{time.time() - t_event:.3f} s (list calls {lists} -> "
+                          f"{api.list_calls})", flush=True)
+                    if any(stepped.values()):
+                        problems.append(f"event {k} ({label}) reloaded: {stepped}")
+                    continue
+                deadline = time.monotonic() + 60
+                while True:
+                    eng = engines()
+                    if all(eng[p]["load_generation"] > gens[p] for p in gens):
+                        break
+                    if traffic.errors or time.monotonic() > deadline:
+                        fail(f"crd event {k} ({label}): the engines did not step within 60 s "
+                             f"(generations {gens}, client errors {traffic.errors[:3]}):\n"
+                             f"{srv.log()}")
+                    time.sleep(0.1)
+                if any(eng[p]["load_generation"] != gens[p] + 1 for p in gens):
+                    problems.append(f"event {k}: a generation stepped twice")
+                publishes.append({p: eng[p]["last_load"] for p in eng})
+                launch_marks.append(eng["authorization"]["launches"])
+                for p in ("authorization", "admission"):
+                    last = eng[p]["last_load"]
+                    full10 = [c for r, q, c in PHASE10_COMPILE if q == p]
+                    print(f"crd event {k} ({label}) {p} engine ({card}): event to swap "
+                          f"{last['published_unix'] - t_event:.3f} s, {last['compile_scope']} "
+                          f"compile, {last['dirty_shards']} of {last['shards']} shards dirty, "
+                          f"compile seconds {json.dumps(last['compile_seconds'])}; first full "
+                          f"load {json.dumps(first[p]['compile_seconds'])}; phase 10's full "
+                          f"reloads {json.dumps(full10) if full10 else 'not run'}", flush=True)
+                    if last["compile_scope"] != "incremental":
+                        problems.append(f"event {k} {p}: {last['compile_scope']} compile")
+                    if last["dirty_shards"] > max_dirty:
+                        problems.append(f"event {k} {p}: {last['dirty_shards']} dirty shards, "
+                                        f"more than the object's {max_dirty} policies")
+                    if last["compile_seconds"]["lower"] >= first[p]["compile_seconds"]["lower"] / 4:
+                        problems.append(
+                            f"event {k} {p}: lower {last['compile_seconds']['lower']} s, not "
+                            f"below a quarter of the full load's "
+                            f"{first[p]['compile_seconds']['lower']} s")
+                if k in (1, 3):
+                    dm = eng["authorization"]["device_memory"]
+                    mem[k] = {"nvidia-smi": gpu_memory_mib(srv.proc.pid),
+                              "allocated": dm["allocated"] / 2**20,
+                              "reserved": dm["reserved"] / 2**20}
+                time.sleep(4.0)
+            launch_marks.append(engines()["authorization"]["launches"])
+            traffic.stop()
+            if traffic.errors:
+                fail(f"crd: client errors {traffic.errors[:3]}")
+
+            # every answer is that of a version live while it was in flight
+            engine_of = {"/v1/authorize": "authorization", "/v1/admit": "admission"}
+            flips = 0
+            for path in pools:
+                pubs = [pb[engine_of[path]]["published_unix"] for pb in publishes]
+                bounds = [float("-inf")] + pubs + [float("inf")]
+                odd, n = {}, 0
+                for sent, done, rpath, i, got, _dt in traffic.records:
+                    if rpath != path:
+                        continue
+                    n += 1
+                    live = [v for v in range(4) if bounds[v] < done and bounds[v + 1] > sent]
+                    if not any(keyf[path](got) == want[path][v][i] for v in live):
+                        flips += 1
+                        kind = "deadline" if "deadline of" in json.dumps(got) else "other"
+                        at = odd.setdefault(f"version {live[-1]}", {})
+                        at[kind] = at.get(kind, 0) + 1
+                        if flips <= 3:
+                            print(f"crd flip {path} body {i}: live versions {live}, got "
+                                  f"{json.dumps(got)}", flush=True)
+                print(f"crd {path}: {n} answers; answers of no live version "
+                      f"{json.dumps(odd) if odd else 0}", flush=True)
+            print(f"crd flips: {flips}", flush=True)
+            if flips:
+                problems.append(f"{flips} answers are no version's live while in flight")
+
+            # serving in the 5 s before each event, while each reload
+            # compiled, and in the 5 s after the events that reload nothing
+            for k, t_event in enumerate(times, start=1):
+                for path in pools:
+                    row = [f"before {window_stats(traffic.records, path, t_event - 5.0, t_event)}"]
+                    if k <= len(publishes):
+                        pub = publishes[k - 1]
+                        c0 = min(pub[p]["started_unix"] for p in pub)
+                        c1 = max(pub[p]["published_unix"] for p in pub)
+                        row.append(f"compiling {window_stats(traffic.records, path, c0, c1)} "
+                                   f"(compile window {c1 - c0:.3f} s)")
+                    else:
+                        row.append(f"after {window_stats(traffic.records, path, t_event, t_event + 5.0)}")
+                    print(f"crd event {k} {path} ({card}): {'; '.join(row)}", flush=True)
+
+            for k in range(len(publishes)):
+                a, b = launch_marks[k], launch_marks[k + 1]
+                if not all(b[n] > a[n] for n in a):
+                    problems.append(f"event {k + 1}: launches did not rise after the swap: "
+                                    f"{a} -> {b}")
+            launches = launch_marks[-1]
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            fallback = metric_total(text, "cedar_authorizer_fallback_batches_total")
+            shard_lines = [line for line in text.splitlines()
+                           if line.startswith(("cedar_policy_shards{", "cedar_dirty_shards{",
+                                               'cedar_compile_seconds_count{phase="hash"'))]
+            print(f"crd launches {json.dumps(launches)}, fallback batches {fallback:g}, "
+                  f"{'; '.join(shard_lines)}", flush=True)
+            if fallback:
+                problems.append(f"{fallback:g} fallback batches")
+            problems += resilience_quiet("crd", text)
+            plane = max(e["device_bytes"] for e in engines().values()) / 2**20
+            print(f"crd card memory of the server, MiB ({card}; nvidia-smi's per-process figure "
+                  f"where it lists the server, and the server's allocator): after reload 1 "
+                  f"{json.dumps(mem[1])}, after reload 3 {json.dumps(mem[3])}; one plane "
+                  f"{plane:.1f} MiB", flush=True)
+            for what in ("nvidia-smi", "allocated", "reserved"):
+                if mem[1][what] is not None and mem[3][what] - mem[1][what] > plane:
+                    problems.append(f"card memory ({what}) grew by "
+                                    f"{mem[3][what] - mem[1][what]:.1f} MiB over reloads 2-3, "
+                                    f"more than one plane ({plane:.1f} MiB)")
+            if problems:
+                fail("crd: " + "; ".join(problems))
+            took, rss = srv.terminate()
+            print(f"crd webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+            print(f"crd phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+        finally:
+            if traffic is not None:
+                traffic.stop()
+            srv.kill()
+            api.shutdown()
+    return launches
 
 
 def chaos_builtin(name: str) -> dict:

@@ -619,3 +619,41 @@ def test_sticky_fault_is_fatal_and_the_rebuild_fails(cuda):
     assert out["raised"] and out["fatal"] is True, out
     assert out["rebuild"] != "ok", out
     assert out["recovery"] == [False, 0, 1], out
+
+
+@pytest.mark.cuda
+def test_incremental_reload_on_the_card_equals_a_full_load(cuda):
+    """An incremental reload on the card (one policy edited, re-lowered
+    alone: a one-policy Policy object's edit) publishes a warmed plane
+    whose verdict words and first/last matrices equal those of a full
+    load of the same corpus on the card, bit for bit, and both kernels
+    launch on the swapped plane."""
+    from cedar_tpu_torch.compiler.table import encode_request_codes
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+
+    corpus = synth_corpus(2000, seed=5)
+    edited = corpus.with_edit()
+    inc = TorchPolicyEngine(incremental=True, shard_buckets=64)
+    full = TorchPolicyEngine()
+    inc.load(corpus.tiers(), max_batch=128)
+    stats = inc.load(edited.tiers(), max_batch=128)
+    full.load(edited.tiers(), max_batch=128)
+    assert (stats["compile_scope"], stats["dirty_shards"]) == ("incremental", 1)
+    assert stats["compile_seconds"]["warm"] > 0
+    a, b = inc.compiled_set, full.compiled_set
+    assert (a.L, a.R) == (b.L, b.R)
+    items = corpus.sar_items(256, seed=3) + [edited.probe_request()]
+    enc = [encode_request_codes(a.packed.plan, a.packed.table, em, r) for em, r in items]
+    codes, extras = inc._encode_batch_arrays(a, enc, len(enc))
+    cuda_match.reset_launch_counts()
+    w_inc, _ = inc.match_arrays(codes, extras)
+    _, (f_inc, l_inc) = inc.match_arrays(codes, extras, want_full=True)
+    launched = cuda_match.launch_counts()
+    w_full, _ = full.match_arrays(codes, extras)
+    _, (f_full, l_full) = full.match_arrays(codes, extras, want_full=True)
+    np.testing.assert_array_equal(w_inc, w_full)
+    np.testing.assert_array_equal(f_inc, f_full)
+    np.testing.assert_array_equal(l_inc, l_full)
+    assert launched["match_words_kernel"] >= 1 and launched["match_groups_kernel"] >= 1
+    assert inc.evaluate(*edited.probe_request())[0] == "deny"

@@ -198,11 +198,12 @@ def _jax_server(policy_dir, backend: str):
 
 
 def _port(policy_dir, backend: str, reload_seconds: float = 3600.0):
-    """The port's CLI server; its reloader thread polls every
-    reload_seconds (the default: never, within a test)."""
+    """The port's CLI server with --no-incremental-compile, as the JAX
+    side is wired; its reloader thread polls every reload_seconds (the
+    default: never, within a test)."""
     extra = ("--backend", "interpreter") if backend == "interpreter" else ()
     return _port_server(policy_dir, "--request-timeout-ms", "60000", "--reload-seconds",
-                        str(reload_seconds), *extra)
+                        str(reload_seconds), "--no-incremental-compile", *extra)
 
 
 def _reread(stores) -> None:

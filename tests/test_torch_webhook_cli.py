@@ -298,10 +298,30 @@ def test_device_backend_needs_a_store(tmp_path):
     {"type": "crd", "crdStore": {}},
     {"type": "verifiedPermissions", "verifiedPermissionsStore": {"policyStoreId": "ps-1"}},
 ])
-def test_unported_store_types_raise(store):
+def test_unported_store_types_raise(store, tmp_path):
+    """The CRD and Verified Permissions store types are ported now: the
+    config no longer raises for them and builds the port's own store, of
+    the JAX config's store class name, without starting anything it
+    cannot (no kubeconfig yet: the CRD store waits, unready)."""
+
+    class NoPolicies:
+        def list_policy_ids(self, store_id):
+            return []
+
+        def get_policy_statement(self, store_id, pid):
+            return ""
+
     config = parse_config(json.dumps({"spec": {"stores": [store]}}))
-    with pytest.raises(ValueError, match="not in the port yet"):
-        cedar_config_stores(config)
+    stores = cedar_config_stores(config, kubeconfig_path=str(tmp_path / "absent"),
+                                 avp_client=NoPolicies())
+    try:
+        (built,) = stores.stores
+        assert built.name() == {"crd": "CRDPolicyStore",
+                                "verifiedPermissions": "VerifiedPermissionsStore"}[store["type"]]
+        assert built.initial_policy_load_complete() is (store["type"] != "crd")
+    finally:
+        for s in stores:
+            s.close()
 
 
 @pytest.mark.parametrize("mode", ["strict", "partial"])
