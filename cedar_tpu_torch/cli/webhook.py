@@ -48,6 +48,16 @@ interpreter. ``--confirm-non-prod-inject-errors`` opens the
 ``/chaos/*`` control endpoints and allows ``--chaos-scenario`` (a builtin
 name or a scenario JSON file, armed at start).
 
+Load-time analysis: ``--validation-mode`` (else the config's
+``spec.validationMode``, default permissive) gates every engine load of
+both stacks (analysis/loadgate.py) and each CRD Policy object. Strict
+rejects a corpus with blocking findings: a reload keeps the previous
+plane, and at start-up the CLI exits 1 with the rejection, since there
+is no previous plane and no interpreter fallback (the JAX CLI serves the
+raw stores from its interpreter then). Partial compiles the corpus
+without the offending policies; permissive publishes the findings.
+``/debug/analysis`` serves the last report of each stack.
+
 Flags of the JAX CLI that this port does not serve (cache, fleet,
 tenancy, tracing, partition specs, the artificial error and deny rates,
 ...) do not exist here, so argparse rejects them.
@@ -135,7 +145,16 @@ class TorchReloader:
     called with its stats and ``engine=`` the engine's name. A failed load is logged,
     the target keeps its previous set, and the next tick tries it again;
     the fingerprint is kept per target, so a healthy target does not
-    recompile while another keeps failing."""
+    recompile while another keeps failing.
+
+    Each target's tiers pass the load-time analysis gate first when its
+    tier stores carry a validation mode
+    (TieredPolicyStores.analyzed_policy_sets; the gate's seconds are the
+    load's ``analyze`` phase). A strict rejection (AnalysisRejected) is
+    logged, the target keeps its previous set, and its fingerprint is
+    remembered: an unchanged rejected corpus is not analyzed again every
+    tick. Any other failure of the gate fails the load like a compile
+    error, so it is retried; no load skips the analysis."""
 
     def __init__(self, stores: TieredPolicyStores, targets=None, interval_s: float = 5.0,
                  max_batch: Optional[int] = None, on_load=None):
@@ -148,10 +167,23 @@ class TorchReloader:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
+    @staticmethod
+    def _tiers_for(tier_stores: TieredPolicyStores) -> tuple:
+        """(tiers to compile, the gate's seconds or None): through the
+        load-time analysis gate when the tier stack has a validation
+        mode."""
+        if not tier_stores.validation_mode:
+            return [s.policy_set() for s in tier_stores], None
+        t0 = time.monotonic()
+        tiers = tier_stores.analyzed_policy_sets()
+        return tiers, time.monotonic() - t0
+
     def reload_if_changed(self, raise_errors: bool = False) -> bool:
         """Load every target whose fingerprint is stale; True when one
         was loaded. ``raise_errors`` (the initial load) raises a failed
-        load instead of logging it."""
+        load, a strict rejection included, instead of logging it."""
+        from ..analysis import AnalysisRejected
+
         if not all(s.initial_policy_load_complete() for s in self.stores):
             return False
         fp = _fingerprint(self.stores)
@@ -161,8 +193,20 @@ class TorchReloader:
                 continue
             try:
                 with _collector_paused():
-                    stats = engine.load([s.policy_set() for s in tier_stores],
-                                        max_batch=self.max_batch)
+                    tiers, gate_s = self._tiers_for(tier_stores)
+                    stats = engine.load(tiers, max_batch=self.max_batch,
+                                        analysis_seconds=gate_s)
+            except AnalysisRejected as e:
+                if raise_errors:
+                    raise
+                # strict validation: the new corpus is rejected wholesale;
+                # keep serving the previous plane AND remember the
+                # fingerprint, so an unchanged bad corpus is not analyzed
+                # again every tick
+                log.error("engine [%d] load rejected by policy analysis; "
+                          "serving the previous set: %s", idx, e)
+                self._fps[idx] = fp
+                continue
             except Exception:
                 if raise_errors:
                     raise
@@ -305,8 +349,9 @@ def build_server(args) -> WebhookServer:
     """stores -> the authorization and admission stacks, each an engine
     loaded from its stores behind its fast path -> WebhookServer. With the
     device backend it first waits for the stores' initial loads. Raises
-    when the device is unavailable, a validationMode is not ported, or the
-    native encoder or the kernels cannot be built."""
+    when the device is unavailable, the native encoder or the kernels
+    cannot be built, or strict validation rejects the initial corpus
+    (AnalysisRejected)."""
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
         certfile = keyfile = None
@@ -317,11 +362,26 @@ def build_server(args) -> WebhookServer:
     if args.config:
         with open(args.config) as f:
             config = parse_config(f.read())
+    if config is not None and args.validation_mode:
+        # the flag overrides the config file's spec.validationMode
+        config.validation_mode = args.validation_mode
     stores = cedar_config_stores(config, kubeconfig_path=args.kubeconfig or None)
-    # admission gets the allow-all final tier (main.go:111-116)
+    # admission gets the allow-all final tier (main.go:111-116); it shares
+    # the authorization stack's validation posture (the allow-all tail is
+    # trivially lowerable, so the gate treats both stacks alike)
     admission_stores = TieredPolicyStores(
-        list(stores.stores) + [allow_all_admission_policy_store()]
+        list(stores.stores) + [allow_all_admission_policy_store()],
+        validation_mode=stores.validation_mode,
     )
+
+    def analysis_provider() -> dict:
+        """The last load-time analysis report per tier stack, for
+        /debug/analysis; {} until the first analyzed load."""
+        out = {}
+        for name, ts in (("authorization", stores), ("admission", admission_stores)):
+            if ts.last_analysis is not None:
+                out[name] = ts.last_analysis.to_dict()
+        return out
     admission_fail_open = args.admission_fail_mode == "open"
 
     _arm_startup_scenario(args)
@@ -432,6 +492,7 @@ def build_server(args) -> WebhookServer:
         metrics=metrics,
         reloader=reloader,
         supervisor=supervisor,
+        analysis_provider=analysis_provider,
         chaos_control_enabled=args.confirm_non_prod_inject_errors,
     )
     if supervisor is not None:
@@ -486,6 +547,15 @@ def make_parser() -> argparse.ArgumentParser:
         help="disable shard-granular incremental compilation: every "
         "reload re-lowers the whole corpus (the pre-shard behavior; "
         "escape hatch)",
+    )
+    cedar.add_argument(
+        "--validation-mode",
+        default="",
+        choices=["", "strict", "permissive", "partial"],
+        help="load-time policy-analysis posture, overriding the config "
+        "file's spec.validationMode: strict rejects loads with blocking "
+        "findings, permissive annotates, partial drops only the offending "
+        "policies (docs/analysis.md)",
     )
     cedar.add_argument(
         "--device",
@@ -640,7 +710,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=logging.DEBUG if args.verbosity >= 5 else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
     )
-    server = build_server(args)
+    from ..analysis import AnalysisRejected
+
+    try:
+        server = build_server(args)
+    except AnalysisRejected as e:
+        # strict validation rejected the initial corpus: with no previous
+        # plane and no interpreter fallback there is nothing to serve
+        log.error("not serving: %s", e)
+        return 1
     server.start()
 
     stop = threading.Event()

@@ -78,6 +78,7 @@ from ..ops.match import (
     match_rules_codes_bits,
     n_groups_of,
 )
+from ..server.metrics import record_fallback_decision
 from .weights import compiled_set_from_numpy, packed_arrays
 
 log = logging.getLogger(__name__)
@@ -474,7 +475,8 @@ class TorchPolicyEngine:
 
     # ------------------------------------------------------------ lifecycle
 
-    def load(self, tiers: Sequence[PolicySet], max_batch: Optional[int] = None) -> dict:
+    def load(self, tiers: Sequence[PolicySet], max_batch: Optional[int] = None,
+             analysis_seconds: Optional[float] = None) -> dict:
         """Compile a tiered policy set (in full with lower_tiers, or only
         its dirty shards when the engine is incremental) and pack it,
         place it on the device, warm it there when ``max_batch`` is given
@@ -487,16 +489,23 @@ class TorchPolicyEngine:
         engine. Returns compile stats: the shape, ``compile_scope``
         (full / incremental), ``shards``, ``dirty_shards``,
         ``warm_skipped`` (always False: every set is warmed) and
-        ``compile_seconds`` by phase (``hash`` only when incremental)."""
+        ``compile_seconds`` by phase (``hash`` only when incremental;
+        ``analyze`` when the caller gives ``analysis_seconds``, the time
+        its load-time analysis of ``tiers`` took, which ``total`` leaves
+        out)."""
         if not tiers:
             raise ValueError("TorchPolicyEngine.load: at least one tier required")
         with self._load_lock:
-            return self._load(tiers, max_batch)
+            return self._load(tiers, max_batch, analysis_seconds)
 
-    def _load(self, tiers: Sequence[PolicySet], max_batch: Optional[int]) -> dict:
-        started = time.time()
+    def _load(self, tiers: Sequence[PolicySet], max_batch: Optional[int],
+              analysis_seconds: Optional[float] = None) -> dict:
+        # the load began with the caller's analysis of these tiers
+        started = time.time() - (analysis_seconds or 0.0)
         t0 = time.monotonic()
         seconds = {}
+        if analysis_seconds is not None:
+            seconds["analyze"] = round(analysis_seconds, 4)
         if self.incremental:
             if self._shard_compiler is None:
                 self._shard_compiler = ShardCompiler(self.schema, buckets=self.shard_buckets)
@@ -1129,6 +1138,17 @@ class TorchPolicyEngine:
         fb_deny: List[List[Reason]] = [[] for _ in range(T)]
         fb_errors: List[List[str]] = [[] for _ in range(T)]
         if cs.fallback and entities is not None:
+            # fallback burn-down: this decision is interpreter-merged
+            # because the plane carries unlowerable policies; count it
+            # under each distinct Unlowerable code, on this engine
+            # (cedar_fallback_decisions_total{code,engine}, tallied on
+            # /debug/engine and /debug/analysis)
+            try:
+                record_fallback_decision(
+                    cs.packed.fallback_codes if cs.packed is not None else (), self.name
+                )
+            except Exception:  # noqa: BLE001 — metrics never break serving
+                log.exception("recording a fallback decision failed")
             env = Env(request, entities)
             for fp in cs.fallback:
                 p = fp.policy

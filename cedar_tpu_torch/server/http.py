@@ -20,8 +20,10 @@ reference's internal/server/server.go + health.go), for two entry points:
   * a plain-HTTP health and metrics server (default 127.0.0.1:10289):
     ``/healthz``, ``/readyz`` (503 while draining or before every store's
     initial load), ``/metrics``, ``/debug/engine``, ``/debug/supervisor``
-    (the watchdog's components, the device recoveries, the quarantine)
-    and ``/debug/chaos`` (the chaos registry); and the game-day control
+    (the watchdog's components, the device recoveries, the quarantine),
+    ``/debug/chaos`` (the chaos registry) and ``/debug/analysis`` (the
+    last load-time analysis report per engine, when the server has an
+    ``analysis_provider``); and the game-day control
     ``POST /chaos/{configure,arm,disarm,reset}``, which answers 403
     unless the server was built with ``chaos_control_enabled`` (the CLI's
     ``--confirm-non-prod-inject-errors``).
@@ -75,7 +77,7 @@ from .authorizer import (
     DECISION_NO_OPINION,
     CedarWebhookAuthorizer,
 )
-from .metrics import WebhookMetrics
+from .metrics import WebhookMetrics, fallback_decision_counts
 from .sar import get_authorizer_attributes, sar_response
 
 log = logging.getLogger(__name__)
@@ -114,7 +116,9 @@ def _engine_doc(engine) -> dict:
     set's shape, staging and the kernels' launch counts (engine.stats),
     the serving plane's shard lineage (``shards``: shard count and
     hashes, the last load's scope and dirty set), and the
-    interpreter-fallback policies the plane carries."""
+    interpreter-fallback policies the plane carries with the served
+    decisions they were merged into (the fallback burn-down:
+    cedar_fallback_decisions_total{code} of this engine)."""
     doc = {
         "name": engine.name,
         "load_generation": engine.load_generation,
@@ -128,8 +132,24 @@ def _engine_doc(engine) -> dict:
         for fp in packed.fallback:
             code = getattr(fp, "code", "unlowerable") or "unlowerable"
             by_code[code] = by_code.get(code, 0) + 1
-        doc["fallback"] = {"policies": len(packed.fallback), "codes": dict(sorted(by_code.items()))}
+        doc["fallback"] = {
+            "policies": len(packed.fallback),
+            "codes": dict(sorted(by_code.items())),
+            "served_decisions": fallback_decision_counts(engine.name),
+        }
     return doc
+
+
+def _analysis_doc(doc: dict) -> dict:
+    """/debug/analysis: the provider's per-engine reports ({engine name:
+    AnalysisReport.to_dict()}), each coverage rollup joined with its own
+    engine's served fallback tally (``served_decisions``), so one plane's
+    fallback traffic never reads as another's burn-down signal."""
+    return {
+        engine: {**rep, "coverage": {**rep["coverage"],
+                                     "served_decisions": fallback_decision_counts(engine)}}
+        for engine, rep in doc.items()
+    }
 
 
 class WebhookServer:
@@ -158,8 +178,12 @@ class WebhookServer:
         reloader=None,
         supervisor=None,
         chaos_control_enabled: bool = False,
+        analysis_provider=None,
     ):
         self.authorizer = authorizer
+        # the last load-time analysis reports per engine (cli/webhook.py);
+        # /debug/analysis answers 404 without one
+        self.analysis_provider = analysis_provider
         self.metrics = metrics or WebhookMetrics()
         # recompiles the engines when the stores change (cli/webhook.py
         # TorchReloader): started with the listeners, stopped with them
@@ -544,6 +568,14 @@ class WebhookServer:
                     self._debug("supervisor status", server.debug_supervisor)
                 elif self.path == "/debug/chaos":
                     self._debug("chaos stats", default_registry().stats)
+                elif self.path == "/debug/analysis":
+                    if server.analysis_provider is None:
+                        self.send_error(404)
+                        return
+                    self._debug(
+                        "analysis provider",
+                        lambda: _analysis_doc(server.analysis_provider() or {}),
+                    )
                 else:
                     self.send_error(404)
 

@@ -23,10 +23,11 @@ internal/server/metrics/metrics.go):
     fast path's own counts at scrape time;
   * ``cedar_native_encode_threads``;
   * ``cedar_compile_seconds{phase,scope}``: one observation per phase
-    (hash, lower, pack, place, warm, total) of every engine load, the
-    initial ones and each reload's; scope ``full`` (the whole corpus
+    (analyze, hash, lower, pack, place, warm, total) of every engine
+    load, the initial ones and each reload's; scope ``full`` (the whole corpus
     lowered) or ``incremental`` (only the dirty shards); ``hash`` only
-    from incremental engines;
+    from incremental engines; ``analyze`` (the validationMode gate, which
+    ``total`` leaves out) only from loads the gate analyzed;
   * ``cedar_policy_shards{engine}`` and ``cedar_dirty_shards{engine}``:
     the shards of each engine's serving plane and those its last load
     re-lowered (0 from an engine without incremental compile).
@@ -50,6 +51,17 @@ functions; every server's /metrics renders them:
   * ``cedar_chaos_injections_total{seam,kind}``;
   * ``cedar_worker_deaths_total{component,replica}`` (a CRD store's
     list+watch thread that died: ``crd.watch``).
+
+The analysis families are process-wide as well (the load-time gate,
+analysis/loadgate.py, and the CRD store's per-object check publish them,
+as in the JAX package), and so is the served fallback tally the engines
+count at their interpreter merge:
+
+  * ``cedar_policy_fastpath_lowerable{tier}`` and
+    ``cedar_policy_analysis_findings_total{kind}`` (``kind`` is the
+    finding's reason code);
+  * ``cedar_fallback_decisions_total{code,engine}``, read per engine by
+    /debug/engine and /debug/analysis (``fallback_decision_counts``).
 """
 
 from __future__ import annotations
@@ -284,10 +296,42 @@ class _ProcessFamilies:
             ["component", "replica"],
         )
         self.device_rebuilds_total.inc(0)
+        self.fallback_decisions_total = Counter(
+            "cedar_fallback_decisions_total",
+            "Decisions whose evaluation was interpreter-merged because the "
+            "serving plane carries unlowerable policies, partitioned by "
+            "Unlowerable reason code (one increment per decision per distinct "
+            "code present) and serving engine (authorization/admission/"
+            "replica — names come from code, never request data, so the "
+            "label set is bounded). The burn-down signal for the "
+            "lowerability coverage drive: lowering a construct family drops "
+            "its code's rate to zero (docs/analysis.md; tallied on "
+            "/debug/engine).",
+            ["code", "engine"],
+        )
+        # the static-analysis families describe the POLICY SET, not
+        # request traffic, and are re-published at every analyzed load
+        self.policy_fastpath_lowerable = Gauge(
+            "cedar_policy_fastpath_lowerable",
+            "Policies per tier the compiler lowers to the TPU fast path; the "
+            "remainder evaluate on the per-row Python interpreter fallback. A "
+            "drop after a policy deploy is the early signal of a latency "
+            "regression (docs/analysis.md).",
+            ["tier"],
+        )
+        self.policy_analysis_findings_total = Counter(
+            "cedar_policy_analysis_findings_total",
+            "Static-analysis findings observed at policy load, partitioned by "
+            "reason code (docs/analysis.md catalog). Counted per load pass: "
+            "alert on new codes appearing, not on magnitude.",
+            ["kind"],
+        )
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
             self.chaos_injections_total, self.worker_deaths_total,
+            self.fallback_decisions_total, self.policy_fastpath_lowerable,
+            self.policy_analysis_findings_total,
         )
 
     def collect(self) -> List[str]:
@@ -327,6 +371,45 @@ def record_chaos_injection(seam: str, kind: str) -> None:
 
 def record_worker_death(component: str, replica: str = "") -> None:
     _PROCESS.worker_deaths_total.inc(component=component, replica=replica)
+
+
+def record_fallback_decision(codes, engine: str = "") -> None:
+    """One interpreter-merged decision under each distinct Unlowerable
+    code it was served with (precomputed tuple, compiler/pack.py), on the
+    named serving engine."""
+    eng = engine or "unknown"
+    for code in codes or ("unlowerable",):
+        _PROCESS.fallback_decisions_total.inc(code=code, engine=eng)
+
+
+def fallback_decision_counts(engine=None) -> dict:
+    """Per-code snapshot of cedar_fallback_decisions_total for
+    /debug/engine and /debug/analysis: codes aggregated across all
+    engines by default, or one serving plane's slice when ``engine`` is
+    given (``<engine>`` and its replicas ``<engine>-r<i>``), so an
+    authorization plane's served fallback traffic never reads as the
+    admission plane's burn-down signal."""
+    family = _PROCESS.fallback_decisions_total
+    with family._lock:
+        out: dict = {}
+        for key, v in family._values.items():
+            kd = dict(key)
+            if engine is not None:
+                got = kd.get("engine", "")
+                if got != engine and not got.startswith(f"{engine}-r"):
+                    continue
+            code = kd.get("code", "")
+            out[code] = out.get(code, 0) + int(v)
+        return out
+
+
+def set_fastpath_lowerable(tier: int, count: int) -> None:
+    _PROCESS.policy_fastpath_lowerable.set(count, tier=str(tier))
+
+
+def record_analysis_findings(kind: str, n: int) -> None:
+    if n:
+        _PROCESS.policy_analysis_findings_total.inc(n, kind=kind)
 
 
 class WebhookMetrics:
@@ -408,7 +491,8 @@ class WebhookMetrics:
 
         self.compile_seconds = reg(Histogram(
             "cedar_compile_seconds",
-            "Policy-set compilation latency partitioned by phase (hash = the "
+            "Policy-set compilation latency partitioned by phase (analyze = "
+            "the load-time analysis gate, hash = the "
             "shard plan's content hashes, lower = lowering, pack = plane "
             "assembly, place = device placement, warm = the new plane's "
             "warm-up on the device before the swap, total) and scope (full = "

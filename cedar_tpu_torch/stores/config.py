@@ -3,9 +3,9 @@
 Behavior parity with the reference's internal/server/store/config.go (the
 JAX package's stores/config.py): ParseConfig (YAML/JSON + validation) and
 CedarConfigStores (the ordered store list: directory, CRD and Verified
-Permissions stores, in any tier order). A validationMode that needs the
-load-time policy analysis (strict, partial) raises ValueError naming what
-is missing rather than serving without it.
+Permissions stores, in any tier order), which carry the config's
+validationMode: the CRD store gates each Policy object with it and the
+tiered stores gate every engine load (analysis/loadgate.py).
 """
 
 from __future__ import annotations
@@ -17,7 +17,6 @@ from ..apis.v1alpha1 import (
     STORE_TYPE_CRD,
     STORE_TYPE_DIRECTORY,
     STORE_TYPE_VERIFIED_PERMISSIONS,
-    VALIDATION_MODE_PERMISSIVE,
     CedarConfig,
 )
 from .avp import VerifiedPermissionsPolicyStore
@@ -54,13 +53,6 @@ def cedar_config_stores(
     which must then be installed)."""
     if config is None:
         return TieredPolicyStores([])
-    if config.validation_mode != VALIDATION_MODE_PERMISSIVE:
-        raise ValueError(
-            f".spec.validationMode {config.validation_mode!r} needs the "
-            "load-time policy analysis (the validationMode gate), which is "
-            "the port's next store slice and not served yet; use "
-            f"{VALIDATION_MODE_PERMISSIVE!r}"
-        )
     stores = []
     for sd in config.stores:
         if sd.type == STORE_TYPE_DIRECTORY:
@@ -75,6 +67,7 @@ def cedar_config_stores(
                 CRDPolicyStore(
                     kubeconfig_path=kubeconfig_path,
                     kubeconfig_context=sd.crd_store.kubeconfig_context,
+                    validation_mode=config.validation_mode,
                 )
             )
         elif sd.type == STORE_TYPE_VERIFIED_PERMISSIONS:
@@ -88,4 +81,4 @@ def cedar_config_stores(
                     profile=vp.aws_profile,
                 )
             )
-    return TieredPolicyStores(stores)
+    return TieredPolicyStores(stores, validation_mode=config.validation_mode)

@@ -21,14 +21,21 @@ whose uid or content changed: every other object keeps its Policy
 objects, and with them the fingerprints the incremental compiler
 memoizes on them (compiler/shard.py). The JAX store re-parses every
 object at a relist, which at 10k policies holds the interpreter for
-seconds while the server serves; the served set is the same.
+seconds while the server serves; the served set is the same. A
+quarantined object is always parsed again, so a relist that lists it
+repaired clears its quarantine, as in the JAX package.
+
+With a ``validation_mode`` (CedarConfig.validationMode), each parsed
+object passes the per-object lowerability gate (analysis/loadgate.py
+check_object_policies): strict quarantines an object with a blocking
+finding and keeps serving its last good content, partial drops only the
+offending policies, permissive logs and counts the findings. The gate
+runs where the parse does, so an unchanged object is not checked again
+at a relist.
 
 Objects labelled ``cedar.k8s.aws/rollout=candidate`` stay out of the
 serving set, as in the JAX package (they are held for a rollout
-controller, which the port does not have yet). The port has no
-load-time validation gate yet either: every object's policies are served
-as parsed (validationMode ``permissive``; stores/config.py rejects the
-other modes).
+controller, which the port does not have yet).
 """
 
 from __future__ import annotations
@@ -40,7 +47,13 @@ import threading
 import urllib.error
 from typing import Callable, List, Optional, Protocol
 
-from ..apis.v1alpha1 import GROUP, PolicyObject, VERSION
+from ..apis.v1alpha1 import (
+    GROUP,
+    VALIDATION_MODE_PARTIAL,
+    VALIDATION_MODE_STRICT,
+    VERSION,
+    PolicyObject,
+)
 from ..chaos.registry import chaos_fire
 from ..lang.authorize import PolicySet
 from ..lang.lexer import ParseError
@@ -78,10 +91,18 @@ class CRDPolicyStore:
         kubeconfig_path: Optional[str] = None,
         kubeconfig_context: str = "",
         start: bool = True,
+        validation_mode: Optional[str] = None,
     ):
         self._source = source
         self._kubeconfig_path = kubeconfig_path or os.environ.get("KUBECONFIG", "")
         self._kubeconfig_context = kubeconfig_context
+        # load-time lowerability gate per Policy object
+        # (CedarConfig.validationMode; analysis/loadgate.py): strict
+        # rejects the whole object like a parse error, partial drops only
+        # the offending policies, permissive logs + counts. None skips the
+        # analysis entirely. Whole-set passes (shadowing/conflicts) need
+        # the full tier view and run at engine load instead.
+        self._validation_mode = validation_mode
         self._policies = PolicySet()
         self._ids_by_object: dict = {}  # object name -> [policy ids]
         # object name -> (uid, content, is_candidate): generation bumps
@@ -241,19 +262,23 @@ class CRDPolicyStore:
                     continue
                 uid, content = obj.uid, obj.spec.content
                 if (self._content_by_object.get(obj.name) == (uid, content, False)
-                        and obj.name in self._ids_by_object):
+                        and obj.name in self._ids_by_object
+                        and obj.name not in self._quarantined):
                     # unchanged since the last list or event: keep its
                     # Policy objects (and the fingerprints memoized on
                     # them) instead of parsing it again; a relist of an
-                    # unchanged corpus then parses nothing
+                    # unchanged corpus then parses nothing. A quarantined
+                    # object is parsed again: its stored content is the
+                    # retained last good one, and a relist that lists it
+                    # repaired must clear the quarantine, as _parse does
                     policies = [self._policies.get(pid)
                                 for pid in self._ids_by_object[obj.name]]
                 else:
                     policies = self._parse(obj)
                 if policies is None:
                     # poison-object quarantine with last-known-good
-                    # retention: the object is broken (parse failure),
-                    # but its PREVIOUS content
+                    # retention: the object is broken (parse failure or
+                    # strict-gate rejection), but its PREVIOUS content
                     # served fine — keep serving that instead of silently
                     # dropping the object's policies from the corpus. The
                     # retained (uid, content) keeps the live-view
@@ -329,9 +354,61 @@ class CRDPolicyStore:
             quarantine_registry().quarantine("crd", obj.name, str(e))
             self._quarantined.add(obj.name)
             return None
+        policies = self._validated(obj, policies)
+        if policies is None:
+            quarantine_registry().quarantine(
+                "crd", obj.name, "rejected by strict load-time validation"
+            )
+            self._quarantined.add(obj.name)
+            return None
         quarantine_registry().clear("crd", obj.name)
         self._quarantined.discard(obj.name)
         return policies
+
+    def _validated(self, obj: PolicyObject, policies):
+        """Apply the load-time lowerability gate to one object's policies
+        per the validation mode; None rejects the object entirely."""
+        if not self._validation_mode or not policies:
+            return policies
+        from ..analysis.loadgate import check_object_policies
+        from ..server.metrics import record_analysis_findings
+
+        checked = check_object_policies(policies)
+        bad = [(p, f) for p, f in checked if f is not None]
+        if not bad:
+            return policies
+        for _p, f in bad:
+            record_analysis_findings(f.code, 1)
+            log.log(
+                logging.ERROR
+                if self._validation_mode == VALIDATION_MODE_STRICT
+                else logging.WARNING,
+                "policy %s: analysis %s[%s]: %s",
+                obj.name,
+                f.severity,
+                f.code,
+                f.message,
+            )
+        if self._validation_mode == VALIDATION_MODE_STRICT:
+            log.error(
+                "rejecting Policy object %s (strict validation): %d "
+                "policy(ies) not fastpath-lowerable",
+                obj.name,
+                len(bad),
+            )
+            return None
+        if self._validation_mode == VALIDATION_MODE_PARTIAL:
+            dropped = {id(p) for p, _f in bad}
+            kept = [p for p in policies if id(p) not in dropped]
+            log.warning(
+                "Policy object %s: dropped %d of %d policy(ies) "
+                "(partial validation)",
+                obj.name,
+                len(bad),
+                len(policies),
+            )
+            return kept
+        return policies  # permissive: annotate only
 
     def _copy_on_write(self, mutate) -> None:
         """Build a mutated copy and swap the reference — O(policies) per

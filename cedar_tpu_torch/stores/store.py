@@ -34,8 +34,18 @@ class PolicyStore(Protocol):
 
 
 class TieredPolicyStores:
-    def __init__(self, stores: List[PolicyStore]):
+    def __init__(
+        self,
+        stores: List[PolicyStore],
+        validation_mode: Optional[str] = None,
+    ):
         self.stores = list(stores)
+        # load-time analysis posture (CedarConfig.validationMode); None
+        # disables the gate entirely (tests, bare construction)
+        self.validation_mode = validation_mode
+        # the last AnalysisReport the gate produced (served by the
+        # /debug/analysis endpoint); None until the first analyzed load
+        self.last_analysis = None
         # cache_generation() proxy state for stores without a
         # content_generation counter: store index -> [last PolicySet,
         # monotonic counter]. The strong reference is the point — it keeps
@@ -43,6 +53,35 @@ class TieredPolicyStores:
         # confused with id() reuse after garbage collection.
         self._gen_lock = threading.Lock()
         self._gen_proxies: dict = {}
+
+    def analyzed_policy_sets(self) -> List[PolicySet]:
+        """Tiers for ENGINE COMPILATION after the load-time analysis gate
+        (analysis/loadgate.py): strict raises AnalysisRejected (callers
+        keep serving their previous compiled set), partial returns tiers
+        with the offending policies dropped, permissive returns the tiers
+        unchanged but publishes findings/metrics. With no validation mode
+        set, this is exactly the raw policy_set() list.
+
+        The gate shapes what the compiler sees; the interpreter walk
+        below (is_authorized) always evaluates the stores' raw sets. The
+        engines serve decisions from the compiled set, so partial REMOVES
+        dropped policies from served decisions — a dropped forbid weakens
+        enforcement (docs/analysis.md)."""
+        tiers = [s.policy_set() for s in self.stores]
+        if not self.validation_mode:
+            return tiers
+        from ..analysis.loadgate import enforce
+
+        try:
+            tiers, report = enforce(tiers, self.validation_mode)
+        except Exception as e:
+            # strict rejection carries its report for the debug endpoint
+            report = getattr(e, "report", None)
+            if report is not None:
+                self.last_analysis = report
+            raise
+        self.last_analysis = report
+        return tiers
 
     def cache_generation(self) -> tuple:
         """Composite policy-set generation for decision-cache invalidation

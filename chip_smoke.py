@@ -30,14 +30,14 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies and 65536 more; launch counts reset before and read after each
-     batch ({words 1, groups 0} up to 16384 rows; at 65536 five words
+     bodies and 32768 more; launch counts reset before and read after each
+     batch ({words 1, groups 0} up to 16384 rows; at 32768 three words
      launches: chunks of 16384 x 3 + 8192 x 2); routing counts (encoder_fallback held to the CPU
      test's count at the defaults); staging stats; every answer held
      against the authorizer path and, in spawned worker processes, the
      interpreter (0 flips); decisions/s and batch latency at batch 1 /
-     128 / 4096 / 65536 beside the authorizer path's; the encode / device
-     / decode split of a batch-1, a batch-4096 and a batch-65536 answer
+     128 / 4096 / 32768 beside the authorizer path's; the encode / device
+     / decode split of a batch-1, a batch-4096 and a batch-32768 answer
      (--profile: the device's idle share and top kernels over each). Both kernels held
      against their plain versions on a native-encoded 16384-row chunk.
      Gated sub-phase: the corpus plus an interpreter-fallback and a
@@ -132,8 +132,10 @@ Phases, each a hard failure with a nonzero exit:
      a version gets that version's: 0 flips; a deadline expiry counts as
      a flip); each edit changed answers;
      both kernels' served launch counts rise after each swap; no fallback
-     batch; the server's card memory after the third reload no more than
-     one plane above its memory after the first; SIGTERM ends the server
+     batch; the server's card memory 4 s after the third reload (the
+     batches in flight at a swap hold the retired plane until they
+     answer) no more than one plane above its memory 4 s after the
+     first; SIGTERM ends the server
      with code 0. Prints per reload and engine the time from the write to
      the swap and the compile seconds by phase (lower, pack, place, warm);
      per endpoint requests/s and p99 in the 5 s before each write and
@@ -195,9 +197,9 @@ Phases, each a hard failure with a nonzero exit:
      request was in flight (the oracle: the port's interpreter over a CRD
      store fed the same objects; 0 flips, a deadline expiry counts as a
      flip); both kernels' served launch counts rise after each swap; no
-     fallback batch, no breaker transition; the card memory after the
-     third reload within one plane of after the first; SIGTERM ends the
-     server with code 0. Prints per event and engine the time from the
+     fallback batch, no breaker transition; the card memory 4 s after
+     the third reload within one plane of 4 s after the first; SIGTERM
+     ends the server with code 0. Prints per event and engine the time from the
      event to the swap, the dirty and total shards and the compile
      seconds by phase (hash, lower, pack, place, warm) beside the first
      full load's and phase 10's full reloads'; per endpoint requests/s
@@ -205,12 +207,51 @@ Phases, each a hard failure with a nonzero exit:
      it, for events 4 and 5); the server's peak RSS and the phase's wall
      time.
 
-Phases 8, 9, 10 and 12 also check that /metrics shows no breaker
-transition, no supervisor restart and no device rebuild.
+  13. the validationMode load gate (this slice's main path): first its
+     cost, the port's analyze_tiers alone in this process over the
+     corpus and both gated policies (L 6144 x R 10240 at the defaults),
+     each pass timed (lower_all, lint_lowerability, find_shadowing,
+     find_conflicts, capacity_report) and the whole call, with
+     ``truncated`` (the pair budget is spent at 10k policies). Then two
+     CLI servers, each over two tiers, a directory store (a symlink at
+     version 0: the corpus and the native-opaque forbid, refreshInterval
+     30s) and a CRD store on FakeApiServer with one Policy object, both
+     engines incremental, --reload-seconds 1. The directory edit is one
+     file with a forbid on every watch and the interpreter-fallback
+     policy (a clause_limit finding, severity error). Strict
+     (--validation-mode strict): the edit is rejected by both engines,
+     analyzed once each (cedar_policy_analysis_findings_total counts 2
+     clause_limit findings and the log 2 rejections, unchanged after
+     five more reloader ticks), no load_generation steps,
+     /debug/analysis names the fallback policy; the Policy object
+     MODIFIED to carry the fallback policy is quarantined
+     (/debug/supervisor), a MODIFIED back to its retained content leaves
+     it quarantined, and a relist (a 410) clears it; no reload. Partial
+     (--validation-mode partial): the same edit loads without the
+     fallback policy (no fallback policy on either plane, the blocking
+     finding on /debug/analysis); the gated reload's warm-up launches
+     both kernels before the swap and the served words launches rise
+     after it (a plane the strict or partial gate admits holds no
+     interpreter-fallback policy, so no served request takes the groups
+     kernel; the phase's launches are both servers' served ones plus that
+     warm-up's). Every window: phase 8's first 512 gated SARs from 16 clients,
+     each answer held against the port's interpreter over the tiers
+     being served (version 0, or the trimmed edit: 0 flips). Prints the
+     passes' seconds, every load's compile seconds with the gate's
+     (``analyze``), the time from the write to the rejection or the
+     swap, the gated rows per batch before and after the partial swap,
+     launches, peak RSS and the phase's wall time.
+
+Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
+transition, no supervisor restart and no device rebuild. Every server
+of phases 8-12 gates its loads with the config's default validationMode
+(permissive): each load's compile seconds carry the gate's ``analyze``
+phase.
 
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
-reload phase), ``--only-resilience`` phases 1, 2, 10 and 11, and
-``--only-crd`` phases 1, 2 and 12; none prints result lines.
+reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
+``--only-crd`` phases 1, 2 and 12, and ``--only-gate`` phases 1, 2 and
+13; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -388,7 +429,7 @@ forbid (principal, action == k8s::Action::"deletecollection",
 # encoder_fallback rows of each fast-path batch at the defaults (--seed 0
 # --policies 10000 --sars 300): tests/test_torch_fastpath.py computes the
 # same counts on the CPU from the same seeded corpus
-EXPECTED_ENCODER_FALLBACK = {"300": 0, "4096": 0, "65536": 0}
+EXPECTED_ENCODER_FALLBACK = {"300": 0, "4096": 0, "32768": 0}
 
 
 def gated_policy_set(corpus):
@@ -652,7 +693,9 @@ def _oracle(name: str):
     if name not in _ORACLES:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
 
-        if name.startswith("crd-"):
+        if name.startswith("gate-authorize:"):
+            _ORACLES[name] = _tiered_oracle(name[len("gate-authorize:"):])
+        elif name.startswith("crd-"):
             from cedar_tpu_torch.server.admission import (
                 CedarAdmissionHandler,
                 allow_all_admission_policy_store,
@@ -890,9 +933,12 @@ def main() -> None:
     ap.add_argument("--only-crd", action="store_true",
                     help="run phases 1, 2 and 12 only (the CRD store with incremental "
                          "reloads); prints no result lines")
+    ap.add_argument("--only-gate", action="store_true",
+                    help="run phases 1, 2 and 13 only (the validationMode load gate); "
+                         "prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
-                         "a batch-1, a batch-4096 and a batch-65536 answer of the fast path "
+                         "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
                          "with torch.profiler and print the device's busy and "
                          "idle share; after phase 8, split a lone request's time over "
                          "the pipeline stages in-process")
@@ -956,6 +1002,10 @@ def main() -> None:
     if args.only_crd:
         corpus = synth_corpus(args.policies, seed=args.seed)
         crd_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
+    if args.only_gate:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        gate_phase(args, card, corpus, gated_bodies(corpus, 4096, seed=args.seed + 6))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1151,11 +1201,13 @@ def main() -> None:
     print(f"native build: {cmd} in {time.monotonic() - t0:.2f} s"
           + ("" if built else " (already built)"), flush=True)
     fast = SARFastPath(engine, authz)
-    big64k = corpus.sar_bodies(65536, seed=args.seed + 5)
-    batches = {"300": bodies, "4096": big, "65536": big64k}
+    # the largest batch: 32768 rows (65536 until phase 13 needed the
+    # time; every answer served is still held against the interpreter)
+    big32k = corpus.sar_bodies(32768, seed=args.seed + 5)
+    batches = {"300": bodies, "4096": big, "32768": big32k}
     # one words launch per pipeline chunk: 16384-row chunks, the last one
-    # split in two halves (the JAX package's chunk plan), so 65536 rows
-    # are 16384 x 3 + 8192 x 2, five launches
+    # split in two halves (the JAX package's chunk plan), so 32768 rows
+    # are 16384 + 8192 x 2, three launches
     want_words = {label: len(_chunk_sizes(len(b), fast._CHUNK, fast._TAIL_CHUNK))
                   for label, b in batches.items()}
     fast_answers, fast_launches = {}, {}
@@ -1179,7 +1231,7 @@ def main() -> None:
             fail(f"fast path batch {label}: {routing['encoder_fallback']} encoder_fallback "
                  f"rows, the CPU test counts {EXPECTED_ENCODER_FALLBACK[label]}")
     authz_answers = {"300": [canon(r) for r in got]}
-    for label in ("4096", "65536"):
+    for label in ("4096", "32768"):
         authz_answers[label] = [canon(r) for r in answer(authz, batches[label])]
     for label in batches:
         flips = sum(a != b for a, b in zip(fast_answers[label], authz_answers[label]))
@@ -1191,7 +1243,7 @@ def main() -> None:
     # both kernels on the fast path's own operands: native codes of a
     # 16384-row chunk (its bucket), pinned-staged and expanded on the card
     snap = fast._current_snapshot()
-    c16, e16, _n16, f16 = snap.encoder.encode_batch(big64k[:16384])
+    c16, e16, _n16, f16 = snap.encoder.encode_batch(big32k[:16384])
     if not (f16 == 0).all():
         fail("the 16384-row parity chunk holds rows the encoder did not pass")
     c16, e16 = engine._pad_to_bucket(c16, e16, cs.L)
@@ -1203,15 +1255,15 @@ def main() -> None:
         return [sar_response(*r) for r in fast.authorize_raw(batch)]
 
     fperf = {}
-    for batch, reps in ((1, 20), (128, 10), (4096, 5), (65536, 3)):
+    for batch, reps in ((1, 20), (128, 10), (4096, 5), (32768, 3)):
         row = {}
         for path, fn, n_reps in (("fastpath", fast_answer, reps),
                                  ("authorizer", lambda b: answer(authz, b),
-                                  1 if batch == 65536 else reps)):
+                                  1 if batch == 32768 else reps)):
             lat = []
             for i in range(n_reps):
-                lo = (i * batch) % 65536
-                chunk = big64k[lo:lo + batch]
+                lo = (i * batch) % 32768
+                chunk = big32k[lo:lo + batch]
                 t = time.perf_counter()
                 fn(chunk)
                 lat.append(time.perf_counter() - t)
@@ -1220,7 +1272,7 @@ def main() -> None:
         fperf[batch] = row
     print("fastpath throughput vs the authorizer path (SAR JSON -> SAR response, host "
           f"clock, {card}): " + json.dumps(fperf), flush=True)
-    for label, batch in (("1", big[:1]), ("4096", big), ("65536", big64k)):
+    for label, batch in (("1", big[:1]), ("4096", big), ("32768", big32k)):
         fast.authorize_raw(batch)
         print(f"fastpath batch {label} stages (host clock, s, {card}): " + json.dumps(
             {k: round(v, 6) for k, v in fast.last_stage_s.items()}), flush=True)
@@ -1428,15 +1480,20 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 12. the CRD store: Policy object events, incremental reloads
     crd_launches = crd_phase(args, card, g_batch)
 
-    # each kernel's launches on this slice's main path, the traffic across
-    # phase 12's object events (counted in the server process); and on
+    # ---- 13. the validationMode load gate: its cost, strict and partial
+    gate_launches = gate_phase(args, card, corpus, g_batch)
+
+    # each kernel's launches on this slice's main path, the traffic of
+    # phase 13's strict and partial servers and the partial server's
+    # gated reload's warm-up (counted in the server processes); and on
     # the earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": crd_launches[k],
+            "launches": gate_launches[k],
+            "launches_gate": gate_launches[k],
             "launches_crd": crd_launches[k],
             "launches_resilience": resilience_launches[k],
             "launches_reload": reload_launches[k],
@@ -2196,12 +2253,14 @@ def reload_phase(args, card: str, sars: list, then=None):
                     print(f"reload {k} {p} engine ({card}): write to swap "
                           f"{last['published_unix'] - t_write:.3f} s, compile seconds "
                           f"{json.dumps(last['compile_seconds'])}", flush=True)
+                time.sleep(4.0)
                 if k in (1, 3):
-                    dm = eng["authorization"]["device_memory"]
+                    # read once the batches in flight at the swap, which
+                    # hold the retired plane until they answer, are done
+                    dm = engines()["authorization"]["device_memory"]
                     mem[k] = {"nvidia-smi": gpu_memory_mib(srv.proc.pid),
                               "allocated": dm["allocated"] / 2**20,
                               "reserved": dm["reserved"] / 2**20}
-                time.sleep(4.0)
             launch_marks.append(engines()["authorization"]["launches"])
             stop.set()
             for th in threads:
@@ -3104,12 +3163,14 @@ def crd_phase(args, card: str, sars: list) -> dict:
                             f"event {k} {p}: lower {last['compile_seconds']['lower']} s, not "
                             f"below a quarter of the full load's "
                             f"{first[p]['compile_seconds']['lower']} s")
+                time.sleep(4.0)
                 if k in (1, 3):
-                    dm = eng["authorization"]["device_memory"]
+                    # read once the batches in flight at the swap, which
+                    # hold the retired plane until they answer, are done
+                    dm = engines()["authorization"]["device_memory"]
                     mem[k] = {"nvidia-smi": gpu_memory_mib(srv.proc.pid),
                               "allocated": dm["allocated"] / 2**20,
                               "reserved": dm["reserved"] / 2**20}
-                time.sleep(4.0)
             launch_marks.append(engines()["authorization"]["launches"])
             traffic.stop()
             if traffic.errors:
@@ -3193,6 +3254,373 @@ def crd_phase(args, card: str, sars: list) -> dict:
                 traffic.stop()
             srv.kill()
             api.shutdown()
+    return launches
+
+
+# phase 13's directory edit: a forbid on every watch (policy0, which
+# partial mode keeps) and the interpreter-fallback policy (policy1, a
+# clause_limit finding: strict rejects the edit, partial drops it)
+GATE_EDIT_FORBID = 'forbid (principal, action == k8s::Action::"watch", resource is k8s::Resource);\n'
+GATE_EDIT = GATE_EDIT_FORBID + FALLBACK_POLICY
+# phase 13's CRD tier: one Policy object, then the same name carrying the
+# interpreter-fallback policy (strict quarantines it)
+GATE_OBJECT = "gate-probe"
+GATE_OBJECT_POLICY = ('permit (principal, action == k8s::Action::"get", resource is '
+                      'k8s::Resource) when { resource.resource == "gate-probes" };\n')
+
+
+def _tiered_oracle(spec_path: str):
+    """The interpreter authorizer over phase 13's tiers: the directory
+    store of spec["dir"], then a CRD store fed spec["objects"]."""
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.crd import CRDPolicyStore
+    from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+    from cedar_tpu_torch.stores.store import TieredPolicyStores
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    crd = CRDPolicyStore(source=_ListedObjects(spec["objects"]))
+    while not crd.initial_policy_load_complete():
+        time.sleep(0.01)
+    crd.close()
+    return CedarWebhookAuthorizer(TieredPolicyStores(
+        [DirectoryPolicyStore(spec["dir"], start_ticker=False), crd]))
+
+
+def gate_cost(card: str, corpus) -> None:
+    """Phase 13's first part: the port's analyze_tiers alone on this host
+    over the phase's authorization tier (the corpus and both gated
+    policies), each pass timed, then the whole call; with the cyclic
+    collector paused, as the server runs its loads."""
+    import gc
+
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        _gate_cost(card, corpus)
+    finally:
+        if enabled:
+            gc.enable()
+
+
+def _gate_cost(card: str, corpus) -> None:
+    from cedar_tpu_torch.analysis import analyze as an
+
+    tiers = [gated_policy_set(corpus)]
+    t = time.perf_counter()
+    infos = an.lower_all(tiers)
+    secs = {"lower_all": time.perf_counter() - t}
+    t = time.perf_counter()
+    an.lint_lowerability(infos)
+    secs["lint_lowerability"] = time.perf_counter() - t
+    budget = an._Budget(an.PAIR_BUDGET)
+    t = time.perf_counter()
+    shadow = an.find_shadowing(infos, budget)
+    secs["find_shadowing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    an.find_conflicts(infos, budget, frozenset(
+        f.policy_id for f in shadow if f.code == "unreachable_permit"))
+    secs["find_conflicts"] = time.perf_counter() - t
+    t = time.perf_counter()
+    an.capacity_report(infos, len(tiers))
+    secs["capacity_report"] = time.perf_counter() - t
+    t = time.perf_counter()
+    report = an.analyze_tiers(tiers)
+    whole = time.perf_counter() - t
+    print(f"gate cost ({card}; host clock): analyze_tiers over {len(tiers[0])} policies "
+          f"in {whole:.4f} s; passes (s) "
+          f"{json.dumps({k: round(v, 4) for k, v in secs.items()})}; truncated "
+          f"{report.truncated}, budget left {budget.left}, findings "
+          f"{json.dumps(report.counts(), sort_keys=True)}", flush=True)
+    if report.counts().get("clause_limit") != 1 or (len(tiers[0]) > 10000
+                                                     and not report.truncated):
+        fail(f"gate cost: truncated {report.truncated}, findings {report.counts()}: want the "
+             "gated set's one clause_limit finding and, at 10k policies, the pair budget "
+             "spent")
+
+
+def gate_phase(args, card: str, corpus, sars: list) -> dict:
+    """Phase 13 (module docstring): `sars` are phase 8's gated SAR bodies.
+    Returns the kernel launch counts of the phase's main path: both
+    servers' served launches over the phase's traffic and the partial
+    server's gated reload's warm-up launches."""
+    from cedar_tpu_torch.corpus.synth import synth_source
+
+    t_phase = time.monotonic()
+    gate_cost(card, corpus)
+    grace = 5.0
+    n_pool = 512
+    sars = sars[:n_pool]
+    base = {"synth.cedar": synth_source(args.policies, seed=args.seed),
+            "gated.cedar": NATIVE_OPAQUE_POLICY}
+    launches = {"match_groups_kernel": 0, "match_words_kernel": 0}
+    api = FakeApiServer(hold_s=30.0)
+    with tempfile.TemporaryDirectory(prefix="cedar-gate-") as tmp:
+        # v0: the base; v1: the base and the edit, as served; trimmed: what
+        # partial mode compiles of v1 (the oracle's directory)
+        vdirs = {}
+        for name, files in (("v0", base), ("v1", {**base, "gate-edit.cedar": GATE_EDIT}),
+                            ("trimmed", {**base, "gate-edit.cedar": GATE_EDIT_FORBID})):
+            vdirs[name] = os.path.join(tmp, name)
+            os.mkdir(vdirs[name])
+            for fname, text in files.items():
+                with open(os.path.join(vdirs[name], fname), "w") as f:
+                    f.write(text)
+        objects = [{"metadata": {"name": GATE_OBJECT, "uid": f"uid-{GATE_OBJECT}"},
+                    "spec": {"content": GATE_OBJECT_POLICY}}]
+        specs = {}
+        for name in ("v0", "trimmed"):
+            specs[name] = os.path.join(tmp, f"oracle-{name}.json")
+            with open(specs[name], "w") as f:
+                json.dump({"dir": vdirs[name], "objects": objects}, f)
+        api.apply(GATE_OBJECT, GATE_OBJECT_POLICY)
+        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
+        t0 = time.monotonic()
+        answers = interpreter_answers({k: (f"gate-authorize:{specs[k]}", sars) for k in specs},
+                                      args.policies, args.seed, piece=n_pool // 2)
+        want = {k: [reason_key(a, {}) for a in answers[k]] for k in specs}
+        changed = sum(a != b for a, b in zip(want["v0"], want["trimmed"]))
+        print(f"gate oracle: {len(specs) * n_pool} interpreter answers in "
+              f"{time.monotonic() - t0:.1f} s; the edit (trimmed) changes {changed} of "
+              f"{n_pool}", flush=True)
+        if not changed:
+            fail("gate: the edit changes no answer of the pool")
+
+        def serve(mode: str):
+            """A server over the directory (a symlink at v0) and the CRD
+            store under --validation-mode `mode`."""
+            pol_dir = os.path.join(tmp, f"policies-{mode}")
+            os.symlink(vdirs["v0"], pol_dir)
+            cfg = os.path.join(tmp, f"store-config-{mode}.json")
+            with open(cfg, "w") as f:
+                json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                           "spec": {"stores": [
+                               {"type": "directory", "directoryStore": {
+                                   "path": pol_dir, "refreshInterval": "30s"}},
+                               {"type": "crd", "crdStore": {}}]}}, f)
+            srv = Webhook(cfg, tmp, f"webhook-gate-{mode}", grace,
+                          ("--kubeconfig", kube, "--reload-seconds", "1",
+                           "--request-timeout-ms", "10000", "--validation-mode", mode))
+
+            def swap_to_v1():
+                link = pol_dir + ".new"
+                os.symlink(vdirs["v1"], link)
+                os.replace(link, pol_dir)
+
+            return srv, swap_to_v1
+
+        def engines(srv):
+            doc = srv.debug_engine()
+            return {p: doc[p]["engine"] for p in ("authorization", "admission")}
+
+        def window(srv, label: str, expected: list) -> dict:
+            """The pool from 16 clients, every answer held against
+            `expected`; the routing and batch counts it moved."""
+            before = http_get(srv.mport, "/metrics")[1].decode()
+            wall, lat, got, errors = drive(srv.port, sars, 16)
+            if errors:
+                fail(f"gate {label}: client errors {errors[:3]}")
+            flips = count_flips(f"gate {label}", [reason_key(g, {}) for g in got],
+                                expected, lat)
+            after = http_get(srv.mport, "/metrics")[1].decode()
+            gated = (metric_values(after, "cedar_authorizer_row_routing_total", "row_class",
+                                   "authorization").get("gated", 0)
+                     - metric_values(before, "cedar_authorizer_row_routing_total", "row_class",
+                                     "authorization").get("gated", 0))
+            print(f"gate {label} ({card}): {len(sars)} answers from 16 clients in {wall:.3f} s, "
+                  f"p99 {pct(lat, 99) * 1e3:.3f} ms, flips {flips}, gated rows {gated:g}",
+                  flush=True)
+            if flips:
+                fail(f"gate {label}: {flips} answers differ from the interpreter's")
+            return {"gated": gated, "text": after}
+
+        def batches_of(text: str) -> float:
+            return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                       if line.startswith('cedar_batch_occupancy_count{path="authorization"}'))
+
+        def findings(srv, kind: str) -> float:
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                       if line.startswith(f'cedar_policy_analysis_findings_total{{kind="{kind}"}}'))
+
+        def first_load(srv, mode: str):
+            eng = engines(srv)
+            for p, e in eng.items():
+                last = e["last_load"]
+                print(f"gate {mode} {p} engine ({card}): L={e['L']} R={e['R']}, first load "
+                      f"{last['compile_scope']} compile seconds "
+                      f"{json.dumps(last['compile_seconds'])}", flush=True)
+                if args.policies == 10000 and (e["L"], e["R"]) != (6144, 10240):
+                    fail(f"gate {mode}: {p} engine at L={e['L']} R={e['R']}, want L=6144 R=10240")
+                if "analyze" not in last["compile_seconds"]:
+                    fail(f"gate {mode}: {p} engine's first load ran no analysis")
+            return eng
+
+        def add_launches(srv):
+            got = engines(srv)["authorization"]["launches"]
+            adm = engines(srv)["admission"]["launches"]
+            for k in launches:
+                launches[k] += got[k] + adm[k]
+            return got
+
+        # ---- strict: the edit rejected, the poisoned object quarantined
+        srv, swap = serve("strict")
+        try:
+            srv.wait_ready(card)
+            eng0 = first_load(srv, "strict")
+            gens = {p: e["load_generation"] for p, e in eng0.items()}
+            window(srv, "strict v0", want["v0"])
+            n_clause = findings(srv, "clause_limit")
+            t_write = time.monotonic()
+            swap()
+            deadline = time.monotonic() + 60
+            while findings(srv, "clause_limit") < n_clause + 2:
+                if time.monotonic() > deadline:
+                    fail(f"gate strict: the edit was not analyzed by both engines within 60 s:\n"
+                         f"{srv.log()}")
+                time.sleep(0.2)
+            t_rejected = time.monotonic() - t_write
+            time.sleep(5.0)  # five reloader ticks over the unchanged, rejected corpus
+            analyzed = findings(srv, "clause_limit") - n_clause
+            rejected_lines = sum("load rejected by policy analysis" in line
+                                 for line in srv.log().splitlines())
+            doc = json.loads(http_get(srv.mport, "/debug/analysis")[1])
+            blocking = {p: sorted(f["policy"] for f in r["findings"] if f["severity"] == "error")
+                        for p, r in doc.items()}
+            eng = engines(srv)
+            stepped = {p: eng[p]["load_generation"] - gens[p] for p in gens}
+            print(f"gate strict edit ({card}): rejected {t_rejected:.3f} s after the write; "
+                  f"clause_limit findings counted {analyzed:g} (one per engine) after 5 more "
+                  f"ticks; rejection log lines {rejected_lines}; generations stepped {stepped}; "
+                  f"/debug/analysis blocking {json.dumps(blocking)}", flush=True)
+            if analyzed != 2 or rejected_lines != 2 or any(stepped.values()):
+                fail("gate strict: the rejected corpus was analyzed more than once per engine, "
+                     "or an engine reloaded")
+            if blocking.get("authorization") != ["gate-edit.cedar.policy1"]:
+                fail(f"gate strict: /debug/analysis names {blocking}, want the edit's policy1")
+            window(srv, "strict after the rejected edit", want["v0"])
+            # the CRD tier: a poisoned object is quarantined; a MODIFIED
+            # back to the retained content is a no-op; a relist clears it
+            api.apply(GATE_OBJECT, FALLBACK_POLICY)
+
+            def quarantined() -> bool:
+                doc = json.loads(http_get(srv.mport, "/debug/supervisor")[1])
+                return any(e.get("name") == GATE_OBJECT
+                           for e in doc["quarantine"]["objects"])
+
+            deadline = time.monotonic() + 30
+            while not quarantined():
+                if time.monotonic() > deadline:
+                    fail(f"gate strict: {GATE_OBJECT} was not quarantined within 30 s:\n"
+                         f"{http_get(srv.mport, '/debug/supervisor')[1][:600]!r}")
+                time.sleep(0.2)
+            api.apply(GATE_OBJECT, GATE_OBJECT_POLICY)
+            time.sleep(2.0)
+            still = quarantined()
+            lists = api.list_calls
+            api.expire()
+            deadline = time.monotonic() + 60
+            while api.list_calls <= lists or quarantined():
+                if time.monotonic() > deadline:
+                    fail(f"gate strict: the relist did not clear {GATE_OBJECT}'s quarantine "
+                         "within 60 s")
+                time.sleep(0.2)
+            time.sleep(3.0)
+            eng = engines(srv)
+            stepped = {p: eng[p]["load_generation"] - gens[p] for p in gens}
+            print(f"gate strict CRD ({card}): {GATE_OBJECT} quarantined on the poisoned "
+                  f"MODIFIED, still quarantined after a MODIFIED back to its content: {still}; "
+                  f"cleared by the relist (list calls {lists} -> {api.list_calls}); generations "
+                  f"stepped {stepped}", flush=True)
+            if not still or any(stepped.values()):
+                fail("gate strict CRD: the quarantine or the generations moved unexpectedly")
+            window(srv, "strict after the relist", want["v0"])
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            problems = resilience_quiet("gate strict", text)
+            if problems:
+                fail("; ".join(problems))
+            strict_launches = add_launches(srv)
+            took, rss = srv.terminate()
+            print(f"gate strict webhook: launches {json.dumps(strict_launches)}; SIGTERM -> "
+                  f"exit code 0 in {took:.2f} s; peak RSS ({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+
+        # ---- partial: the edit loads without the offending policy
+        srv, swap = serve("partial")
+        try:
+            srv.wait_ready(card)
+            eng0 = first_load(srv, "partial")
+            gens = {p: e["load_generation"] for p, e in eng0.items()}
+            text0 = http_get(srv.mport, "/metrics")[1].decode()
+            w0 = window(srv, "partial v0", want["v0"])
+            b0 = batches_of(w0["text"]) - batches_of(text0)
+            launch0 = engines(srv)["authorization"]["launches"]
+            warm0 = {p: e["warmup_launches"] for p, e in engines(srv).items()}
+            t_write = time.time()
+            swap()
+            deadline = time.monotonic() + 60
+            while True:
+                eng = engines(srv)
+                if all(eng[p]["load_generation"] > gens[p] for p in gens):
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"gate partial: the engines did not step within 60 s:\n{srv.log()}")
+                time.sleep(0.2)
+            for p in ("authorization", "admission"):
+                last = eng[p]["last_load"]
+                fb = eng[p].get("fallback", {})
+                print(f"gate partial {p} engine ({card}): write to swap "
+                      f"{last['published_unix'] - t_write:.3f} s, {last['compile_scope']} "
+                      f"compile, {last['dirty_shards']} of {last['shards']} shards dirty, "
+                      f"compile seconds {json.dumps(last['compile_seconds'])}; fallback "
+                      f"policies {fb.get('policies')}", flush=True)
+                if fb.get("policies") != 0:
+                    fail(f"gate partial: the {p} plane carries {fb.get('policies')} fallback "
+                         "policies, want 0 (the offending policy dropped)")
+            text1 = http_get(srv.mport, "/metrics")[1].decode()
+            w1 = window(srv, "partial after the edit (trimmed set)", want["trimmed"])
+            b1 = batches_of(w1["text"]) - batches_of(text1)
+            launch1 = engines(srv)["authorization"]["launches"]
+            print(f"gate partial gated rows per batch ({card}): before the edit "
+                  f"{w0['gated'] / max(b0, 1):.3f} ({w0['gated']:g} rows, {b0:g} batches), "
+                  f"after {w1['gated'] / max(b1, 1):.3f} ({w1['gated']:g} rows, {b1:g} "
+                  f"batches)", flush=True)
+            # the gated reload warms its plane through both kernels before
+            # the swap; served traffic then takes the words kernel only: a
+            # plane the strict or partial gate admits holds no
+            # interpreter-fallback policy, the one thing the groups kernel
+            # serves
+            warm = {k: sum(eng[p]["warmup_launches"][k] - warm0[p][k] for p in eng)
+                    for k in launches}
+            print(f"gate partial swap ({card}): the gated reload's warm-up launches "
+                  f"{json.dumps(warm)}; served launches {json.dumps(launch0)} -> "
+                  f"{json.dumps(launch1)}", flush=True)
+            if not all(warm.values()) or launch1["match_words_kernel"] <= \
+                    launch0["match_words_kernel"]:
+                fail(f"gate partial: the gated reload's warm-up launched {warm}, served words "
+                     f"launches {launch0} -> {launch1}: want both kernels warmed and the "
+                     "words kernel serving after the swap")
+            for k in launches:
+                launches[k] += warm[k]
+            doc = json.loads(http_get(srv.mport, "/debug/analysis")[1])
+            dropped = sorted(f["policy"] for f in doc["authorization"]["findings"]
+                             if f["severity"] == "error")
+            if dropped != ["gate-edit.cedar.policy1"]:
+                fail(f"gate partial: /debug/analysis blocking findings {dropped}")
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            problems = resilience_quiet("gate partial", text)
+            if problems:
+                fail("; ".join(problems))
+            partial_launches = add_launches(srv)
+            took, rss = srv.terminate()
+            print(f"gate partial webhook: launches {json.dumps(partial_launches)}; SIGTERM -> "
+                  f"exit code 0 in {took:.2f} s; peak RSS ({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+            api.shutdown()
+    print(f"gate launches {json.dumps(launches)}; gate phase wall time ({card}): "
+          f"{time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
 
 

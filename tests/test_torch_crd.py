@@ -75,6 +75,16 @@ PERMIT = 'permit (principal, action == k8s::Action::"get", resource is k8s::Reso
 FORBID = 'forbid (principal, action == k8s::Action::"list", resource is k8s::Resource);'
 TWO = PERMIT + "\n" + FORBID
 BAD = "permit (principal galaxy-brain;;; %%"
+# parses, but its alternation product passes the lowering's clause
+# ceiling: a clause_limit finding (severity error) for the validationMode
+# gate
+CLAUSE_LIMIT = (
+    'permit (principal in k8s::Group::"joiners", action == k8s::Action::"get",\n'
+    "        resource is k8s::Resource)\n  when { "
+    + " && ".join('(resource.resource == "widgets" || resource.name == "10.0.0.1")'
+                  for _ in range(12))
+    + " };"
+)
 CANDIDATE = {"cedar.k8s.aws/rollout": "candidate"}
 
 
@@ -155,6 +165,32 @@ SCENARIOS = {
         ("relist", [_obj("pc-a", PERMIT)]), ("arm", "poison-crd"),
         ("ADDED", _obj("pc-b", TWO)), ("MODIFIED", _obj("pc-a", FORBID)),
         ("disarm", ""), ("MODIFIED", _obj("pc-b", FORBID))],
+    # a relist that lists a quarantined object repaired clears its
+    # quarantine, though its content equals the retained last good one
+    "relist-repaired": [
+        ("relist", [_obj("rr-a", TWO), _obj("rr-b", PERMIT)]), ("MODIFIED", _obj("rr-a", BAD)),
+        ("relist", [_obj("rr-a", TWO), _obj("rr-b", PERMIT)])],
+    # the same with a strict-mode rejection for the bad content
+    "strict-relist-repaired": [
+        ("relist", [_obj("sr-a", TWO), _obj("sr-b", PERMIT)]),
+        ("MODIFIED", _obj("sr-a", CLAUSE_LIMIT)),
+        ("relist", [_obj("sr-a", TWO), _obj("sr-b", PERMIT)])],
+    "strict-new-object": [
+        ("relist", [_obj("sn-a", PERMIT)]), ("ADDED", _obj("sn-b", FORBID + CLAUSE_LIMIT)),
+        ("relist", [_obj("sn-a", PERMIT), _obj("sn-b", FORBID + CLAUSE_LIMIT)]),
+        ("MODIFIED", _obj("sn-b", FORBID))],
+    "partial-drops-policy": [
+        ("relist", [_obj("pp-a", PERMIT + CLAUSE_LIMIT + FORBID)]),
+        ("MODIFIED", _obj("pp-a", CLAUSE_LIMIT + TWO)),
+        ("relist", [_obj("pp-a", TWO)])],
+    "permissive-keeps": [
+        ("relist", [_obj("pk-a", PERMIT + CLAUSE_LIMIT)]), ("ADDED", _obj("pk-b", CLAUSE_LIMIT)),
+        ("relist", [_obj("pk-a", FORBID)])],
+}
+# the stores' validationMode per scenario (None: no gate)
+SCENARIO_MODES = {
+    "strict-relist-repaired": "strict", "strict-new-object": "strict",
+    "partial-drops-policy": "partial", "permissive-keeps": "permissive",
 }
 
 
@@ -191,13 +227,15 @@ def _apply(store, source, cls, chaos, step):
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
 def test_crd_store_equals_jax(scenario):
     """Served policies, generation steps, candidates and quarantine of the
-    port's CRD store equal the JAX store's after every step."""
+    port's CRD store equal the JAX store's after every step, with and
+    without the per-object validationMode gate."""
     steps = SCENARIOS[scenario]
     names = sorted({a["metadata"]["name"] for k, a in steps if k not in ("relist", "arm", "disarm")}
                    | {o["metadata"]["name"] for k, a in steps if k == "relist" for o in a})
     t_src, j_src = ScriptSource(PolicyObject), ScriptSource(JPolicyObject)
-    t_store = CRDPolicyStore(source=t_src, start=False)
-    j_store = JCRDPolicyStore(source=j_src, start=False)
+    mode = SCENARIO_MODES.get(scenario)
+    t_store = CRDPolicyStore(source=t_src, start=False, validation_mode=mode)
+    j_store = JCRDPolicyStore(source=j_src, start=False, validation_mode=mode)
     gens = []
     for step in steps:
         _apply(t_store, t_src, PolicyObject, t_chaos(), step)
@@ -208,6 +246,9 @@ def test_crd_store_equals_jax(scenario):
     steps_up = [b > a for a, b in zip(gens, gens[1:])]
     if scenario in ("metadata-only-update", "relist-same-content", "delete-unknown"):
         assert not any(steps_up)
+    if scenario in ("relist-repaired", "strict-relist-repaired"):
+        # quarantined after the bad MODIFIED, cleared by the relist
+        assert t_state["quarantined"] == []
     for name in names:  # leave no quarantine entry behind for other tests
         quarantine_registry().clear("crd", name)
         j_quarantine().clear("crd", name)
@@ -726,8 +767,9 @@ def test_crd_cli_reloads_incrementally(crd_sequence, step):
             assert last["compile_scope"] == eng["shards"]["scope"] == "incremental"
             assert 1 <= last["dirty_shards"] <= 2  # the edited object's policies
             assert len(eng["shards"]["dirty"]) == last["dirty_shards"]
-            assert set(last["compile_seconds"]) == {"hash", "lower", "pack", "place", "warm",
-                                                    "total"}
+            # analyze: the config's (permissive) validationMode gate
+            assert set(last["compile_seconds"]) == {"analyze", "hash", "lower", "pack",
+                                                    "place", "warm", "total"}
 
 
 def test_crd_cli_debug_metrics_and_supervision(crd_sequence):
@@ -751,7 +793,8 @@ def test_crd_cli_debug_metrics_and_supervision(crd_sequence):
     assert "store.crd.CRDPolicyStore" in components
 
 
-@pytest.mark.parametrize("flag", ["--kubeconfig", "--shard-buckets", "--no-incremental-compile"])
+@pytest.mark.parametrize("flag", ["--kubeconfig", "--shard-buckets", "--no-incremental-compile",
+                                  "--validation-mode"])
 def test_new_flags_default_as_jax(flag):
     """This slice's CLI flags: the JAX CLI's defaults, types and actions
     (--shard-buckets 0 means the default of 64 buckets in both)."""

@@ -657,3 +657,53 @@ def test_incremental_reload_on_the_card_equals_a_full_load(cuda):
     np.testing.assert_array_equal(l_inc, l_full)
     assert launched["match_words_kernel"] >= 1 and launched["match_groups_kernel"] >= 1
     assert inc.evaluate(*edited.probe_request())[0] == "deny"
+
+
+@pytest.mark.cuda
+def test_partial_gate_on_the_card_equals_plain_versions(cuda):
+    """The gated synth set loaded on the card under validationMode
+    partial: the gate drops the interpreter-fallback policy (and only
+    it), and the trimmed plane's verdict words and first/last matrices on
+    the card equal the plain versions' (a CPU engine over the same
+    trimmed tiers) bit for bit, with both kernels launched."""
+    from cedar_tpu_torch.compiler.table import encode_request_codes
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    fallback = (
+        'permit (principal in k8s::Group::"joiners", action == k8s::Action::"get",\n'
+        "        resource is k8s::Resource)\n  when { "
+        + " && ".join('(resource.resource == "widgets" || resource.name == "10.0.0.1")'
+                      for _ in range(12))
+        + " };\n"
+    )
+    opaque = ('forbid (principal, action == k8s::Action::"deletecollection", '
+              "resource is k8s::Resource)\n"
+              "  when { resource has name && ip(resource.name).isLoopback() };\n")
+    corpus = synth_corpus(2000, seed=5)
+    extra = PolicySet.from_source(fallback + opaque, "gated")
+    gated = PolicySet(list(corpus.policies) + extra.policies())
+    stores = TieredPolicyStores([MemoryStore("gated", gated)], validation_mode="partial")
+    (tier,) = stores.analyzed_policy_sets()
+    assert len(tier) == len(gated) - 1
+    assert {f.code for f in stores.last_analysis.blocking()} == {"clause_limit"}
+    gpu, cpu = TorchPolicyEngine(), TorchPolicyEngine(device="cpu")
+    gpu.load([tier], max_batch=128)
+    cpu.load([tier])
+    a = gpu.compiled_set
+    assert a.fallback == [] and (a.L, a.R) == (cpu.compiled_set.L, cpu.compiled_set.R)
+    items = corpus.sar_items(256, seed=3)
+    enc = [encode_request_codes(a.packed.plan, a.packed.table, em, r) for em, r in items]
+    codes, extras = gpu._encode_batch_arrays(a, enc, len(enc))
+    cuda_match.reset_launch_counts()
+    w_gpu, _ = gpu.match_arrays(codes, extras)
+    _, (f_gpu, l_gpu) = gpu.match_arrays(codes, extras, want_full=True)
+    launched = cuda_match.launch_counts()
+    w_cpu, _ = cpu.match_arrays(codes, extras)
+    _, (f_cpu, l_cpu) = cpu.match_arrays(codes, extras, want_full=True)
+    np.testing.assert_array_equal(w_gpu, w_cpu)
+    np.testing.assert_array_equal(f_gpu, f_cpu)
+    np.testing.assert_array_equal(l_gpu, l_cpu)
+    assert launched["match_words_kernel"] >= 1 and launched["match_groups_kernel"] >= 1

@@ -639,8 +639,8 @@ def test_chip_smoke_encoder_fallback_counts():
     packed = t_pack(t_lower(corpus.tiers(), T_SCHEMA))
     enc = tnative.NativeEncoder.create(packed)
     # the smoke's batches: its --sars 300 bodies (seed + 1), its batch-4096
-    # bodies (seed + 2) and the 65536 more (seed + 5)
-    for label, n, seed in (("300", 300, 1), ("4096", 4096, 2), ("65536", 65536, 5)):
+    # bodies (seed + 2) and the 32768 more (seed + 5)
+    for label, n, seed in (("300", 300, 1), ("4096", 4096, 2), ("32768", 32768, 5)):
         _c, _e, _n, flags = enc.encode_batch(corpus.sar_bodies(n, seed=seed))
         n_fallback = int(((flags == tnative.F_PARSE_ERROR) | (flags == tnative.F_EXTRAS_OVERFLOW)).sum())
         assert chip_smoke.EXPECTED_ENCODER_FALLBACK[label] == n_fallback

@@ -324,7 +324,10 @@ def test_edit_step_reloads_as_jax(edit_sequence, step):
         if want_reload:
             last = rec["debug"]["authorization"]["engine"]["last_load"]
             assert last["generation"] == after[0]
-            assert set(last["compile_seconds"]) == {"lower", "pack", "place", "warm", "total"}
+            # the config's validationMode (permissive by default) gates
+            # every load: its seconds are the analyze phase
+            assert set(last["compile_seconds"]) == {"analyze", "lower", "pack", "place",
+                                                    "warm", "total"}
     assert rec["quarantined"] is (step in ("poison", "unchanged"))
 
 
@@ -594,10 +597,11 @@ def test_reloader_thread_reloads_both_engines(threaded_server):
     assert {path: _answers(t.bound_port, path) for path in ENDPOINTS} == want
 
 
-@pytest.mark.parametrize("phase", ["lower", "pack", "place", "warm", "total"])
+@pytest.mark.parametrize("phase", ["analyze", "lower", "pack", "place", "warm", "total"])
 def test_compile_seconds_per_load_and_phase(threaded_server, phase):
     """cedar_compile_seconds{phase,scope="full"}: one observation per
-    load (two at start, two for the reload) and phase."""
+    load (two at start, two for the reload) and phase; ``analyze`` is the
+    permissive validationMode gate of each load."""
     t, _before, _want = threaded_server
     text = request(t.bound_metrics_port, "GET", "/metrics")[1].decode()
     line = f'cedar_compile_seconds_count{{phase="{phase}",scope="full"}} '
@@ -743,3 +747,187 @@ def test_a_load_leaves_no_cyclic_garbage():
         assert gc.collect() == 0
     finally:
         gc.enable()
+
+
+# ------------------------------------------- the validationMode load gate
+#
+# Both servers gate every load of both stacks with the same mode: the JAX
+# side is its TPUReloader over strict / partial / permissive
+# TieredPolicyStores (the JAX CLI's --validation-mode), the port's its CLI
+# with --validation-mode. The interpreter-fallback forbids (a clause_limit
+# finding, severity error) are added, the tick repeated unchanged, and
+# the file removed again.
+
+GATE_STEPS = ("add-gated", "unchanged", "repair")
+GATE_MODES = ("strict", "partial", "permissive")
+
+
+def _jax_gate_server(policy_dir, mode: str):
+    """(JAX server, its stores, its TPUReloader): the device stacks under
+    ``mode``, with the JAX CLI's analysis_provider."""
+    stores = JTieredPolicyStores([JDirectoryPolicyStore(str(policy_dir), start_ticker=False)],
+                                 validation_mode=mode)
+    adm_stores = JTieredPolicyStores(
+        list(stores.stores) + [j_adm.allow_all_admission_policy_store()], validation_mode=mode)
+    engine = TPUPolicyEngine(incremental=False, name="authorization")
+    adm_engine = TPUPolicyEngine(incremental=False, name="admission")
+    reloader = JTPUReloader(stores, targets=[(engine, stores), (adm_engine, adm_stores)],
+                            interval_s=3600)
+    assert reloader.reload_if_changed()
+    authz = j_auth.CedarWebhookAuthorizer(
+        stores, evaluate=engine.evaluate, evaluate_batch=engine.evaluate_batch)
+    handler = j_adm.CedarAdmissionHandler(
+        adm_stores, evaluate=adm_engine.evaluate, evaluate_batch=adm_engine.evaluate_batch)
+
+    def provider():
+        return {name: ts.last_analysis.to_dict()
+                for name, ts in (("authorization", stores), ("admission", adm_stores))
+                if ts.last_analysis is not None}
+
+    srv = JWebhookServer(authz, handler, address="127.0.0.1", port=0, metrics_port=0,
+                         fastpath=JSARFastPath(engine, authz),
+                         admission_fastpath=JAdmissionFastPath(adm_engine, handler),
+                         pipeline_depth=2, request_timeout_s=60.0, analysis_provider=provider)
+    srv.start()
+    return srv, stores, reloader
+
+
+def _json_get(port: int, path: str):
+    return request(port, "GET", path)
+
+
+def _fallback_doc(port: int) -> dict:
+    """/debug/engine's fallback block per engine."""
+    doc = _json_get(port, "/debug/engine")[1]
+    return {p: doc[p]["engine"].get("fallback") for p in ("authorization", "admission")}
+
+
+def _masked_analysis(doc: dict) -> dict:
+    """/debug/analysis without the served tallies (process-wide counters
+    both packages share across tests; their deltas are compared apart)."""
+    return {name: {**rep, "coverage": {k: v for k, v in rep["coverage"].items()
+                                       if k != "served_decisions"}}
+            for name, rep in doc.items()}
+
+
+@pytest.fixture(scope="module", params=GATE_MODES)
+def gate_sequence(request, tmp_path_factory):
+    """GATE_STEPS in order on one directory served by both servers under
+    one mode: per step what each reload returned, the port's enforce calls
+    and generations, the answers, /debug/analysis and the fallback blocks
+    with the served fallback tallies' growth over GATED_BODIES."""
+    from cedar_tpu.server.metrics import fallback_decision_counts as j_counts
+    from cedar_tpu_torch.analysis import loadgate
+    from cedar_tpu_torch.server.metrics import fallback_decision_counts as t_counts
+
+    import chip_smoke
+
+    mode = request.param
+    d = _base_dir(tmp_path_factory.mktemp(f"gate-{mode}") / "policies")
+    # a corpus strict admits: no interpreter-fallback policy, the
+    # native-opaque forbid (a warning) kept
+    (d / "gated.cedar").write_text(chip_smoke.NATIVE_OPAQUE_POLICY)
+    (d / "admission-gated.cedar").unlink()
+    j, j_stores, j_reloader = _jax_gate_server(d, mode)
+    t = _port_server(d, "--request-timeout-ms", "60000", "--reload-seconds", "3600",
+                     "--no-incremental-compile", "--validation-mode", mode)
+    enforced: list = []
+    real = loadgate.enforce
+    mp = pytest.MonkeyPatch()
+    mp.setattr(loadgate, "enforce",
+               lambda tiers, *a, **kw: (enforced.append(len(tiers)), real(tiers, *a, **kw))[1])
+    out = {}
+    try:
+        for step in GATE_STEPS:
+            if step == "add-gated":
+                (d / "gated-extra.cedar").write_text(GATED_FORBIDS)
+            elif step == "repair":
+                (d / "gated-extra.cedar").unlink()
+            gens = [e.load_generation for e in _engines(t)]
+            del enforced[:]
+            rec = {"port_reload": _port_tick(t), "jax_reload": _jax_tick(j_stores, j_reloader),
+                   "enforced": list(enforced),
+                   "gens": (gens, [e.load_generation for e in _engines(t)])}
+            rec["port"] = {path: _answers(t.bound_port, path) for path in ENDPOINTS}
+            rec["jax"] = {path: _answers(j.bound_port, path) for path in ENDPOINTS}
+            rec["analysis"] = (_json_get(t.bound_metrics_port, "/debug/analysis"),
+                               _json_get(j.bound_metrics_port, "/debug/analysis"))
+            grew = []
+            for counts in (t_counts, j_counts):
+                before = [counts(name) for name in ("authorization", "admission")]
+                srv = t if counts is t_counts else j
+                _answers(srv.bound_port, "/v1/authorize", list(GATED_BODIES.values()))
+                grew.append([{k: v - b.get(k, 0) for k, v in counts(name).items()
+                              if v != b.get(k, 0)}
+                             for name, b in zip(("authorization", "admission"), before)])
+            rec["served_growth"] = grew
+            rec["fallback"] = (_fallback_doc(t.bound_metrics_port),
+                               _fallback_doc(j.bound_metrics_port))
+            out[step] = rec
+    finally:
+        mp.undo()
+        j.stop()
+        t.stop()
+    return mode, out
+
+
+@pytest.mark.parametrize("path", ENDPOINTS)
+@pytest.mark.parametrize("step", GATE_STEPS)
+def test_gate_step_answers_equal_jax(gate_sequence, step, path):
+    """Every answer after each gated step equals the JAX server's: strict
+    keeps serving the plane from before the rejected edit, partial serves
+    the set without the offending policies, permissive serves them as
+    interpreter-fallback policies."""
+    _mode, out = gate_sequence
+    assert out[step]["port"][path] == out[step]["jax"][path]
+
+
+@pytest.mark.parametrize("step", GATE_STEPS)
+def test_gate_step_reloads_as_jax(gate_sequence, step):
+    """A strict rejection keeps the previous plane and load_generation and
+    remembers the fingerprint: the unchanged tick analyzes nothing. Each
+    changed corpus is analyzed once per engine, and the reload returns
+    what the JAX reloader's does."""
+    mode, out = gate_sequence
+    rec = out[step]
+    assert rec["port_reload"] is rec["jax_reload"]
+    want_reload = step == "repair" or (step == "add-gated" and mode != "strict")
+    assert rec["port_reload"] is want_reload
+    before, after = rec["gens"]
+    assert after == [g + want_reload for g in before]
+    # the authorization stack's one tier, the admission stack's two
+    assert rec["enforced"] == ([] if step == "unchanged" else [1, 2])
+
+
+@pytest.mark.parametrize("step", GATE_STEPS)
+def test_debug_analysis_equals_jax(gate_sequence, step):
+    """/debug/analysis: each engine's last report equals the JAX
+    server's, served tallies aside; under strict the rejected corpus's
+    blocking finding is what it names after the edit."""
+    mode, out = gate_sequence
+    (t_status, t_doc), (j_status, j_doc) = out[step]["analysis"]
+    assert t_status == j_status == 200
+    assert _masked_analysis(t_doc) == _masked_analysis(j_doc)
+    assert set(t_doc) == {"authorization", "admission"}
+    codes = {f["code"] for f in t_doc["authorization"]["findings"]
+             if f["severity"] == "error"}
+    assert codes == (set() if step == "repair" else {"clause_limit"})
+
+
+@pytest.mark.parametrize("step", GATE_STEPS)
+def test_debug_engine_fallback_equals_jax(gate_sequence, step):
+    """/debug/engine's fallback block (the plane's fallback policies by
+    code) equals the JAX server's, and the served fallback tally of each
+    engine grows by the same counts over the same gated traffic: only a
+    plane that carries the fallback policies (permissive) counts any."""
+    mode, out = gate_sequence
+    rec = out[step]
+    t_fb, j_fb = rec["fallback"]
+    for path in ("authorization", "admission"):
+        assert {k: v for k, v in t_fb[path].items() if k != "served_decisions"} == \
+            {k: v for k, v in j_fb[path].items() if k != "served_decisions"}
+    t_grew, j_grew = rec["served_growth"]
+    assert t_grew == j_grew
+    carries = mode == "permissive" and step != "repair"
+    assert (t_fb["authorization"]["policies"] > 0) is carries
+    assert any(t_grew) is carries

@@ -9,7 +9,9 @@ and store modules under it, against the JAX package's, on the CPU.
     a SAR and exits 0 on SIGTERM; build_server wires each backend and
     takes every device path once before it serves;
   * a StoreConfig parses to the same CedarConfig as the JAX parse_config,
-    JSON and YAML; an unported store type or validation mode raises;
+    JSON and YAML; every validation mode builds stores that carry it, and
+    --validation-mode overrides it; strict ends the CLI with exit code 1
+    on a corpus with a blocking finding, partial and permissive serve;
   * the directory store loads, names and quarantines policies as the JAX
     one does.
 """
@@ -29,6 +31,7 @@ import torch
 
 from cedar_tpu.apis.v1alpha1 import ValidationError as JValidationError
 from cedar_tpu.cli.webhook import make_parser as j_make_parser
+from cedar_tpu.stores.config import cedar_config_stores as j_cedar_config_stores
 from cedar_tpu.stores.config import parse_config as j_parse_config
 from cedar_tpu.stores.directory import DirectoryPolicyStore as JDirectoryPolicyStore
 from cedar_tpu.stores.quarantine import quarantine_registry as j_quarantine_registry
@@ -50,7 +53,7 @@ PORTED_FLAGS = [
     "--breaker-failure-threshold", "--breaker-latency-threshold-ms",
     "--breaker-recovery-seconds", "--breaker-half-open-probes",
     "--supervisor-interval-seconds", "--supervisor-wedge-seconds",
-    "--confirm-non-prod-inject-errors", "--chaos-scenario",
+    "--confirm-non-prod-inject-errors", "--chaos-scenario", "--validation-mode",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
@@ -326,9 +329,118 @@ def test_unported_store_types_raise(store, tmp_path):
 
 @pytest.mark.parametrize("mode", ["strict", "partial"])
 def test_validation_modes_needing_analysis_raise(tmp_path, mode):
-    config = parse_config(_config(tmp_path, validationMode=mode).read_text())
-    with pytest.raises(ValueError, match="analysis"):
-        cedar_config_stores(config)
+    """The modes that need the load-time analysis no longer raise: the
+    config builds tiered stores that carry the mode, as the JAX config
+    does, and their gate passes the directory's clean set with the JAX
+    gate's report."""
+    text = _config(tmp_path, validationMode=mode).read_text()
+    stores = cedar_config_stores(parse_config(text))
+    j_stores = j_cedar_config_stores(j_parse_config(text))
+    try:
+        assert stores.validation_mode == j_stores.validation_mode == mode
+        got, want = stores.analyzed_policy_sets(), j_stores.analyzed_policy_sets()
+        assert [[p.policy_id for p in t.policies()] for t in got] == \
+            [[p.policy_id for p in t.policies()] for t in want]
+        assert stores.last_analysis.to_dict() == j_stores.last_analysis.to_dict()
+    finally:
+        for s in list(stores) + list(j_stores):
+            s.close()
+
+
+# policies strict rejects: the demo set plus an alternation product past
+# the lowering's clause ceiling (a clause_limit finding, severity error)
+CLAUSE_LIMIT = (
+    "forbid (principal, action, resource) when { "
+    + " && ".join(f'(resource.name == "a{i}" || resource.namespace == "b{i}")'
+                  for i in range(12))
+    + " };\n"
+)
+
+
+def _gated_config(tmp_path, **spec):
+    cfg = _config(tmp_path, **spec)
+    (tmp_path / "policies" / "gated.cedar").write_text(CLAUSE_LIMIT)
+    return cfg
+
+
+@pytest.mark.parametrize("config_mode,flag,want", [
+    (None, "", "permissive"),
+    ("strict", "", "strict"),
+    ("strict", "partial", "partial"),
+    ("partial", "permissive", "permissive"),
+    (None, "strict", "strict"),
+])
+def test_validation_mode_flag_overrides_the_config(tmp_path, config_mode, flag, want):
+    """--validation-mode, when given, overrides the config's
+    spec.validationMode (whose default is permissive), for both stacks,
+    as the JAX CLI applies it."""
+    spec = {} if config_mode is None else {"validationMode": config_mode}
+    cfg = _config(tmp_path, **spec)
+    argv = ["--config", str(cfg), "--backend", "interpreter", "--insecure",
+            "--secure-port", "0", "--metrics-port", "0"]
+    if flag:
+        argv += ["--validation-mode", flag]
+    srv = build_server(make_parser().parse_args(argv))
+    try:
+        assert srv.authorizer.stores.validation_mode == want
+        assert srv.admission_handler.stores.validation_mode == want
+    finally:
+        srv.stop()
+
+
+def test_validation_mode_flag_as_jax():
+    jp, tp = j_make_parser(), make_parser()
+    j_act = jp._option_string_actions["--validation-mode"]
+    t_act = tp._option_string_actions["--validation-mode"]
+    assert t_act.choices == j_act.choices == ["", "strict", "permissive", "partial"]
+    assert t_act.default == j_act.default == ""
+
+
+@pytest.mark.parametrize("mode", ["strict", "partial", "permissive"])
+def test_served_modes_over_a_gated_directory(tmp_path, mode):
+    """Each mode on a directory with a clause_limit policy: strict ends
+    the CLI with exit code 1 and the rejection (there is no previous
+    plane and no interpreter fallback); partial compiles both engines
+    without the policy; permissive compiles it as an interpreter-fallback
+    policy. /debug/analysis names the finding; the answers are the
+    demo's."""
+    from cedar_tpu_torch.cli.webhook import main
+
+    cfg = _gated_config(tmp_path)
+    argv = ["--config", str(cfg), "--device", "cpu", "--insecure", "--secure-port", "0",
+            "--metrics-port", "0", "--validation-mode", mode]
+    if mode == "strict":
+        assert main(argv) == 1
+        return
+    srv = build_server(make_parser().parse_args(argv))
+    srv.start()
+    try:
+        for path in ("authorization", "admission"):
+            engine = srv.debug_engine()[path]["engine"]
+            assert engine["fallback"]["policies"] == (mode == "permissive")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.bound_metrics_port}/debug/analysis", timeout=30) as r:
+            doc = json.loads(r.read())
+        assert set(doc) == {"authorization", "admission"}
+        assert doc["authorization"]["counts"]["clause_limit"] == 1
+        assert _post(srv.bound_port, SAM_PODS)["allowed"] is True
+        assert _post(srv.bound_port, BOB_NODES)["denied"] is True
+    finally:
+        srv.stop()
+
+
+def test_startup_strict_rejection_exits_nonzero(tmp_path):
+    """The entry point, with jax and the JAX package blocked: strict
+    validation of a corpus with a blocking finding exits 1 and says why."""
+    cfg = _gated_config(tmp_path, validationMode="strict")
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_MAIN, "--config", str(cfg), "--device", "cpu",
+         "--insecure", "--secure-port", "0", "--metrics-port", "0"],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 1, proc.stderr
+    assert "not serving: policy-set analysis rejected the load" in proc.stderr
+    assert "[clause_limit]" in proc.stderr
 
 
 CONFIG_DOCS = {
