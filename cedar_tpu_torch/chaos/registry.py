@@ -7,6 +7,12 @@ file written for the JAX server validates here unchanged; the seams on
 the port's paths fire:
 
   * ``store.load`` (directory store re-read),
+  * ``store.crd.relist`` / ``store.crd.object`` (the CRD store's list and
+    its per-object parse),
+  * ``cache.get`` / ``cache.put`` (the decision cache's lookup and
+    insert, cache/decision_cache.py; the serving paths treat a raising
+    cache as a miss),
+  * ``engine.shard_compile`` (each dirty shard's lowering),
   * ``engine.encode`` / ``engine.dispatch`` / ``engine.decode`` (the fast
     paths' stages; ``engine.dispatch`` also on the evaluator's own launch
     path, engine/evaluator.py evaluate_batch),
@@ -14,7 +20,7 @@ the port's paths fire:
     (the batchers' worker loops, outside the per-batch containment),
   * ``response`` (the final (decision, reason, error) of /v1/authorize).
 
-The others (CRD store, cache, shadow, rollout, fleet, fanout, load,
+The others (shadow, rollout, fleet, fanout, the peer cache, load,
 lifecycle) belong to modules the port does not have yet: configuring them
 is valid and injects nothing.
 

@@ -58,8 +58,18 @@ raw stores from its interpreter then). Partial compiles the corpus
 without the offending policies; permissive publishes the findings.
 ``/debug/analysis`` serves the last report of each stack.
 
-Flags of the JAX CLI that this port does not serve (cache, fleet,
-tenancy, tracing, partition specs, the artificial error and deny rates,
+Decision cache: ``--decision-cache-size`` (default 65536, 0 disables it)
+puts a canonical-fingerprint LRU+TTL cache with per-class TTLs
+(``--decision-cache-{allow,deny,no-opinion}-ttl-seconds``) in front of
+/v1/authorize, read before the breaker and the batcher; its entries are
+stamped with the authorization engine's shard lineage, so an incremental
+reload kills only the entries its dirty shards decided or that a policy
+it added could decide.
+``--decision-cache-admission`` gives the admission handler its own cache
+for CONNECT and dry-run reviews. ``/debug/cache`` serves their stats.
+
+Flags of the JAX CLI that this port does not serve (fleet, tenancy,
+tracing, rollout, partition specs, the artificial error and deny rates,
 ...) do not exist here, so argparse rejects them.
 """
 
@@ -332,6 +342,48 @@ def _register_supervised(supervisor, server) -> None:
                 )
 
 
+def _generation_fn(tier_stores: TieredPolicyStores, tier_engine):
+    """The composite cache generation of one tier stack. Served by the
+    interpreter, the stores' CONTENT generations (any reload kills every
+    entry). Served by an engine, its plane's SHARD lineage
+    (cache/generation.py plane_composite): entries stamp the generations
+    of their determining policies' shards and their request's action, so
+    an incremental reload kills the entries whose shard changed or that
+    a policy it added could decide, while a full compile or a device
+    rebuild changes the structural plane id and kills all."""
+    if tier_engine is None:
+        return tier_stores.cache_generation
+    from ..cache.generation import plane_composite
+
+    return lambda: plane_composite(tier_stores, tier_engine)
+
+
+def _decision_cache(args, tier_stores, tier_engine, path: str):
+    """The decision cache of one path (--decision-cache-*); None when
+    --decision-cache-size is 0."""
+    if args.decision_cache_size <= 0:
+        return None
+    from ..cache import DecisionCache
+
+    return DecisionCache(
+        max_entries=args.decision_cache_size,
+        allow_ttl_s=args.decision_cache_allow_ttl_seconds,
+        deny_ttl_s=args.decision_cache_deny_ttl_seconds,
+        no_opinion_ttl_s=args.decision_cache_no_opinion_ttl_seconds,
+        generation_fn=_generation_fn(tier_stores, tier_engine),
+        path=path,
+    )
+
+
+def _admission_cache(args, tier_stores, tier_engine):
+    """The admission handler's cache: only with --decision-cache-admission
+    (read-only idempotent reviews; the native admission fast path does
+    not read it, as in the JAX package)."""
+    if not args.decision_cache_admission:
+        return None
+    return _decision_cache(args, tier_stores, tier_engine, "admission")
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -387,13 +439,15 @@ def build_server(args) -> WebhookServer:
     _arm_startup_scenario(args)
     metrics = WebhookMetrics()
     fastpath = admission_fastpath = reloader = None
+    engine = admission_engine = None
     recoveries = []
     if args.backend == "interpreter":
         if not len(stores.stores):
             log.warning("no policy stores configured; authorizer will no-opinion")
         authorizer = CedarWebhookAuthorizer(stores)
         admission_handler = CedarAdmissionHandler(
-            admission_stores, allow_on_error=admission_fail_open
+            admission_stores, allow_on_error=admission_fail_open,
+            cache=_admission_cache(args, admission_stores, None),
         )
     else:
         if not len(stores.stores):
@@ -427,6 +481,7 @@ def build_server(args) -> WebhookServer:
             admission_stores,
             allow_on_error=admission_fail_open,
             evaluate_batch=admission_engine.evaluate_batch,
+            cache=_admission_cache(args, admission_stores, admission_engine),
         )
         if not args.no_native:
             from ..engine.fastpath import AdmissionFastPath, SARFastPath
@@ -494,6 +549,7 @@ def build_server(args) -> WebhookServer:
         supervisor=supervisor,
         analysis_provider=analysis_provider,
         chaos_control_enabled=args.confirm_non_prod_inject_errors,
+        decision_cache=_decision_cache(args, stores, engine, "authorization"),
     )
     if supervisor is not None:
         _register_supervised(supervisor, server)
@@ -697,6 +753,45 @@ def make_parser() -> argparse.ArgumentParser:
         help="arm a chaos scenario at startup: a built-in name "
         "(kill-decode, device-loss, store-stall, ...) or a scenario JSON "
         "file; requires --confirm-non-prod-inject-errors",
+    )
+
+    cache = parser.add_argument_group("decision cache")
+    cache.add_argument(
+        "--decision-cache-size",
+        type=int,
+        default=65536,
+        help="max cached decisions (sharded LRU; 0 disables the cache). "
+        "Keys are canonical request fingerprints; entries die on policy "
+        "reload (generation bump) or their decision-class TTL",
+    )
+    cache.add_argument(
+        "--decision-cache-allow-ttl-seconds",
+        type=float,
+        default=300.0,
+        help="TTL for cached Allow decisions (mirrors kube-apiserver's "
+        "--authorization-webhook-cache-authorized-ttl posture; 0 disables "
+        "caching allows)",
+    )
+    cache.add_argument(
+        "--decision-cache-deny-ttl-seconds",
+        type=float,
+        default=30.0,
+        help="TTL for cached Deny decisions (shorter than allows: a newly "
+        "granted permission should take effect quickly; 0 disables)",
+    )
+    cache.add_argument(
+        "--decision-cache-no-opinion-ttl-seconds",
+        type=float,
+        default=5.0,
+        help="TTL for cached NoOpinion decisions (shortest: these usually "
+        "fall through to RBAC and carry the least signal; 0 disables)",
+    )
+    cache.add_argument(
+        "--decision-cache-admission",
+        action="store_true",
+        help="opt-in admission decision caching, gated to read-only "
+        "idempotent reviews (CONNECT operations and dryRun requests); "
+        "mutating reviews always evaluate",
     )
 
     debug = parser.add_argument_group("debug")

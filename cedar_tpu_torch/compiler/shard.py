@@ -47,11 +47,13 @@ from __future__ import annotations
 import hashlib
 import itertools
 import time
+from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, FrozenSet, List, Optional, Tuple
 
 from ..chaos.registry import chaos_fire
 from ..lang.ast import Policy
+from ..schema.consts import ADMISSION_ACTION_ALL, ADMISSION_ACTION_ENTITY_TYPE
 from .ir import CompiledPolicies, FallbackPolicy, LoweredPolicy, Unlowerable
 from .lower import AUTHZ_SCHEMA_INFO, SchemaInfo, lower_policy
 
@@ -66,7 +68,9 @@ __all__ = [
     "CompiledShard",
     "ShardCompiler",
     "bucket_hash_count",
+    "policy_actions",
     "policy_fingerprint",
+    "policy_semantics",
     "shard_bucket",
     "shard_tenant",
 ]
@@ -100,10 +104,47 @@ def policy_fingerprint(policy: Policy) -> str:
         h.update(b"\x00")
         h.update(repr(policy.position).encode())
         h.update(b"\x00")
-        h.update(format_policy(policy).encode())
+        text = format_policy(policy)
+        h.update(text.encode())
         fp = h.hexdigest()
         policy.__dict__["_cedar_content_fp"] = fp
+        policy.__dict__.setdefault(
+            "_cedar_semantic_fp", hashlib.sha256(text.encode()).hexdigest())
     return fp
+
+
+def policy_semantics(policy: Policy) -> str:
+    """Fingerprint of what a policy decides, memoized on the object: its
+    effect, scope, conditions and annotations, WITHOUT its id, file and
+    position. Two policies with equal semantics match the same
+    requests."""
+    fp = policy.__dict__.get("_cedar_semantic_fp")
+    if fp is None:
+        from ..lang.format import format_policy
+
+        fp = hashlib.sha256(format_policy(policy).encode()).hexdigest()
+        policy.__dict__["_cedar_semantic_fp"] = fp
+    return fp
+
+
+def policy_actions(policy: Policy) -> Optional[FrozenSet[str]]:
+    """The actions a policy can apply to, as the request's action uid
+    renders (``k8s::Action::"get"``), from its action scope: None when
+    the scope does not bound them (a bare ``action``, an ``is`` scope, or
+    the admission ``all`` action group that every admission action
+    descends from). Conditions can only narrow what the scope admits."""
+    sc = policy.action
+    if sc.op == "eq":
+        ents = (sc.entity,)
+    elif sc.op == "in":
+        ents = sc.entities or (sc.entity,)
+    else:
+        return None
+    for e in ents:
+        if e is None or (e.type == ADMISSION_ACTION_ENTITY_TYPE
+                         and e.id == ADMISSION_ACTION_ALL):
+            return None
+    return frozenset(repr(e) for e in ents)
 
 
 def shard_bucket(policy: Policy, n_buckets: int) -> int:
@@ -287,6 +328,7 @@ class ShardCompiler:
             else:
                 dirty.append(sid)
         removed = [sid for sid in self._shards if sid not in plan]
+        added_actions = self._added_actions(plan, dirty, topology_changed)
         hash_s = time.monotonic() - t_start
 
         # 2. lower the dirty shards only. self._shards stays as it is
@@ -369,12 +411,52 @@ class ShardCompiler:
             "policy_shard": {
                 pid: sid for pid, sid in policy_shard.items() if sid
             },
+            # per dirty shard, the actions its newly added policies can
+            # apply to (None: unbounded); the decision cache's scoped
+            # stamps read it (cache/generation.py)
+            "added_actions": added_actions,
             "phase_seconds": {"hash": hash_s, "lower": lower_s},
             "partition": spec.name if spec is not None else None,
             # what commit() installs once the plane is published
             "commit": (fresh, len(tiers)),
         }
         return out, info
+
+    def _added_actions(self, plan, dirty, topology_changed) -> dict:
+        """{dirty shard: the actions its added policies can apply to, or
+        None when one is unbounded}. Policies are counted by (tier,
+        policy_semantics) over all the dirty shards, before and after: a
+        policy is added when its count grew. A policy that only moved (to
+        another position, id or shard of its tier) matches the same
+        requests as before, and every cached decision it determined names
+        it, so its old shard's stamp already covers those; a second copy
+        of a policy is added (an allow's reason lists every permit it
+        satisfies)."""
+        before: Counter = Counter()
+        if not topology_changed:
+            for sid in dirty:
+                prev = self._shards.get(sid)
+                if prev is not None:
+                    before.update((prev.tier, policy_semantics(x.policy))
+                                  for x in prev.lowered + prev.fallback)
+        out: dict = {}
+        for sid in dirty:
+            if sid not in plan:
+                continue
+            tier, _digest, pols = plan[sid]
+            acts: Optional[set] = set()
+            for p in pols:
+                key = (tier, policy_semantics(p))
+                if before[key] > 0:
+                    before[key] -= 1
+                    continue
+                a = policy_actions(p)
+                if a is None or acts is None:
+                    acts = None
+                    continue
+                acts |= a
+            out[sid] = None if acts is None else frozenset(acts)
+        return out
 
     def commit(self, info: dict) -> None:
         """Make the shard map of a compile() the one the next compile

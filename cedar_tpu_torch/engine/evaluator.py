@@ -108,8 +108,12 @@ class PlaneState:
 
     ``shard_gens`` steps per dirty shard on an incremental reload;
     ``structural`` changes whenever the whole plane is new (full compile,
-    tier-topology change, device rebuild). The dicts are never mutated
-    once the set is published: a load builds fresh copies."""
+    tier-topology change, device rebuild). ``shard_added`` keeps, per
+    shard of this structural lineage, its last steps as (generation, the
+    actions its added policies can apply to, None when unbounded): what
+    a decision cached before the step must check (cache/generation.py).
+    The dicts are never mutated once the set is published: a load builds
+    fresh copies."""
 
     structural: int
     shard_gens: Dict[str, int] = field(default_factory=dict)
@@ -117,6 +121,12 @@ class PlaneState:
     policy_shard: Dict[str, str] = field(default_factory=dict)
     scope: str = "full"  # how this plane came to be serving
     dirty: Tuple[str, ...] = ()
+    shard_added: Dict[str, tuple] = field(default_factory=dict)
+
+
+# steps of a shard's history a plane keeps; an older step reads as one of
+# unbounded actions, which only costs cached entries
+_SHARD_HISTORY = 32
 
 
 def _round_bucket(n: int, buckets) -> int:
@@ -578,13 +588,25 @@ class TorchPolicyEngine:
             and prev_plane is self._last_plane
         )
         hashes = dict(info.get("shard_hashes", ()))
+        added: Dict[str, tuple] = {}
         if continues:
             gens = {sid: g for sid, g in prev_plane.shard_gens.items() if sid in hashes}
+            added = {sid: h for sid, h in prev_plane.shard_added.items() if sid in hashes}
+            added_actions = info.get("added_actions", {})
             for sid in info.get("dirty", ()):
                 if sid in hashes:
                     gens[sid] = next(self._shard_gen_seq)
+                    hist = added.get(sid, ()) + ((gens[sid], added_actions.get(sid)),)
+                    if len(hist) > _SHARD_HISTORY:
+                        hist = ((hist[-_SHARD_HISTORY][0], None),) + hist[1 - _SHARD_HISTORY:]
+                    added[sid] = hist
             for sid in hashes:
-                gens.setdefault(sid, next(self._shard_gen_seq))
+                # a number is drawn for every shard, as the JAX engine's
+                # setdefault draws one, so the generations stay its own
+                g = next(self._shard_gen_seq)
+                if sid not in gens:
+                    gens[sid] = g
+                    added[sid] = ((g, None),)
             structural = prev_plane.structural
         else:
             structural = next(_plane_structs)
@@ -596,6 +618,7 @@ class TorchPolicyEngine:
             policy_shard=dict(info.get("policy_shard", ())),
             scope=scope or "full",
             dirty=tuple(info.get("dirty", ())),
+            shard_added=added,
         )
 
     def shard_status(self) -> dict:
@@ -616,6 +639,23 @@ class TorchPolicyEngine:
             "hashes": {sid: h[:12] for sid, h in hashes.items()},
             "hashes_truncated": len(pl.shard_hashes) > 256,
         }
+
+    def plane_generation(self):
+        """The decision cache's composite-generation unit for this engine
+        (cache/generation.py), as the JAX engine's: a PlaneGenerations
+        over the serving plane's shard lineage, or ``("unloaded",
+        load_generation)`` before the first load. Cheap: it wraps
+        references and copies nothing."""
+        cs = self._compiled
+        if cs is None:
+            return ("unloaded", self.load_generation)
+        pl = cs.plane
+        if pl is None:
+            return ("plane", self.load_generation)
+        from ..cache.generation import PlaneGenerations
+
+        return PlaneGenerations(("plane", pl.structural), pl.shard_gens, pl.policy_shard,
+                                pl.shard_added)
 
     def rebuild_compiled(self, max_batch: Optional[int] = None) -> Optional[dict]:
         """Re-place the current compiled set on the device from its

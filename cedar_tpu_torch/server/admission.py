@@ -77,6 +77,17 @@ def allow_all_admission_policy_store() -> StaticStore:
     )
 
 
+def cacheable_admission_request(req: AdmissionRequest) -> bool:
+    """The read-only-idempotent gate of the opt-in admission decision
+    cache: only reviews with no write effect may be answered from cache,
+    CONNECT checks (exec/attach/port-forward connection gating, re-issued
+    per session) and dry-run reviews (evaluation-identical to the real
+    write by definition). Mutating CREATE/UPDATE/DELETE reviews always
+    evaluate: their repeat rate is low and a stale answer on a write is
+    the wrong trade even bounded by a TTL."""
+    return req.operation == "CONNECT" or req.dry_run
+
+
 @dataclass
 class AdmissionResponse:
     uid: str
@@ -109,10 +120,17 @@ class CedarAdmissionHandler:
         allow_on_error: bool = True,
         evaluate=None,
         evaluate_batch=None,
+        cache=None,
     ):
         self.stores = stores
         self.allow_on_error = allow_on_error
         self._all_stores_ready = False
+        # opt-in decision cache (cache/decision_cache.py DecisionCache),
+        # consulted only for requests passing cacheable_admission_request
+        # (admission traffic is write-shaped and rarely repeats); as in the
+        # JAX package, only this handler reads it, not the native
+        # admission fast path
+        self.cache = cache
         # optional batched backend: [(entities, request)] -> [(decision,
         # diagnostics)], one device call per batch; when wired, every
         # evaluation goes through it (never the interpreter behind an
@@ -157,10 +175,20 @@ class CedarAdmissionHandler:
         responses: list = [None] * len(reqs)
         ready = self._ready() if reqs else True
         build: list = []  # (index, entities, cedar_request)
+        cache_keys: dict = {}  # index -> (fingerprint, generation snapshot, action)
         for i, req in enumerate(reqs):
             if req.namespace in SKIPPED_NAMESPACES or not ready:
                 responses[i] = AdmissionResponse(uid=req.uid, allowed=True)
                 continue
+            if self.cache is not None and cacheable_admission_request(req):
+                keyed, hit = self._cache_lookup(req)
+                if hit is not None:
+                    # cached values carry no uid (the fingerprint leaves
+                    # the per-review nonce out): rebuilt around this one
+                    responses[i] = AdmissionResponse(uid=req.uid, allowed=hit[0], message=hit[1])
+                    continue
+                if keyed is not None:
+                    cache_keys[i] = keyed
             try:
                 entities, cedar_req = self._build(req)
             except Exception as e:  # conversion error
@@ -181,6 +209,8 @@ class CedarAdmissionHandler:
                     responses[i] = self._error(reqs[i], e)
                     continue
                 responses[i] = self._decide(reqs[i], decision, diagnostics)
+                self._cache_put(cache_keys.get(i), responses[i], diagnostics,
+                                tenant=getattr(reqs[i], "tenant", ""))
             return responses
         try:
             verdicts = self._evaluate_batch([(em, cr) for _, em, cr in build])
@@ -197,7 +227,53 @@ class CedarAdmissionHandler:
             return responses
         for (i, _, _), (decision, diagnostics) in zip(build, verdicts):
             responses[i] = self._decide(reqs[i], decision, diagnostics)
+            self._cache_put(cache_keys.get(i), responses[i], diagnostics,
+                            tenant=getattr(reqs[i], "tenant", ""))
         return responses
+
+    def _cache_lookup(self, req: AdmissionRequest):
+        """((fingerprint, generation snapshot, action uid) or None, cached
+        value or None) of a cacheable request. The generation is taken BEFORE the
+        evaluation (DecisionCache.current_generation); a raising cache is
+        a miss that is not inserted afterwards."""
+        from ..cache.fingerprint import fingerprint_admission_request
+
+        key = fingerprint_admission_request(req)
+        try:
+            gen = self.cache.current_generation()
+            hit = self.cache.get(key)
+        except Exception:  # noqa: BLE001 — a sick cache is a miss
+            log.exception("admission cache lookup failed; evaluating")
+            return None, None
+        return (key, gen, repr(admission_action_uid(req))), hit
+
+    def _cache_put(self, keyed, response: AdmissionResponse, diagnostics,
+                   tenant: str = "") -> None:
+        """Insert a clean decision of a cacheable request. Errored
+        responses (the allow-on-error posture) and verdicts carrying
+        evaluation-error diagnostics are transient: caching either would
+        pin a transient failure for its TTL."""
+        if keyed is None or self.cache is None or response.error is not None:
+            return
+        if diagnostics is not None and diagnostics.errors:
+            return
+        key, generation, action = keyed
+        try:
+            # shard-scoped stamp when the message names the determining
+            # policies (cache/generation.py): an incremental reload then
+            # kills the entries whose shard changed or that a policy it
+            # added can apply to
+            scoped = getattr(generation, "scoped", None)
+            if scoped is not None and response.message:
+                generation = scoped(response.message, tenant=tenant, action=action)
+            self.cache.put(
+                key,
+                (response.allowed, response.message),
+                "allow" if response.allowed else "deny",
+                generation=generation,
+            )
+        except Exception:  # noqa: BLE001 — a sick cache only costs re-evaluation
+            log.exception("admission cache insert failed; decision served")
 
     def _error(self, req: AdmissionRequest, e: Exception) -> AdmissionResponse:
         return AdmissionResponse(

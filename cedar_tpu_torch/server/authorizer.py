@@ -81,9 +81,18 @@ class CedarWebhookAuthorizer:
         stores: TieredPolicyStores,
         evaluate: Optional[EvaluateFn] = None,
         evaluate_batch=None,
+        cache=None,
     ):
         self.stores = stores
         self._stores_loaded = False
+        # optional decision cache (cache/decision_cache.py DecisionCache)
+        # consulted by authorize() AFTER the short-circuits and the
+        # readiness gate, as in the JAX package: with attributes already
+        # parsed, the self-allows and system:* skips are cheaper than a
+        # fingerprint. The webhook server keys its own cache on the raw
+        # body and calls authorize() with use_cache=False when it has one;
+        # this seam serves direct embedders
+        self.cache = cache
         # optional batched backend ([(entities, request)] -> [(decision,
         # diagnostics)]): authorize_batch funnels every non-short-circuited
         # item through ONE call (one device dispatch on the engine)
@@ -210,14 +219,42 @@ class CedarWebhookAuthorizer:
                 results[i] = self._map_verdict(decision, diag)
         return results
 
-    def authorize(self, attributes: Attributes) -> Tuple[str, str]:
-        """Returns (decision, reason)."""
+    def authorize(self, attributes: Attributes, use_cache: bool = True) -> Tuple[str, str]:
+        """Returns (decision, reason). ``use_cache=False`` bypasses the
+        authorizer's decision cache for callers that already looked up
+        the same canonical key (the webhook server). An errored
+        evaluation is never cached; a raising cache is a miss."""
         short = self._short_circuit(attributes)
         if short is not None:
             return short
+
+        cache_key = None
+        cache_gen = None
+        if use_cache and self.cache is not None:
+            from ..cache.fingerprint import fingerprint_attributes
+
+            cache_key = fingerprint_attributes(attributes)
+            try:
+                # snapshot before evaluating: a reload landing meanwhile
+                # must not let this result survive under its generation
+                cache_gen = self.cache.current_generation()
+                hit = self.cache.get(cache_key)
+            except Exception:  # noqa: BLE001 — a sick cache is a miss
+                log.exception("authorizer cache lookup failed; evaluating")
+                cache_key = None
+                hit = None
+            if hit is not None:
+                return hit
+
         entities, request = record_to_cedar_resource(attributes)
         decision, diagnostic = self._evaluate(entities, request)
-        return self._map_verdict(decision, diagnostic)
+        result = self._map_verdict(decision, diagnostic)
+        if cache_key is not None and not diagnostic.errors:
+            try:
+                self.cache.put(cache_key, result, result[0], generation=cache_gen)
+            except Exception:  # noqa: BLE001 — the answer still serves
+                log.exception("authorizer cache insert failed")
+        return result
 
 
 def _diagnostic_to_reason(diagnostic: Diagnostics) -> str:

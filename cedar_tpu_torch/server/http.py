@@ -19,7 +19,8 @@ reference's internal/server/server.go + health.go), for two entry points:
     and latency histogram, with ``<error>`` as the label on errors;
   * a plain-HTTP health and metrics server (default 127.0.0.1:10289):
     ``/healthz``, ``/readyz`` (503 while draining or before every store's
-    initial load), ``/metrics``, ``/debug/engine``, ``/debug/supervisor``
+    initial load), ``/metrics``, ``/debug/engine``, ``/debug/cache`` (the
+    decision caches' stats per path), ``/debug/supervisor``
     (the watchdog's components, the device recoveries, the quarantine),
     ``/debug/chaos`` (the chaos registry) and ``/debug/analysis`` (the
     last load-time analysis report per engine, when the server has an
@@ -36,6 +37,21 @@ launch. Without a fast path (``--backend interpreter``, or
 admission reviews through the handler (batched over the engine when the
 handler has a batched backend). A failed batch is never re-run on another
 path: its requests answer the error.
+
+A decision cache (cache/, ``decision_cache``) sits in front of both
+/v1/authorize paths, as in the JAX server: the raw body maps to its
+canonical fingerprint through a memo sized like the cache, and once every
+store's initial load is complete (the ready latch) a hit answers without
+touching the batcher, the breaker or the engine. A miss leads a
+singleflight (cache/singleflight.py), so concurrent identical misses
+evaluate once, and submits with the key as the batcher's
+``coalesce_key``; its clean answer is stored under the serving plane's
+generation snapshot taken before the evaluation, scoped to the shards of
+the policies its reason names (cache/generation.py). An answer with an
+error (a failed batch, a deadline, the breaker's posture, a body that
+does not decode) is never cached, and a cache that raises is a miss that
+goes on to the device path. ``/debug/cache`` on the metrics port serves
+each cache's stats() per path (the admission handler's cache too).
 
 Each fast path may sit behind a circuit breaker (engine/breaker.py). While
 it is open a request answers the failure posture before it is submitted
@@ -69,6 +85,8 @@ from ..chaos.scenario import ScenarioError, load_scenario
 from ..engine.batcher import DeadlineExceeded, MicroBatcher, PipelinedBatcher
 from ..engine.breaker import BreakerOpen
 from ..entities.admission import AdmissionRequest, review_request_uid
+from ..lang.values import EntityUID
+from ..schema.consts import AUTHORIZATION_ACTION_ENTITY_TYPE
 from ..stores.quarantine import quarantine_registry
 from .admission import AdmissionResponse, CedarAdmissionHandler
 from .authorizer import (
@@ -94,6 +112,18 @@ _DECISION_LABEL = {
     DECISION_DENY: "Deny",
     DECISION_NO_OPINION: "NoOpinion",
 }
+
+
+def _sar_action(body: bytes) -> Optional[str]:
+    """The Cedar action uid of a SubjectAccessReview body as it renders
+    (``k8s::Action::"get"``), the key a shard-scoped cache stamp checks
+    added policies against (cache/generation.py); None when the body does
+    not parse."""
+    try:
+        verb = get_authorizer_attributes(json.loads(body)).verb
+    except Exception:  # noqa: BLE001 — None: the stamp dies at any change
+        return None
+    return repr(EntityUID(AUTHORIZATION_ACTION_ENTITY_TYPE, verb))
 
 
 def _loads_or_none(body: bytes):
@@ -179,8 +209,23 @@ class WebhookServer:
         supervisor=None,
         chaos_control_enabled: bool = False,
         analysis_provider=None,
+        decision_cache=None,
     ):
         self.authorizer = authorizer
+        # the /v1/authorize decision cache (cache/decision_cache.py), read
+        # before the breaker and the batcher; None serves every request
+        # from the engines
+        self.decision_cache = decision_cache
+        self._sar_memo = None
+        self._sar_flights = None
+        if decision_cache is not None:
+            from ..cache import FingerprintMemo, SingleFlight
+
+            # sized with the cache: a working set that fits the cache must
+            # also fit the body -> fingerprint memo, or every hit pays a
+            # JSON parse
+            self._sar_memo = FingerprintMemo(capacity=decision_cache.max_entries)
+            self._sar_flights = SingleFlight("authorization")
         # the last load-time analysis reports per engine (cli/webhook.py);
         # /debug/analysis answers 404 without one
         self.analysis_provider = analysis_provider
@@ -290,7 +335,7 @@ class WebhookServer:
         request_id = os.urandom(16).hex()
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
-            decision, reason, error = self._authorize(body, request_id, start)
+            decision, reason, error = self._authorize_cached(body, request_id, start)
             if error is None:
                 # the registry's `response` seam: one attribute read
                 # unless a game day armed it
@@ -304,18 +349,92 @@ class WebhookServer:
                 "authorize requestId=%s decision=%s latency=%.6fs", request_id, label, latency
             )
 
-    def _authorize(self, body: bytes, request_id: str, start: float):
-        """(decision, reason, error) through the fast path's batcher, or,
-        without a fast path, through the authorizer in this thread. The
-        batcher gets what remains of the request's budget since ``start``."""
+    def _authorize_cached(self, body: bytes, request_id: str, start: float):
+        """(decision, reason, error) through the decision cache: a hit
+        answers without touching the breaker, the batcher or the engine; a
+        miss leads (or follows) one singleflight evaluation whose clean
+        answer is stored for the next arrival. An answer with an error is
+        never stored. One budget for the whole request, since ``start``:
+        the lookup, the coalesced wait and the submit spend it."""
+        cache = self.decision_cache
+        if cache is None or not self._cache_usable():
+            return self._authorize_uncached(body, request_id, start)
+        key = self._sar_memo.fingerprint("authorize", body)
+        if key is None:
+            # a body that does not parse: the uncached path gives its
+            # decode-error answer (never cached: no parse, no key)
+            return self._authorize_uncached(body, request_id, start)
+        # the generation snapshot comes BEFORE the evaluation: a reload
+        # landing while the leader evaluates leaves the entry stamped
+        # pre-reload, so it dies at its first lookup after the swap. A
+        # raising cache is a miss on the device path, never an answer
+        try:
+            gen = cache.current_generation()
+            hit = cache.get(key)
+        except Exception:  # noqa: BLE001 — a sick cache is a miss
+            log.exception("decision cache lookup failed; evaluating")
+            return self._authorize_uncached(body, request_id, start)
+        if hit is not None:
+            return hit[0], hit[1], None
+
+        def _leader():
+            res = self._authorize_uncached(body, request_id, start, coalesce_key=key)
+            if res[2] is None:
+                try:
+                    # scoped to the shards of the policies the reason
+                    # names and to the request's action
+                    # (cache/generation.py): an incremental reload then
+                    # kills the entries whose shard changed or that a
+                    # policy it added could decide
+                    scoped = getattr(gen, "scoped", None)
+                    g = scoped(res[1], action=_sar_action(body)) if scoped is not None else gen
+                    cache.put(key, (res[0], res[1]), res[0], generation=g)
+                except Exception:  # noqa: BLE001 — the answer still serves
+                    log.exception("decision cache insert failed")
+            return res
+
+        try:
+            result, _ = self._sar_flights.do(key, _leader, timeout=self._remaining(start))
+        except DeadlineExceeded as e:
+            # a FOLLOWER's budget ran out waiting on its leader, which
+            # keeps running; its answer still warms the cache
+            self.metrics.record_deadline_exceeded("authorization")
+            return DECISION_NO_OPINION, "", f"evaluation error: {e}"
+        except Exception as e:  # noqa: BLE001 — always answer the apiserver
+            log.exception("coalesced authorize requestId=%s failed", request_id)
+            return DECISION_NO_OPINION, "", f"evaluation error: {e}"
+        return result
+
+    def _cache_usable(self) -> bool:
+        """No caching until every store's initial load is complete: a
+        pre-ready NoOpinion is a start-up artifact, not a decision (the
+        authorizer's ready() latch makes this cheap at steady state)."""
+        try:
+            return self.authorizer is None or self.authorizer.ready()
+        except Exception:  # noqa: BLE001 — unready reads as uncacheable
+            return False
+
+    def _remaining(self, start: float) -> Optional[float]:
+        """What is left of the request's budget since ``start`` (None
+        without one)."""
+        if self.request_timeout_s is None:
+            return None
+        return self.request_timeout_s - (time.monotonic() - start)
+
+    def _authorize_uncached(self, body: bytes, request_id: str, start: float,
+                            coalesce_key: Optional[str] = None):
+        """(decision, reason, error) through the fast path's batcher (the
+        breaker first), or, without a fast path, through the authorizer in
+        this thread. The batcher gets what remains of the request's budget
+        since ``start``; ``coalesce_key`` lets concurrent identical
+        submits share one batch row."""
         if self._batcher is not None:
             if not self._breaker_admits(self.fastpath, "authorization"):
                 return DECISION_NO_OPINION, "", f"evaluation error: {BreakerOpen.MESSAGE}"
-            timeout = None
-            if self.request_timeout_s is not None:
-                timeout = self.request_timeout_s - (time.monotonic() - start)
             try:
-                return self._batcher.submit(body, timeout=timeout)
+                return self._batcher.submit(
+                    body, timeout=self._remaining(start), coalesce_key=coalesce_key
+                )
             except DeadlineExceeded as e:
                 self.metrics.record_deadline_exceeded("authorization")
                 if not e.queued:
@@ -336,7 +455,11 @@ class WebhookServer:
                 f"failed parsing request body: {e}",
             )
         try:
-            decision, reason = self.authorizer.authorize(get_authorizer_attributes(sar))
+            # the authorizer's own cache only when the server has none:
+            # the server's already missed on this canonical key
+            decision, reason = self.authorizer.authorize(
+                get_authorizer_attributes(sar), use_cache=self.decision_cache is None
+            )
         except Exception as e:  # noqa: BLE001 — always answer the apiserver
             log.exception("authorize requestId=%s failed", request_id)
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
@@ -471,9 +594,26 @@ class WebhookServer:
         doc["quarantine"] = quarantine_registry().snapshot()
         return doc
 
+    def debug_cache(self) -> dict:
+        """The /debug/cache document: each decision cache's stats() by
+        path (``authorization``, and ``admission`` when the admission
+        handler has one); {} with no cache."""
+        doc = {}
+        if self.decision_cache is not None:
+            doc["authorization"] = self.decision_cache.stats()
+        adm_cache = getattr(self.admission_handler, "cache", None)
+        if adm_cache is not None:
+            doc["admission"] = adm_cache.stats()
+        return doc
+
     def _make_handler(server):  # noqa: N805 — bound as a class closure
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # the status line and headers go out in one write and the body
+            # in another: with Nagle's algorithm on, the body then waits
+            # for the client's delayed ACK of the headers (about 40 ms on
+            # Linux loopback) before it is sent
+            disable_nagle_algorithm = True
 
             def log_message(self, fmt, *args):
                 log.debug("%s %s", self.address_string(), fmt % args)
@@ -566,6 +706,8 @@ class WebhookServer:
                     self._debug("engine stats", server.debug_engine)
                 elif self.path == "/debug/supervisor":
                     self._debug("supervisor status", server.debug_supervisor)
+                elif self.path == "/debug/cache":
+                    self._debug("cache stats", server.debug_cache)
                 elif self.path == "/debug/chaos":
                     self._debug("chaos stats", default_registry().stats)
                 elif self.path == "/debug/analysis":

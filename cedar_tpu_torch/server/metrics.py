@@ -62,6 +62,18 @@ count at their interpreter merge:
     finding's reason code);
   * ``cedar_fallback_decisions_total{code,engine}``, read per engine by
     /debug/engine and /debug/analysis (``fallback_decision_counts``).
+
+So are the decision cache's families, which the cache objects
+(cache/decision_cache.py, cache/singleflight.py) record through the
+module-level ``record_cache_*`` / ``set_cache_*`` functions, as in the
+JAX package:
+
+  * ``cedar_decision_cache_hits_total{path}``,
+    ``cedar_decision_cache_misses_total{path}``,
+    ``cedar_decision_cache_evictions_total{path,reason}`` and
+    ``cedar_decision_cache_coalesced_total{path}``;
+  * ``cedar_decision_cache_size{path}`` and
+    ``cedar_decision_cache_hit_ratio{path}``.
 """
 
 from __future__ import annotations
@@ -326,12 +338,60 @@ class _ProcessFamilies:
             "alert on new codes appearing, not on magnitude.",
             ["kind"],
         )
+        # the decision cache's families (cache/): each cache object
+        # records its own path's series, as the JAX package's does
+        self.decision_cache_hits_total = Counter(
+            "cedar_decision_cache_hits_total",
+            "Decision cache lookups answered from cache, partitioned by path "
+            "(authorization / admission). A hit returns without any engine or "
+            "interpreter evaluation.",
+            ["path"],
+        )
+        self.decision_cache_misses_total = Counter(
+            "cedar_decision_cache_misses_total",
+            "Decision cache lookups that fell through to evaluation, "
+            "partitioned by path. Expired-TTL and stale-generation entries "
+            "count as misses (and as evictions).",
+            ["path"],
+        )
+        self.decision_cache_evictions_total = Counter(
+            "cedar_decision_cache_evictions_total",
+            "Decision cache entries dropped, partitioned by path and reason "
+            "(lru: capacity pressure; ttl: decision-class TTL elapsed; "
+            "generation: policy-set reload invalidated the entry; flush: "
+            "operator/test invalidate_all). A persistent lru rate means the "
+            "working set exceeds --decision-cache-size.",
+            ["path", "reason"],
+        )
+        self.decision_cache_coalesced_total = Counter(
+            "cedar_decision_cache_coalesced_total",
+            "Requests that attached to an in-flight identical evaluation "
+            "(singleflight followers), partitioned by path. These requests "
+            "neither hit nor evaluated: they waited for a concurrent leader.",
+            ["path"],
+        )
+        self.decision_cache_size = Gauge(
+            "cedar_decision_cache_size",
+            "Current decision cache entry count, partitioned by path.",
+            ["path"],
+        )
+        self.decision_cache_hit_ratio = Gauge(
+            "cedar_decision_cache_hit_ratio",
+            "Lifetime hits / (hits + misses), partitioned by path. Alert on a "
+            "sustained drop: repetitive apiserver traffic should hold a high "
+            "ratio, and a collapse usually means TTLs are too short or policy "
+            "reloads are churning generations.",
+            ["path"],
+        )
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
             self.chaos_injections_total, self.worker_deaths_total,
             self.fallback_decisions_total, self.policy_fastpath_lowerable,
             self.policy_analysis_findings_total,
+            self.decision_cache_hits_total, self.decision_cache_misses_total,
+            self.decision_cache_evictions_total, self.decision_cache_coalesced_total,
+            self.decision_cache_size, self.decision_cache_hit_ratio,
         )
 
     def collect(self) -> List[str]:
@@ -410,6 +470,31 @@ def set_fastpath_lowerable(tier: int, count: int) -> None:
 def record_analysis_findings(kind: str, n: int) -> None:
     if n:
         _PROCESS.policy_analysis_findings_total.inc(n, kind=kind)
+
+
+def record_cache_hit(path: str) -> None:
+    _PROCESS.decision_cache_hits_total.inc(path=path)
+
+
+def record_cache_miss(path: str) -> None:
+    _PROCESS.decision_cache_misses_total.inc(path=path)
+
+
+def record_cache_evictions(path: str, reason: str, n: int = 1) -> None:
+    if n:
+        _PROCESS.decision_cache_evictions_total.inc(n, path=path, reason=reason)
+
+
+def record_cache_coalesced(path: str) -> None:
+    _PROCESS.decision_cache_coalesced_total.inc(path=path)
+
+
+def set_cache_size(path: str, size: int) -> None:
+    _PROCESS.decision_cache_size.set(size, path=path)
+
+
+def set_cache_hit_ratio(path: str, ratio: float) -> None:
+    _PROCESS.decision_cache_hit_ratio.set(round(ratio, 6), path=path)
 
 
 class WebhookMetrics:

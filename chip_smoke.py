@@ -175,7 +175,7 @@ Phases, each a hard failure with a nonzero exit:
      answer counts by kind, the rebuild's phases and the allocator before
      and after; the phase's resilience metrics and wall time.
 
-  12. the CRD store with incremental reloads (this slice's main path): a
+  12. the CRD store with incremental reloads: a
      standard-library fake apiserver (FakeApiServer: list, watch stream,
      410) on 127.0.0.1, its kubeconfig written as JSON, serving phase
      10's policy set as Policy objects: synth_corpus(--policies, --seed)
@@ -207,7 +207,7 @@ Phases, each a hard failure with a nonzero exit:
      it, for events 4 and 5); the server's peak RSS and the phase's wall
      time.
 
-  13. the validationMode load gate (this slice's main path): first its
+  13. the validationMode load gate: first its
      cost, the port's analyze_tiers alone in this process over the
      corpus and both gated policies (L 6144 x R 10240 at the defaults),
      each pass timed (lower_all, lint_lowerability, find_shadowing,
@@ -242,16 +242,43 @@ Phases, each a hard failure with a nonzero exit:
      swap, the gated rows per batch before and after the partial swap,
      launches, peak RSS and the phase's wall time.
 
+  14. the decision cache (this slice's main path): phase 12's 1,002
+     Policy objects on FakeApiServer, the CLI at its cache defaults
+     (--decision-cache-size 65536, TTLs 300 / 30 / 5 s), both engines
+     incremental over 64 buckets, --reload-seconds 1. A working set of
+     the first 1,024 SARs of phase 12's pool with distinct cache keys
+     (gated rows included), each answer held against the interpreter
+     over the tiers live at that moment (canon: decision, reason set
+     with positions, error): (a) a warm pass at concurrency 64 (every
+     key misses once; both kernels launch); (b) the allow keys again
+     (0 misses, no launch); (c) 8 shuffled passes at concurrency 64
+     (launches no more than the misses, which NoOpinion's 5 s TTL
+     causes); (d) 300 allow hits at concurrency 1 (0 misses, no
+     launch); (e) phase 12's event 1 while 16 clients send 512 other
+     keys (every answer of a live version), until the authorization
+     engine swaps; (f) the set again one request at a time, /debug/cache
+     read after each: no key decided in a dirty shard, no NoOpinion or
+     unscoped key and no key whose answer the edit changed answers from
+     the cache, at least one other key does, 0 flips. Prints per window
+     requests/s, p50 / p99, the cache counters and launches; the edit's
+     event to swap, compile seconds and p99 while it compiles; the
+     survivors against the keys decided in the dirty shards; the hit
+     ratio, misses and coalesced totals; the server's peak RSS; and the
+     host memory of a full cache (65,536 entries and memo rows,
+     tracemalloc in this process).
+
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
-transition, no supervisor restart and no device rebuild. Every server
-of phases 8-12 gates its loads with the config's default validationMode
-(permissive): each load's compile seconds carry the gate's ``analyze``
-phase.
+transition, no supervisor restart and no device rebuild, and so does
+14. Every server of phases 8-13 runs with --decision-cache-size 0:
+they measure the device path and the breaker's posture, which cached
+answers would bypass. Every server of phases 8-12 gates its loads with
+the config's default validationMode (permissive): each load's compile
+seconds carry the gate's ``analyze`` phase.
 
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
 reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
-``--only-crd`` phases 1, 2 and 12, and ``--only-gate`` phases 1, 2 and
-13; none prints result lines.
+``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
+and ``--only-cache`` phases 1, 2 and 14; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -936,6 +963,9 @@ def main() -> None:
     ap.add_argument("--only-gate", action="store_true",
                     help="run phases 1, 2 and 13 only (the validationMode load gate); "
                          "prints no result lines")
+    ap.add_argument("--only-cache", action="store_true",
+                    help="run phases 1, 2 and 14 only (the decision cache); prints no "
+                         "result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
@@ -1006,6 +1036,10 @@ def main() -> None:
     if args.only_gate:
         corpus = synth_corpus(args.policies, seed=args.seed)
         gate_phase(args, card, corpus, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
+    if args.only_cache:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        cache_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1483,16 +1517,18 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 13. the validationMode load gate: its cost, strict and partial
     gate_launches = gate_phase(args, card, corpus, g_batch)
 
-    # each kernel's launches on this slice's main path, the traffic of
-    # phase 13's strict and partial servers and the partial server's
-    # gated reload's warm-up (counted in the server processes); and on
-    # the earlier paths
+    # ---- 14. the decision cache ahead of the CRD-served engines
+    cache_launches = cache_phase(args, card, g_batch)
+
+    # each kernel's launches on this slice's main path, phase 14's cache
+    # misses (counted in the server process); and on the earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": gate_launches[k],
+            "launches": cache_launches[k],
+            "launches_cache": cache_launches[k],
             "launches_gate": gate_launches[k],
             "launches_crd": crd_launches[k],
             "launches_resilience": resilience_launches[k],
@@ -1662,14 +1698,19 @@ class Webhook:
     """One `python3 -m cedar_tpu_torch.cli.webhook --insecure` subprocess
     on free ports, its output in a log file under `tmp`."""
 
-    def __init__(self, cfg: str, tmp: str, name: str, grace: float, flags=()):
+    def __init__(self, cfg: str, tmp: str, name: str, grace: float, flags=(),
+                 cache: bool = False):
         self.port, self.mport = free_port(), free_port()
         self.grace = grace
         self.log_path = os.path.join(tmp, f"{name}.log")
+        # without the decision cache unless asked (phase 14): the other
+        # phases measure the device path and the breaker's posture, which
+        # cached answers would bypass
+        off = () if cache else ("--decision-cache-size", "0")
         self.cmd = [sys.executable, "-m", "cedar_tpu_torch.cli.webhook", "--config", cfg,
                     "--insecure", "--bind-address", "127.0.0.1", "--secure-port",
                     str(self.port), "--metrics-port", str(self.mport),
-                    "--shutdown-grace-seconds", str(grace), *flags]
+                    "--shutdown-grace-seconds", str(grace), *off, *flags]
         self.t0 = time.monotonic()
         with open(self.log_path, "w") as log_f:
             self.proc = subprocess.Popen(self.cmd, stdout=log_f, stderr=subprocess.STDOUT,
@@ -3622,6 +3663,311 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
     print(f"gate launches {json.dumps(launches)}; gate phase wall time ({card}): "
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
+
+
+def cache_working_set(sars: list, n: int) -> list:
+    """The first `n` bodies of `sars` with distinct decision cache keys
+    (canonical fingerprints)."""
+    from cedar_tpu_torch.cache import fingerprint_body
+
+    seen, out = set(), []
+    for body in sars:
+        key = fingerprint_body("authorize", body)
+        if key is not None and key not in seen:
+            seen.add(key)
+            out.append(body)
+            if len(out) == n:
+                return out
+    fail(f"cache: only {len(out)} distinct requests in a pool of {len(sars)}")
+
+
+def policy_shards(objects: dict, buckets: int) -> dict:
+    """{policy id: shard id} of a CRD store fed `objects` ({name:
+    content}), as an incremental engine over one tier with `buckets`
+    buckets files them (compiler/shard.py shard_bucket)."""
+    from cedar_tpu_torch.compiler.shard import shard_bucket
+    from cedar_tpu_torch.stores.crd import CRDPolicyStore
+
+    store = CRDPolicyStore(source=_ListedObjects(
+        [{"metadata": {"name": n, "uid": f"uid-{n}"}, "spec": {"content": c}}
+         for n, c in objects.items()]))
+    while not store.initial_policy_load_complete():
+        time.sleep(0.01)
+    store.close()
+    return {p.policy_id: f"t0b{shard_bucket(p, buckets):04d}"
+            for p in store.policy_set().policies()}
+
+
+def cache_metrics(port: int) -> dict:
+    """The authorization path's decision cache counters on /metrics."""
+    text = http_get(port, "/metrics")[1].decode()
+    out = {}
+    for name in ("hits", "misses", "coalesced"):
+        out[name] = metric_values(text, f"cedar_decision_cache_{name}_total", "path",
+                                  "authorization").get("authorization", 0.0)
+    for line in text.splitlines():
+        if line.startswith('cedar_decision_cache_evictions_total{path="authorization"'):
+            reason = line.split('reason="')[1].split('"')[0]
+            out[f"evicted_{reason}"] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def cache_phase(args, card: str, sars: list, flags=()) -> dict:
+    """Phase 14 (module docstring): the decision cache in front of the
+    CRD-served engines at the CLI's defaults. `sars` is phase 12's SAR
+    pool. Returns the server's served kernel launches over the phase."""
+    t_phase = time.monotonic()
+    grace = 5.0
+    n_keys, n_side, buckets = 1024, 512, 64
+    distinct = cache_working_set(sars, n_keys + n_side)
+    # the working set, and the other keys the clients send during the
+    # edit (entries they make after the swap are fresh, not survivors)
+    bodies, side = distinct[:n_keys], distinct[n_keys:]
+    base = crd_objects(args.policies, args.seed)
+    _head, rest = base[CRD_EDITED].split("\n", 1)
+    edited = {**base, CRD_EDITED: CRD_EDIT_POLICY + "\n" + rest}
+    api = FakeApiServer(hold_s=30.0)
+    with tempfile.TemporaryDirectory(prefix="cedar-cache-") as tmp:
+        vfiles = []
+        for k, version in enumerate((base, edited)):
+            vfiles.append(os.path.join(tmp, f"v{k}.json"))
+            with open(vfiles[-1], "w") as f:
+                json.dump([{"metadata": {"name": n, "uid": f"uid-{n}"}, "spec": {"content": c}}
+                           for n, c in version.items()], f)
+        for name, content in base.items():
+            api.apply(name, content)
+        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "crd", "crdStore": {}}]}}, f)
+        # phase 12's serving flags, the decision cache at the CLI's defaults
+        srv = Webhook(cfg, tmp, "webhook-cache", grace,
+                      ("--kubeconfig", kube, "--reload-seconds", "1",
+                       "--request-timeout-ms", "10000", "--shard-buckets", str(buckets), *flags),
+                      cache=True)
+        traffic = None
+        try:
+            t0 = time.monotonic()
+            answers = interpreter_answers(
+                {(k, part): (f"crd-authorize:{vfiles[k]}", b) for k in (0, 1)
+                 for part, b in (("set", bodies), ("side", side))},
+                args.policies, args.seed, piece=128)
+            want = [answers[(0, "set")], answers[(1, "set")]]
+            want_side = [answers[(0, "side")], answers[(1, "side")]]
+            changed = [i for i in range(n_keys) if want[0][i] != want[1][i]]
+            shard_of = policy_shards(base, buckets)
+            print(f"cache oracle: {2 * (n_keys + n_side)} interpreter answers over 2 versions in "
+                  f"{time.monotonic() - t0:.1f} s; the edit changes {len(changed)} of "
+                  f"{n_keys} answers", flush=True)
+            srv.wait_ready(card)
+
+            def engine():
+                return srv.debug_engine()["authorization"]["engine"]
+
+            def stats():
+                return json.loads(http_get(srv.mport, "/debug/cache")[1])["authorization"]
+
+            st = stats()
+            if (st["max_entries"], st["ttl_seconds"]) != (
+                    65536, {"allow": 300.0, "deny": 30.0, "no_opinion": 5.0}):
+                fail(f"cache: not the CLI's defaults: {json.dumps(st)}")
+            if any(engine()["launches"].values()):
+                fail(f"cache: served launches before traffic: {engine()['launches']}")
+            problems = []
+
+            def window(label, win_bodies, expected, conc):
+                """One window: answers held against `expected` (canon), the
+                cache counters' and the served launches' deltas."""
+                m0, l0 = cache_metrics(srv.mport), engine()["launches"]
+                wall, lat, got, errors = drive(srv.port, win_bodies, conc)
+                if errors:
+                    fail(f"cache {label}: client errors {errors[:3]}")
+                m1, l1 = cache_metrics(srv.mport), engine()["launches"]
+                flips = [i for i, (g, e) in enumerate(zip(got, expected))
+                         if canon({"status": g}) != e]
+                for i in flips[:3]:
+                    print(f"cache {label} flip: expected {json.dumps(expected[i])}, got "
+                          f"{json.dumps(got[i])}", flush=True)
+                if flips:
+                    problems.append(f"{label}: {len(flips)} answers unlike the oracle's")
+                dm = {k: m1.get(k, 0.0) - m0.get(k, 0.0) for k in m1}
+                dl = {k: l1[k] - l0[k] for k in l1}
+                print(f"cache {label} ({card}): {len(win_bodies)} requests at concurrency "
+                      f"{conc}, {len(win_bodies) / wall:.1f} requests/s, p50 "
+                      f"{pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms; "
+                      f"cache {json.dumps(dm)}; launches {json.dumps(dl)}; flips {len(flips)}",
+                      flush=True)
+                return dm, dl
+
+            # 1. warm pass: every key misses once and launches the kernels
+            dm, dl = window("warm pass", bodies, want[0], 64)
+            if dm["misses"] != n_keys or dm["hits"] != 0:
+                problems.append(f"warm pass: {dm['misses']:g} misses, {dm['hits']:g} hits, "
+                                f"want {n_keys} and 0")
+            if not all(dl.values()):
+                problems.append(f"warm pass: a kernel did not launch on the misses: {dl}")
+            # the allow answers (300 s TTL) answer from the cache alone
+            allow = [i for i in range(n_keys) if want[0][i]["allowed"]]
+            dm, dl = window("allow hits", [bodies[i] for i in allow],
+                            [want[0][i] for i in allow], 64)
+            if dm["misses"] or any(dl.values()):
+                problems.append(f"allow hits: {dm['misses']:g} misses, launches {dl}: want 0")
+            # 2. repeat window: 8 shuffled passes at c=64, then 300 at c=1
+            rng = random.Random(args.seed + 14)
+            order = [i for _ in range(8) for i in rng.sample(range(n_keys), n_keys)]
+            dm, dl = window("repeat c=64", [bodies[i] for i in order],
+                            [want[0][i] for i in order], 64)
+            if any(dl.values()) and not dm["misses"]:
+                problems.append(f"repeat c=64: launches {dl} without a miss")
+            if sum(dl.values()) > dm["misses"]:
+                problems.append(f"repeat c=64: {sum(dl.values())} launches for "
+                                f"{dm['misses']:g} misses")
+            c1 = [allow[i % len(allow)] for i in range(300)]
+            dm, dl = window("allow hits c=1", [bodies[i] for i in c1],
+                            [want[0][i] for i in c1], 1)
+            if dm["misses"] or any(dl.values()):
+                problems.append(f"hits c=1: {dm['misses']:g} misses, launches {dl}: want 0")
+
+            # 3. the edit: phase 12's event 1, under 16 clients on the
+            # other keys
+            gen = engine()["load_generation"]
+            traffic = Traffic(srv.port, {"/v1/authorize": side}, per_path=16)
+            traffic.start()
+            time.sleep(2.0)
+            t_event = time.time()
+            api.apply(CRD_EDITED, edited[CRD_EDITED])
+            deadline = time.monotonic() + 60
+            while engine()["load_generation"] == gen:
+                if traffic.errors or time.monotonic() > deadline:
+                    fail(f"cache: the authorization engine did not swap within 60 s "
+                         f"(client errors {traffic.errors[:3]}):\n{srv.log()}")
+                time.sleep(0.1)
+            eng = engine()
+            last = eng["last_load"]
+            time.sleep(2.0)
+            traffic.stop()
+            if traffic.errors:
+                fail(f"cache: client errors {traffic.errors[:3]}")
+            dirty = set(eng["shards"]["dirty"])
+            print(f"cache edit ({card}): event to swap {last['published_unix'] - t_event:.3f} s, "
+                  f"{last['compile_scope']} compile, {last['dirty_shards']} of "
+                  f"{last['shards']} shards dirty, compile seconds "
+                  f"{json.dumps(last['compile_seconds'])}", flush=True)
+            stale = 0
+            for sent, done, _path, i, got, _dt in traffic.records:
+                key = canon({"status": got})
+                if sent > last["published_unix"]:
+                    stale += key != want_side[1][i]
+                elif key not in (want_side[0][i], want_side[1][i]):
+                    stale += 1
+            print(f"cache edit window {window_stats(traffic.records, '/v1/authorize', t_event, last['published_unix'])} "
+                  f"while compiling; {len(traffic.records)} answers, {stale} of no live version",
+                  flush=True)
+            if stale:
+                problems.append(f"edit window: {stale} answers of no live version")
+
+            # 4. post-edit pass, one request at a time: which keys hit
+            hits = []
+            before = cache_metrics(srv.mport)
+            c = Client(srv.port)
+            lat, flips = [], 0
+            try:
+                h0 = stats()["hits"]
+                for i, body in enumerate(bodies):
+                    got, dt = c.post(body)
+                    lat.append(dt)
+                    h1 = stats()["hits"]
+                    if h1 > h0:
+                        hits.append(i)
+                    h0 = h1
+                    if canon({"status": got}) != want[1][i]:
+                        flips += 1
+                        if flips <= 3:
+                            print(f"cache post-edit flip body {i}: expected "
+                                  f"{json.dumps(want[1][i])}, got {json.dumps(got)}", flush=True)
+            finally:
+                c.close()
+            after = cache_metrics(srv.mport)
+            hit = set(hits)
+
+            def determining(i):
+                r = want[0][i]["reason"]
+                return [json.loads(x)["policy"] for x in r] if isinstance(r, list) else []
+
+            in_dirty = [i for i in range(n_keys)
+                        if any(shard_of.get(p) in dirty for p in determining(i))]
+            unscoped = [i for i in range(n_keys) if not determining(i)]
+            bad_dirty = sorted(hit & set(in_dirty))
+            bad_unscoped = sorted(hit & set(unscoped))
+            bad_changed = sorted(hit & set(changed))
+            print(f"cache post-edit pass ({card}): {len(hits)} of {n_keys} keys answered from "
+                  f"entries that survived the swap; {len(in_dirty)} keys decided in the dirty "
+                  f"shards, {len(unscoped)} NoOpinion or unscoped, {len(changed)} changed by the "
+                  f"edit; hits among them {len(bad_dirty)} / {len(bad_unscoped)} / "
+                  f"{len(bad_changed)}; evictions "
+                  f"{json.dumps({k: after[k] - before.get(k, 0.0) for k in after if k.startswith('evicted_')})}; "
+                  f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms; "
+                  f"flips {flips}", flush=True)
+            if flips:
+                problems.append(f"post-edit pass: {flips} stale or wrong answers")
+            if bad_dirty or bad_unscoped or bad_changed:
+                problems.append(f"post-edit pass: hits on keys the edit must re-evaluate "
+                                f"(dirty {bad_dirty[:5]}, unscoped {bad_unscoped[:5]}, "
+                                f"changed {bad_changed[:5]})")
+            if not hits:
+                problems.append("post-edit pass: no entry outside the dirty shards survived")
+            launches = engine()["launches"]
+            m = cache_metrics(srv.mport)
+            st = stats()
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            problems += resilience_quiet("cache", text)
+            fallback = metric_total(text, "cedar_authorizer_fallback_batches_total")
+            if fallback:
+                problems.append(f"{fallback:g} fallback batches")
+            print(f"cache totals ({card}): hit ratio {st['hit_ratio']:.4f}, hits {m['hits']:g}, "
+                  f"misses {m['misses']:g}, coalesced {m['coalesced']:g}, size {st['size']}, "
+                  f"launches {json.dumps(launches)}", flush=True)
+            if not all(launches.values()):
+                problems.append(f"a kernel did not launch: {launches}")
+            if problems:
+                fail("cache: " + "; ".join(problems))
+            took, rss = srv.terminate()
+            print(f"cache webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss} with {st['size']} entries", flush=True)
+        finally:
+            if traffic is not None:
+                traffic.stop()
+            srv.kill()
+            api.shutdown()
+    full_cache_bytes(card, bodies)
+    print(f"cache phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def full_cache_bytes(card: str, bodies: list) -> None:
+    """The host memory of a full decision cache at the CLI's default size:
+    65536 entries of this phase's answers under distinct keys, with the
+    body -> fingerprint memo the server sizes like it, measured with
+    tracemalloc in this process."""
+    import tracemalloc
+
+    from cedar_tpu_torch.cache import DecisionCache, FingerprintMemo
+
+    tracemalloc.start()
+    m0 = tracemalloc.get_traced_memory()[0]
+    cache, memo = DecisionCache(), FingerprintMemo(capacity=65536)
+    reason = ('{"reasons":[{"policy":"synth-00070-uid-synth-0007","position":'
+              '{"filename":"synth-0007","offset":0,"line":1,"column":1}}]}')
+    import hashlib
+
+    for i in range(65536):
+        memo.fingerprint("authorize", bodies[i % len(bodies)] + b" " * (i // len(bodies)))
+        cache.put(hashlib.sha256(str(i).encode()).hexdigest()[:32], ("allow", reason), "allow")
+    used = tracemalloc.get_traced_memory()[0] - m0
+    tracemalloc.stop()
+    print(f"cache full ({card}): {cache.size()} entries and {len(memo._memo)} memo rows hold "
+          f"{used / 2**20:.1f} MiB of host memory (tracemalloc, this process)", flush=True)
 
 
 def chaos_builtin(name: str) -> dict:

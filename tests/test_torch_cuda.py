@@ -352,6 +352,61 @@ def test_webhook_server_on_card_equals_cpu_engine(cuda):
 
 
 @pytest.mark.cuda
+def test_decision_cache_hits_launch_no_kernel(cuda):
+    """The WebhookServer on the card with a DecisionCache over the
+    engine's shard lineage (the CLI's wiring): each distinct SAR misses
+    once and its batch launches match_words_kernel; every repeat answers
+    from the cache with no kernel launch; hits and misses answer as the
+    CPU engine's fast path does."""
+    import http.client
+    import json
+
+    from cedar_tpu_torch.cache import DecisionCache, plane_composite
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.http import WebhookServer
+    from cedar_tpu_torch.server.sar import sar_response
+
+    corpus = synth_corpus(400, seed=9)
+    gpu, cpu = _fast_paths([PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]])
+    bodies = [b for b in _mixed_bodies(corpus, 96, seed=12) if b.startswith(b"{\"")][:64]
+    cache = DecisionCache(generation_fn=lambda: plane_composite(gpu.authorizer.stores, gpu.engine))
+    srv = WebhookServer(gpu.authorizer, address="127.0.0.1", port=0, metrics_port=0,
+                        fastpath=gpu, pipeline_depth=2, request_timeout_s=60.0,
+                        decision_cache=cache)
+    srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.bound_port, timeout=60)
+
+    def post(body):
+        conn.request("POST", "/v1/authorize", body=body)
+        return json.loads(conn.getresponse().read())
+
+    try:
+        warm = _mixed_bodies(corpus, 1, seed=13)[0]
+        post(warm)  # the kernels' library loads
+        cuda_match.reset_launch_counts()
+        first = [post(b) for b in bodies]
+        miss_launches = cuda_match.launch_counts()
+        cuda_match.reset_launch_counts()
+        again = [post(b) for b in bodies]
+        hit_launches = cuda_match.launch_counts()
+        stats = cache.stats()
+    finally:
+        conn.close()
+        srv.stop()
+    want = [json.loads(json.dumps(sar_response(*r))) for r in cpu.authorize_raw(bodies)]
+    assert first == want and again == want
+    assert miss_launches["match_words_kernel"] > 0
+    assert hit_launches == {"match_groups_kernel": 0, "match_words_kernel": 0}
+    from cedar_tpu_torch.cache import fingerprint_body
+
+    distinct = {fingerprint_body("authorize", b) for b in bodies}
+    keys = distinct | {fingerprint_body("authorize", warm)}
+    assert stats["size"] == stats["misses"] == len(keys)
+    assert stats["hits"] == 2 * len(bodies) + 1 - len(keys)
+
+
+@pytest.mark.cuda
 def test_engine_warmup_launches_per_bucket(cuda):
     """warmup(128) takes buckets 1, 8, 32 and 128: per bucket one words
     launch, one groups launch (want_full) and one words launch with the

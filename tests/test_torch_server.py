@@ -209,7 +209,11 @@ def _jax_server(policy_dir, fast=True, **kw):
 
 def _port_server(policy_dir, *flags):
     """The port's CLI server with --device cpu over one directory store, or
-    one tier per directory when given a list."""
+    one tier per directory when given a list. Without the decision cache
+    (--decision-cache-size 0; flags may turn it on): the JAX servers these
+    tests compare it with are built without one, and a hit would answer
+    before the batcher, the breaker and the engine whose behavior they
+    hold (test_torch_cache.py holds the cache)."""
     dirs = policy_dir if isinstance(policy_dir, list) else [policy_dir]
     cfg = dirs[0].parent / "store-config.json"
     cfg.write_text(json.dumps({
@@ -219,7 +223,7 @@ def _port_server(policy_dir, *flags):
     }))
     args = make_parser().parse_args([
         "--config", str(cfg), "--device", "cpu", "--insecure",
-        "--secure-port", "0", "--metrics-port", "0", *flags,
+        "--secure-port", "0", "--metrics-port", "0", "--decision-cache-size", "0", *flags,
     ])
     srv = build_server(args)
     srv.start()

@@ -3,7 +3,8 @@ and store modules under it, against the JAX package's, on the CPU.
 
   * every flag the port serves has the JAX parser's default, except
     --backend (the port serves from the card by default) and the port's
-    own --device; a JAX flag the port does not serve is rejected;
+    own --device; each decision cache flag parses as the JAX parser
+    parses it; a JAX flag the port does not serve is rejected;
   * --device cuda (the default) without CUDA exits nonzero at start; a
     spawned --device cpu --insecure server (JAX blocked at import) answers
     a SAR and exits 0 on SIGTERM; build_server wires each backend and
@@ -54,11 +55,14 @@ PORTED_FLAGS = [
     "--breaker-recovery-seconds", "--breaker-half-open-probes",
     "--supervisor-interval-seconds", "--supervisor-wedge-seconds",
     "--confirm-non-prod-inject-errors", "--chaos-scenario", "--validation-mode",
+    "--decision-cache-size", "--decision-cache-allow-ttl-seconds",
+    "--decision-cache-deny-ttl-seconds", "--decision-cache-no-opinion-ttl-seconds",
+    "--decision-cache-admission",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
     ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
-    ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--decision-cache-size", "8"],
+    ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--rollout-candidate-dir", "/tmp"],
     ["--artificial-error-rate", "0.1"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
@@ -106,6 +110,30 @@ def test_backend_and_device_defaults():
     assert (args.backend, args.device) == ("device", "cuda")
     assert j_make_parser().parse_args([]).backend == "interpreter"
     assert set(make_parser()._option_string_actions["--backend"].choices) == {"interpreter", "device"}
+
+
+# each decision cache flag with a value other than its default
+CACHE_FLAGS = [
+    ["--decision-cache-size", "8"], ["--decision-cache-allow-ttl-seconds", "12.5"],
+    ["--decision-cache-deny-ttl-seconds", "0"], ["--decision-cache-no-opinion-ttl-seconds", "1.5"],
+    ["--decision-cache-admission"],
+]
+
+
+@pytest.mark.parametrize("argv", CACHE_FLAGS, ids=lambda a: a[0])
+def test_cache_flag_parses_as_jax(argv):
+    """A decision cache flag parses to the JAX CLI's value, and its
+    defaults are the JAX CLI's (size 65536, TTLs 300 / 30 / 5 s, no
+    admission cache)."""
+    jp, tp = j_make_parser(), make_parser()
+    dest = tp._option_string_actions[argv[0]].dest
+    assert getattr(tp.parse_args(argv), dest) == getattr(jp.parse_args(argv), dest)
+    assert getattr(tp.parse_args([]), dest) == getattr(jp.parse_args([]), dest)
+    defaults = tp.parse_args([])
+    assert (defaults.decision_cache_size, defaults.decision_cache_allow_ttl_seconds,
+            defaults.decision_cache_deny_ttl_seconds,
+            defaults.decision_cache_no_opinion_ttl_seconds,
+            defaults.decision_cache_admission) == (65536, 300.0, 30.0, 5.0, False)
 
 
 @pytest.mark.parametrize("argv", UNPORTED_FLAGS, ids=lambda a: a[0])

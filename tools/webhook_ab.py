@@ -4,7 +4,8 @@
     python3 tools/webhook_ab.py PARENT_DIR CHANGE_DIR
 
 Starts each checkout's webhook CLI (``python3 -m
-cedar_tpu_torch.cli.webhook``, default flags, the card) in the order
+cedar_tpu_torch.cli.webhook``, default flags but the decision cache off,
+the card) in the order
 parent, change, change, parent, over one directory store holding
 synth_corpus(10000, seed=0) and chip_smoke.py's two gated policies, and
 drives each server as chip_smoke.py phase 8 does: phase 8's first 300
@@ -33,6 +34,14 @@ import chip_smoke as cs  # noqa: E402
 from cedar_tpu_torch.corpus.synth import synth_corpus, synth_source  # noqa: E402
 
 
+def cache_off_flags(tree: str) -> list:
+    """``--decision-cache-size 0`` when the checkout's CLI has a decision
+    cache: the A/B measures the device path, which cached answers skip
+    (a checkout from before the cache rejects the flag)."""
+    with open(os.path.join(tree, "cedar_tpu_torch", "cli", "webhook.py")) as f:
+        return ["--decision-cache-size", "0"] if "--decision-cache-size" in f.read() else []
+
+
 def serve(tree: str, cfg: str, log_path: str):
     """(process, port, seconds to ready) of one checkout's CLI."""
     port, mport = cs.free_port(), cs.free_port()
@@ -40,7 +49,7 @@ def serve(tree: str, cfg: str, log_path: str):
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-m", "cedar_tpu_torch.cli.webhook", "--config", cfg, "--insecure",
-             "--secure-port", str(port), "--metrics-port", str(mport)],
+             "--secure-port", str(port), "--metrics-port", str(mport), *cache_off_flags(tree)],
             cwd=tree, stdout=log, stderr=subprocess.STDOUT)
     while True:
         try:
