@@ -43,8 +43,11 @@ mixing stamps can only cause a miss, never a stale hit.
 
 from __future__ import annotations
 
-import json
 from typing import Mapping, Optional, Tuple
+
+# the one copy of the helper is obs/audit.py's (the audit lines read the
+# same ids); the module keeps its former private name for its callers
+from ..obs.audit import determining_policies as _determining_policies
 
 __all__ = [
     "PlaneGenerations",
@@ -52,22 +55,6 @@ __all__ = [
     "plane_composite",
     "plane_wire_state",
 ]
-
-
-def _determining_policies(reason: str) -> list:
-    """Determining policy ids from an already-rendered reason string: the
-    authorization diagnostics JSON ``{"reasons":[{"policy": ...}]}`` or
-    the admission deny message's bare reason list ``[{"policy": ...}]``.
-    Best-effort: non-JSON reasons (gate strings) yield []. A private copy
-    of the JAX package's obs/audit.py determining_policies."""
-    if not reason or reason[0] not in "{[":
-        return []
-    try:
-        doc = json.loads(reason)
-        rows = doc.get("reasons", []) if isinstance(doc, dict) else doc
-        return [r.get("policy", "") for r in rows if isinstance(r, dict) and r.get("policy")]
-    except (ValueError, TypeError):
-        return []
 
 
 class PlaneGenerations:

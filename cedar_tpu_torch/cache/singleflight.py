@@ -25,6 +25,7 @@ import threading
 from typing import Callable, Optional, Tuple, TypeVar
 
 from ..engine.batcher import DeadlineExceeded
+from ..obs.trace import span as trace_span
 
 log = logging.getLogger(__name__)
 
@@ -85,7 +86,11 @@ class SingleFlight:
             return flight.value, True
 
         self._record_coalesced()
-        landed = flight.event.wait(timeout)
+        # the follower's whole evaluation IS this wait: name it in the
+        # request trace so a coalesced request's span tree accounts for
+        # its latency (with no active trace: one thread-local read)
+        with trace_span("coalesce.wait"):
+            landed = flight.event.wait(timeout)
         if not landed:
             # per-waiter deadline: detach quietly; the leader keeps going
             raise DeadlineExceeded(

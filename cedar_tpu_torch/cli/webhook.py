@@ -68,9 +68,23 @@ it added could decide.
 ``--decision-cache-admission`` gives the admission handler its own cache
 for CONNECT and dry-run reviews. ``/debug/cache`` serves their stats.
 
+Observability, with the JAX CLI's defaults: tracing is armed at sample
+rate 0 (``--trace-sample-rate``; slow, errored and posture-answered
+requests are still tail-kept past ``--trace-tail-ms``, 0 = the request
+budget) into a ring of ``--trace-ring`` traces behind ``/debug/traces``,
+appended to ``--trace-log-file`` when given (``--no-trace`` drops the
+plane); the SLO tracker is on (``--slo-availability-target``, 0 disables
+it; ``--slo-latency-target``, ``--slo-latency-budget-ms``, 0 = the
+request budget) behind ``/debug/slo`` and ``cedar_slo_*``;
+``--audit-log-file`` writes one line per decision, rotated by size.
+``--enable-recording`` writes every POST body under ``--recording-dir``;
+``--artificial-error-rate`` and ``--artificial-deny-rate`` swap
+/v1/authorize answers at those rates per second, only with
+``--confirm-non-prod-inject-errors``.
+
 Flags of the JAX CLI that this port does not serve (fleet, tenancy,
-tracing, rollout, partition specs, the artificial error and deny rates,
-...) do not exist here, so argparse rejects them.
+rollout, lifecycle, load shedding, partition specs, ...) do not exist
+here, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -384,6 +398,47 @@ def _admission_cache(args, tier_stores, tier_engine):
     return _decision_cache(args, tier_stores, tier_engine, "admission")
 
 
+def _observability(args) -> dict:
+    """The observability plane's WebhookServer arguments, as the JAX CLI
+    builds them: the tracer (armed at the sample rate, 0 by default, unless
+    --no-trace; its tail-keep threshold defaults to the request budget, a
+    request that burned its budget being the one worth keeping), the
+    audit log (with --audit-log-file), the SLO tracker (unless its
+    availability target is 0; the latency budget defaults to the request
+    budget), the error injector (its rates behind the non-prod gate) and
+    the request recorder (--enable-recording)."""
+    from ..obs import AuditLog, SLOTracker, Tracer
+    from ..server.error_injector import ErrorInjectionConfig, ErrorInjector
+    from ..server.recorder import RequestRecorder
+
+    budget_ms = args.request_timeout_ms if args.request_timeout_ms > 0 else None
+    tracer = None
+    if not args.no_trace:
+        tail_ms = args.trace_tail_ms if args.trace_tail_ms > 0 else (budget_ms or 1000.0)
+        tracer = Tracer(sample_rate=args.trace_sample_rate, ring_capacity=args.trace_ring,
+                        tail_latency_s=tail_ms / 1e3, log_file=args.trace_log_file or None)
+    audit_log = None
+    if args.audit_log_file:
+        audit_log = AuditLog(args.audit_log_file, max_bytes=args.audit_max_bytes,
+                             max_files=args.audit_max_files)
+    slo = None
+    if args.slo_availability_target > 0:
+        latency_ms = args.slo_latency_budget_ms if args.slo_latency_budget_ms > 0 else (
+            budget_ms or 2000.0)
+        slo = SLOTracker(availability_target=args.slo_availability_target,
+                         latency_target=args.slo_latency_target,
+                         latency_budget_s=latency_ms / 1e3)
+    injector = ErrorInjector(ErrorInjectionConfig(
+        enabled=args.confirm_non_prod_inject_errors
+        and (args.artificial_error_rate > 0 or args.artificial_deny_rate > 0),
+        artificial_error_rate=args.artificial_error_rate,
+        artificial_deny_rate=args.artificial_deny_rate,
+    ))
+    recorder = RequestRecorder(args.recording_dir) if args.enable_recording else None
+    return dict(tracer=tracer, audit_log=audit_log, slo=slo, error_injector=injector,
+                recorder=recorder)
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -516,6 +571,7 @@ def build_server(args) -> WebhookServer:
             admission_fastpath.prepare()
             log.info("native SAR and admission fast paths enabled")
 
+    obs = _observability(args)
     supervisor = None
     if args.supervisor_interval_seconds > 0:
         from ..server.supervisor import Supervisor
@@ -550,6 +606,7 @@ def build_server(args) -> WebhookServer:
         analysis_provider=analysis_provider,
         chaos_control_enabled=args.confirm_non_prod_inject_errors,
         decision_cache=_decision_cache(args, stores, engine, "authorization"),
+        **obs,
     )
     if supervisor is not None:
         _register_supervised(supervisor, server)
@@ -740,12 +797,109 @@ def make_parser() -> argparse.ArgumentParser:
         "are shed, in-flight requests get this long to finish",
     )
 
+    obs = parser.add_argument_group("observability")
+    obs.add_argument(
+        "--trace-sample-rate",
+        type=float,
+        default=0.0,
+        help="head-sample fraction of requests fully traced into "
+        "/debug/traces (0.0-1.0). Independent of the rate, slow "
+        "(past --trace-tail-ms), errored and posture-answered requests "
+        "are TAIL-KEPT: the default 0.0 still captures the requests "
+        "worth looking at",
+    )
+    obs.add_argument(
+        "--trace-tail-ms",
+        type=float,
+        default=0.0,
+        help="tail-keep latency threshold: finished traces slower than "
+        "this are kept even when unsampled; 0 defaults to "
+        "--request-timeout-ms (a request that burned its budget is the "
+        "one worth keeping)",
+    )
+    obs.add_argument(
+        "--trace-ring",
+        type=int,
+        default=256,
+        help="bounded in-memory ring of kept traces behind /debug/traces",
+    )
+    obs.add_argument(
+        "--trace-log-file",
+        default="",
+        help="append kept traces as JSONL for offline cedar-trace "
+        "(python -m cedar_tpu_torch.cli.trace); empty disables export, "
+        "the ring still serves",
+    )
+    obs.add_argument(
+        "--no-trace",
+        action="store_true",
+        help="disable the tracing plane entirely (no ring, no "
+        "/debug/traces, no per-request span bookkeeping)",
+    )
+    obs.add_argument(
+        "--audit-log-file",
+        default="",
+        help="decision audit log (JSONL): one line per answered decision "
+        "carrying the end-to-end trace id and the canonical request "
+        "fingerprint shared with the recorder and the decision cache "
+        "(empty disables)",
+    )
+    obs.add_argument(
+        "--audit-max-bytes",
+        type=int,
+        default=64 * 1024 * 1024,
+        help="size-based audit rotation threshold per file",
+    )
+    obs.add_argument(
+        "--audit-max-files",
+        type=int,
+        default=3,
+        help="rotated audit generations kept beside the live file",
+    )
+    obs.add_argument(
+        "--slo-availability-target",
+        type=float,
+        default=0.999,
+        help="availability SLO target (non-error answer fraction) behind "
+        "/debug/slo and the cedar_slo_* burn-rate gauges; 0 disables "
+        "the SLO plane",
+    )
+    obs.add_argument(
+        "--slo-latency-target",
+        type=float,
+        default=0.99,
+        help="latency SLO target: the fraction of requests that must "
+        "answer within the latency budget",
+    )
+    obs.add_argument(
+        "--slo-latency-budget-ms",
+        type=float,
+        default=0.0,
+        help="latency SLO budget per request; 0 defaults to "
+        "--request-timeout-ms",
+    )
+
     gameday = parser.add_argument_group("gameday")
+    gameday.add_argument(
+        "--artificial-error-rate",
+        type=float,
+        default=0.0,
+        help="answers per second swapped for NoOpinion with an error on "
+        "/v1/authorize (requires --confirm-non-prod-inject-errors)",
+    )
+    gameday.add_argument(
+        "--artificial-deny-rate",
+        type=float,
+        default=0.0,
+        help="answers per second swapped for a deny on /v1/authorize "
+        "(requires --confirm-non-prod-inject-errors)",
+    )
     gameday.add_argument(
         "--confirm-non-prod-inject-errors",
         action="store_true",
-        help="required gate for fault injection: the /chaos/* control "
-        "endpoints and --chaos-scenario (never set in production)",
+        help="required gate for fault injection: the artificial error and "
+        "deny rates, the /chaos/* control endpoints and --chaos-scenario "
+        "(never set in production)",
     )
     gameday.add_argument(
         "--chaos-scenario",
@@ -796,6 +950,10 @@ def make_parser() -> argparse.ArgumentParser:
 
     debug = parser.add_argument_group("debug")
     debug.add_argument("-v", "--verbosity", type=int, default=0)
+    debug.add_argument("--enable-recording", action="store_true",
+                       help="write every POST body to --recording-dir as "
+                       "req-<endpoint>-<fingerprint>-<unixnano>.json")
+    debug.add_argument("--recording-dir", default="/tmp/cedar-recordings")
     return parser
 
 

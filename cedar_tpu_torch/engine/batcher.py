@@ -45,6 +45,7 @@ from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence, TypeVar
 
 from ..chaos.registry import chaos_fire
+from ..obs.trace import current_trace
 from ..server.supervisor import Heartbeat
 
 log = logging.getLogger(__name__)
@@ -328,6 +329,7 @@ class MicroBatcher:
                 if slot.event.is_set():
                     break  # delivered as the worker exited
                 raise RuntimeError("batcher dead: worker thread exited without delivering results")
+        self.annotate_trace(slot)
         if slot.error is not None:
             if slot.key is not None:
                 # a coalesced slot's waiters must not re-raise one shared
@@ -348,6 +350,31 @@ class MicroBatcher:
             finally:
                 del err
         return slot.result
+
+    @staticmethod
+    def annotate_trace(slot: _Slot) -> None:
+        """Attach the slot's batch-stage windows to the calling thread's
+        active request trace (obs/trace.py), as the JAX package's batcher
+        does: the queue wait from the slot's own enqueue stamp, then the
+        claiming batch's encode / dispatch / decode (pipelined) or evaluate
+        (serial) windows, the stamps cedar_pipeline_stage_seconds
+        observes. Runs in the request thread once the result landed; with
+        no active trace the cost is one thread-local read."""
+        tr = current_trace()
+        if tr is None:
+            return
+        times = slot.times
+        if times is None:
+            return  # never claimed (withdrawn, or failed before a batch)
+        tr.add_span("batch.queue_wait", slot.t_enq, times.claimed)
+        for name, a, b in (
+            ("batch.encode", times.encode0, times.encode1),
+            ("batch.dispatch", times.dispatch0, times.dispatch1),
+            ("batch.decode", times.decode0, times.decode1),
+            ("batch.evaluate", times.eval0, times.eval1),
+        ):
+            if a is not None and b is not None:
+                tr.add_span(name, a, b)
 
     def stop(self, drain_timeout_s: float = 2.0) -> None:
         """Stop accepting new work and drain: the workers process every

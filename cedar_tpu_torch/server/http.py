@@ -22,9 +22,11 @@ reference's internal/server/server.go + health.go), for two entry points:
     initial load), ``/metrics``, ``/debug/engine``, ``/debug/cache`` (the
     decision caches' stats per path), ``/debug/supervisor``
     (the watchdog's components, the device recoveries, the quarantine),
-    ``/debug/chaos`` (the chaos registry) and ``/debug/analysis`` (the
+    ``/debug/chaos`` (the chaos registry), ``/debug/analysis`` (the
     last load-time analysis report per engine, when the server has an
-    ``analysis_provider``); and the game-day control
+    ``analysis_provider``), ``/debug/traces`` and ``/debug/traces/<id>``
+    (the tracer's ring and one kept trace, prefixes accepted) and
+    ``/debug/slo`` (the SLO tracker's burn rates); and the game-day control
     ``POST /chaos/{configure,arm,disarm,reset}``, which answers 403
     unless the server was built with ``chaos_control_enabled`` (the CLI's
     ``--confirm-non-prod-inject-errors``).
@@ -63,6 +65,22 @@ the device (not ``DeadlineExceeded.queued``) feeds the breaker: a hung
 device never returns a batch to feed it otherwise. The ``response`` chaos
 seam (chaos/registry.py) sees every clean /v1/authorize answer.
 
+The observability plane (obs/) wraps both endpoints as in the JAX
+server. do_POST records the body (server/recorder.py, when wired), takes
+the request id from a W3C ``traceparent`` header (or makes a fresh one)
+and answers it as ``X-Cedar-Trace-Id``, with a ``traceparent`` of its own
+when a tracer is wired. The handlers open the request's trace
+(``cache.lookup``, ``coalesce.wait`` and the batcher's ``batch.*`` spans
+land in it; a deadline expiry is a ``deadline_exceeded`` event), feed the
+SLO tracker the latency the request histogram observes, and append one
+audit line (obs/audit.py) keyed by the canonical fingerprint the recorder
+stamps into its file name. An answer made by the failure posture (an
+open breaker, a failed batch) is marked ``fallback``, which the tracer
+tail-keeps. A raising trace, SLO or audit hook is logged and never
+changes an answer. /v1/authorize's clean answers then pass the artificial
+error/deny injector (server/error_injector.py, after the cache, so an
+injected answer is never cached) and the ``response`` chaos seam.
+
 The server starts the policy reloader (cli/webhook.py TorchReloader) and
 the supervisor (server/supervisor.py) with its listeners; stop() stops
 the supervisor first, then the reloader and the stores' reload tickers.
@@ -73,7 +91,6 @@ from __future__ import annotations
 import functools
 import json
 import logging
-import os
 import ssl
 import threading
 import time
@@ -86,6 +103,16 @@ from ..engine.batcher import DeadlineExceeded, MicroBatcher, PipelinedBatcher
 from ..engine.breaker import BreakerOpen
 from ..entities.admission import AdmissionRequest, review_request_uid
 from ..lang.values import EntityUID
+from ..obs.audit import audit_entry
+from ..obs.trace import (
+    current_trace,
+    format_traceparent,
+    ingest_request_id,
+    new_span_id,
+    new_trace_id,
+    set_current,
+)
+from ..obs.trace import span as trace_span
 from ..schema.consts import AUTHORIZATION_ACTION_ENTITY_TYPE
 from ..stores.quarantine import quarantine_registry
 from .admission import AdmissionResponse, CedarAdmissionHandler
@@ -95,7 +122,8 @@ from .authorizer import (
     DECISION_NO_OPINION,
     CedarWebhookAuthorizer,
 )
-from .metrics import WebhookMetrics, fallback_decision_counts
+from .error_injector import ErrorInjector
+from .metrics import WebhookMetrics, fallback_decision_counts, record_audit_record
 from .sar import get_authorizer_attributes, sar_response
 
 log = logging.getLogger(__name__)
@@ -124,6 +152,46 @@ def _sar_action(body: bytes) -> Optional[str]:
     except Exception:  # noqa: BLE001 — None: the stamp dies at any change
         return None
     return repr(EntityUID(AUTHORIZATION_ACTION_ENTITY_TYPE, verb))
+
+
+# per-request observation context: the serving layers report the cached
+# and fallback facts UPWARD to the request handler's trace tail-keep and
+# audit line without changing any layer's call contract; a thread-local,
+# like the active trace, because a request owns its thread end to end
+# (a singleflight leader runs in the requesting thread)
+_obs_local = threading.local()
+
+
+def _octx_set(ctx: Optional[dict]) -> None:
+    _obs_local.ctx = ctx
+
+
+def _octx_mark(key: str) -> None:
+    ctx = getattr(_obs_local, "ctx", None)
+    if ctx is not None:
+        ctx[key] = True
+
+
+def _trace_event(name: str) -> None:
+    """A zero-duration marker on the calling thread's trace, if any."""
+    tr = current_trace()
+    if tr is not None:
+        tr.event(name)
+
+
+def _admit_outcome(review) -> tuple:
+    """(label, error or None) of a rendered AdmissionReview: the decision
+    facts read back out of the response the caller is already returning,
+    so this can never change an answer."""
+    resp = (review or {}).get("response") or {}
+    status = resp.get("status") or {}
+    error = (
+        None
+        if review is not None and status.get("code") in (None, 200)
+        else (status.get("message") or "no response")
+    )
+    label = "<error>" if error else ("allowed" if resp.get("allowed") else "denied")
+    return label, error
 
 
 def _loads_or_none(body: bytes):
@@ -210,6 +278,11 @@ class WebhookServer:
         chaos_control_enabled: bool = False,
         analysis_provider=None,
         decision_cache=None,
+        tracer=None,
+        audit_log=None,
+        slo=None,
+        error_injector: Optional[ErrorInjector] = None,
+        recorder=None,
     ):
         self.authorizer = authorizer
         # the /v1/authorize decision cache (cache/decision_cache.py), read
@@ -238,6 +311,26 @@ class WebhookServer:
         self.supervisor = supervisor
         # POST /chaos/* answers 403 unless set (the non-prod gate)
         self.chaos_control_enabled = chaos_control_enabled
+        # the observability plane (obs/): the tracer behind /debug/traces,
+        # the decision audit log and the SLO tracker behind /debug/slo;
+        # each is optional, and None costs a thread-local read per
+        # annotation site. The recorder (server/recorder.py) writes each
+        # POST body; the error injector swaps /v1/authorize answers at its
+        # rates (disabled unless configured)
+        self.tracer = tracer
+        self.audit_log = audit_log
+        self.slo = slo
+        self.error_injector = error_injector or ErrorInjector(None)
+        self.recorder = recorder
+        # canonical-fingerprint memos for the audit lines, joinable with
+        # the recorder's file names and the cache's keys; the
+        # authorization side shares the cache's memo when there is one
+        self._audit_memo = self._adm_audit_memo = None
+        if audit_log is not None:
+            from ..cache import FingerprintMemo
+
+            self._audit_memo = self._sar_memo or FingerprintMemo(4096)
+            self._adm_audit_memo = FingerprintMemo(4096)
 
         def eval_batcher(fast, serial_fn, path):
             """pipeline_depth > 0: the three-stage PipelinedBatcher over
@@ -328,15 +421,65 @@ class WebhookServer:
             log.exception("readiness check failed")
             return False
 
-    def handle_authorize(self, body: bytes) -> dict:
+    def _begin_obs(self, path: str, request_id, parent_span_id, root_span_id, sampled):
+        """Open the request's trace (when a tracer is wired) as the calling
+        thread's current one, and its observation context -> (trace or
+        None, context)."""
+        trace = None
+        if self.tracer is not None:
+            trace = self.tracer.begin(
+                path, trace_id=request_id, parent_span_id=parent_span_id,
+                root_span_id=root_span_id, sampled=sampled,
+            )
+            set_current(trace)
+        octx: dict = {}
+        if trace is not None or self.audit_log is not None:
+            _octx_set(octx)
+        return trace, octx
+
+    def _finish_obs(self, path: str, endpoint: str, body: bytes, request_id: str, trace,
+                    octx: dict, label: str, reason: str, error, latency: float) -> None:
+        """Close the request's observability surfaces: the SLO record (the
+        latency the request histogram observes), the trace's finish and
+        tail-keep, the audit line. A raising hook is logged; the answer is
+        already made."""
+        _octx_set(None)
+        if self.slo is not None:
+            try:
+                self.slo.record(path, latency, error is not None)
+            except Exception:  # noqa: BLE001 — never break serving
+                log.exception("slo record failed")
+        if trace is not None:
+            set_current(None)
+            trace.fallback = trace.fallback or bool(octx.get("fallback"))
+            try:
+                self.tracer.finish(trace, decision=label, error=error is not None)
+            except Exception:  # noqa: BLE001 — never break serving
+                log.exception("trace finish failed")
+        if self.audit_log is not None:
+            self._audit(path, endpoint, body, request_id, label, reason, error, latency, octx)
+
+    def handle_authorize(self, body: bytes, request_id: Optional[str] = None,
+                         parent_span_id: Optional[str] = None,
+                         root_span_id: Optional[str] = None,
+                         sampled: Optional[bool] = None) -> dict:
         """One SubjectAccessReview body -> the SubjectAccessReview response
-        document, with the request metrics and the log line."""
+        document, with the request metrics, the observability plane and
+        the log line. ``request_id`` is the end-to-end trace id (do_POST's
+        ingested traceparent, else fresh); ``sampled`` a head-sampling
+        decision drawn before (None draws here)."""
         start = time.monotonic()
-        request_id = os.urandom(16).hex()
+        if request_id is None:
+            request_id = new_trace_id()
+        trace, octx = self._begin_obs(
+            "authorization", request_id, parent_span_id, root_span_id, sampled)
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
             decision, reason, error = self._authorize_cached(body, request_id, start)
             if error is None:
+                # after the cache: an injected answer is never cached
+                decision, reason, error = self.error_injector.inject_if_enabled(
+                    decision, reason)
                 # the registry's `response` seam: one attribute read
                 # unless a game day armed it
                 decision, reason, error = chaos_fire("response", (decision, reason, error))
@@ -345,6 +488,8 @@ class WebhookServer:
             label = "<error>" if error else _DECISION_LABEL[decision]
             latency = time.monotonic() - start
             self.metrics.record_request(label, latency)
+            self._finish_obs("authorization", "authorize", body, request_id, trace, octx,
+                             label, reason, error, latency)
             log.info(
                 "authorize requestId=%s decision=%s latency=%.6fs", request_id, label, latency
             )
@@ -369,12 +514,16 @@ class WebhookServer:
         # pre-reload, so it dies at its first lookup after the swap. A
         # raising cache is a miss on the device path, never an answer
         try:
-            gen = cache.current_generation()
-            hit = cache.get(key)
+            with trace_span("cache.lookup") as sp:
+                gen = cache.current_generation()
+                hit = cache.get(key)
+                if sp is not None:
+                    sp.set_attr("hit", hit is not None)
         except Exception:  # noqa: BLE001 — a sick cache is a miss
             log.exception("decision cache lookup failed; evaluating")
             return self._authorize_uncached(body, request_id, start)
         if hit is not None:
+            _octx_mark("cached")
             return hit[0], hit[1], None
 
         def _leader():
@@ -442,8 +591,11 @@ class WebhookServer:
                     # expiry that burned in the submit queue is overload,
                     # not a sick device, and spares it
                     self._record_breaker_timeout(self.fastpath)
+                _trace_event("deadline_exceeded")
                 return DECISION_NO_OPINION, "", f"evaluation error: {e}"
             except Exception as e:  # noqa: BLE001 — always answer the apiserver
+                # a failed batch: answered with the posture
+                _octx_mark("fallback")
                 log.exception("fastpath authorize requestId=%s failed", request_id)
                 return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         try:
@@ -465,19 +617,62 @@ class WebhookServer:
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         return decision, reason, None
 
-    def handle_admit(self, body: bytes) -> dict:
+    def handle_admit(self, body: bytes, request_id: Optional[str] = None,
+                     parent_span_id: Optional[str] = None,
+                     root_span_id: Optional[str] = None,
+                     sampled: Optional[bool] = None) -> dict:
         """One AdmissionReview body -> the AdmissionReview response
-        document, with the log line (the request metrics count
-        /v1/authorize only, as in the JAX package)."""
+        document, with the observability plane and the log line (the
+        request metrics count /v1/authorize only, as in the JAX package).
+        The arguments are handle_authorize's."""
         start = time.monotonic()
-        request_id = os.urandom(16).hex()
-        doc = self._handle_admit(body, start)
-        resp = doc["response"]
-        log.info(
-            "admit requestId=%s allowed=%s code=%d latency=%.6fs",
-            request_id, resp["allowed"], resp["status"]["code"], time.monotonic() - start,
-        )
-        return doc
+        if request_id is None:
+            request_id = new_trace_id()
+        trace, octx = self._begin_obs(
+            "admission", request_id, parent_span_id, root_span_id, sampled)
+        doc = None
+        try:
+            doc = self._handle_admit(body, start)
+            return doc
+        finally:
+            latency = time.monotonic() - start
+            label, error = _admit_outcome(doc)
+            status = ((doc or {}).get("response") or {}).get("status") or {}
+            reason = status.get("message") or ""
+            self._finish_obs("admission", "admit", body, request_id, trace, octx,
+                             label, reason, error, latency)
+            if doc is not None:
+                resp = doc["response"]
+                log.info(
+                    "admit requestId=%s allowed=%s code=%d latency=%.6fs",
+                    request_id, resp["allowed"], resp["status"]["code"], latency,
+                )
+
+    def _audit(self, path, endpoint, body, request_id, label, reason, error,
+               latency, octx) -> None:
+        """Append one decision audit line: the end-to-end trace id, the
+        canonical fingerprint shared with the recorder and the cache
+        (memoized: repeat traffic pays one digest), the decision with the
+        determining policies its rendered reason names, the latency, and
+        the breaker state and posture it was answered under. Best-effort:
+        a failing audit plane logs and serves."""
+        try:
+            memo = self._audit_memo if endpoint == "authorize" else self._adm_audit_memo
+            self.audit_log.record(audit_entry(
+                path, request_id, memo.fingerprint(endpoint, body), label,
+                reason=reason, error=error, latency_s=latency,
+                breaker_state=self._breaker_state_label(path),
+                fallback=bool(octx.get("fallback")), cached=bool(octx.get("cached")),
+            ))
+            record_audit_record(path)
+        except Exception:  # noqa: BLE001 — audit must never break serving
+            log.exception("audit append failed")
+
+    def _breaker_state_label(self, path: str) -> str:
+        """The path's breaker state at answer time ("" without one)."""
+        fast = self.fastpath if path == "authorization" else self.admission_fastpath
+        breaker = getattr(fast, "breaker", None)
+        return breaker.state if breaker is not None else ""
 
     def _handle_admit(self, body: bytes, start: float) -> dict:
         """The response document through the admission fast path's
@@ -501,8 +696,10 @@ class WebhookServer:
             except DeadlineExceeded as e:
                 if not e.queued:
                     self._record_breaker_timeout(self.admission_fastpath)
+                _trace_event("deadline_exceeded")
                 return self._admission_deadline(body, e)
             except Exception as e:  # noqa: BLE001 — always answer the apiserver
+                _octx_mark("fallback")
                 log.exception("admission fastpath failed")
                 return self._admission_fail_mode(_loads_or_none(body), e)
         try:
@@ -520,6 +717,7 @@ class WebhookServer:
             return self.admission_handler.handle(req, raise_errors=True).to_admission_review()
         except DeadlineExceeded as e:
             self.metrics.record_deadline_exceeded("admission")
+            _trace_event("deadline_exceeded")
             return self._admission_fail_mode(review, e)
         except Exception as e:  # noqa: BLE001 — fail-open like the reference
             # allow-on-error posture (reference
@@ -539,6 +737,7 @@ class WebhookServer:
         if breaker is None or breaker.allow():
             return True
         self.metrics.record_fallback_batch(path, "breaker_open")
+        _octx_mark("fallback")
         return False
 
     @staticmethod
@@ -606,6 +805,13 @@ class WebhookServer:
             doc["admission"] = adm_cache.stats()
         return doc
 
+    def debug_traces(self) -> dict:
+        """The /debug/traces document: the tracer's stats and its ring's
+        summaries, newest first."""
+        doc = self.tracer.stats()
+        doc["traces"] = self.tracer.list_traces()
+        return doc
+
     def _make_handler(server):  # noqa: N805 — bound as a class closure
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -618,11 +824,13 @@ class WebhookServer:
             def log_message(self, fmt, *args):
                 log.debug("%s %s", self.address_string(), fmt % args)
 
-            def _write_json(self, doc: dict, code: int = 200):
+            def _write_json(self, doc: dict, code: int = 200, headers: Optional[dict] = None):
                 data = json.dumps(doc).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -652,10 +860,29 @@ class WebhookServer:
                         self.send_error(413, "request body too large")
                         return
                     body = self.rfile.read(length) if length else b""
+                    if server.recorder is not None:
+                        server.recorder.record(path, body)
+                    # one request id end to end: the ingested W3C
+                    # traceparent's trace id (or a fresh one) is the logged
+                    # requestId, the trace's id in /debug/traces and the
+                    # audit log, and the X-Cedar-Trace-Id response header
+                    request_id, parent_span = ingest_request_id(self.headers.get("traceparent"))
+                    headers = {"X-Cedar-Trace-Id": request_id}
+                    root_span = sampled = None
+                    if server.tracer is not None:
+                        # our root span is the downstream parent; the
+                        # recorded flag is the HEAD sampling decision
+                        # (drawn here, honored by the handler's trace):
+                        # tail-keep is not knowable at response time
+                        root_span = new_span_id()
+                        sampled = server.tracer.head_sample()
+                        headers["traceparent"] = format_traceparent(request_id, root_span, sampled)
+                    ids = dict(request_id=request_id, parent_span_id=parent_span,
+                               root_span_id=root_span, sampled=sampled)
                     if path == "/v1/authorize":
-                        self._write_json(server.handle_authorize(body))
+                        self._write_json(server.handle_authorize(body, **ids), headers=headers)
                     elif path == "/v1/admit" and server.admission_handler is not None:
-                        self._write_json(server.handle_admit(body))
+                        self._write_json(server.handle_admit(body, **ids), headers=headers)
                     else:
                         self.send_error(404)
                 finally:
@@ -701,6 +928,14 @@ class WebhookServer:
                 elif self.path == "/readyz":
                     self._send(b"", "", 200 if server.ready() else 503)
                 elif self.path == "/metrics":
+                    if server.slo is not None:
+                        try:
+                            # burn rates are window functions of time, not
+                            # of events: refreshed at scrape, so a quiet
+                            # window decays the gauges
+                            server.slo.publish()
+                        except Exception:  # noqa: BLE001 — scrape must serve
+                            log.exception("slo publish failed")
                     self._send(server.metrics.expose().encode(), "text/plain; version=0.0.4")
                 elif self.path == "/debug/engine":
                     self._debug("engine stats", server.debug_engine)
@@ -710,6 +945,26 @@ class WebhookServer:
                     self._debug("cache stats", server.debug_cache)
                 elif self.path == "/debug/chaos":
                     self._debug("chaos stats", default_registry().stats)
+                elif self.path == "/debug/slo":
+                    if server.slo is None:
+                        self.send_error(404)
+                        return
+                    self._debug("slo status", server.slo.status)
+                elif self.path == "/debug/traces" or self.path.startswith("/debug/traces/"):
+                    # the bare path lists the ring newest first; /<id>
+                    # (a prefix will do) one kept span tree
+                    if server.tracer is None:
+                        self.send_error(404)
+                        return
+                    trace_id = self.path[len("/debug/traces/"):].strip("/")
+                    if trace_id:
+                        doc = server.tracer.get(trace_id)
+                        if doc is None:
+                            self.send_error(404)
+                            return
+                        self._send_json(doc)
+                    else:
+                        self._debug("trace listing", server.debug_traces)
                 elif self.path == "/debug/analysis":
                     if server.analysis_provider is None:
                         self.send_error(404)
@@ -835,6 +1090,9 @@ class WebhookServer:
             self.reloader.stop()
         self.stop_batchers()
         self.close_stores()
+        for closer in (self.tracer, self.audit_log):
+            if closer is not None:
+                closer.close()  # the trace log's and the audit log's files
 
     def close_stores(self) -> None:
         """Stop the reload tickers of both paths' stores."""

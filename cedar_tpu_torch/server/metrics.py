@@ -74,6 +74,16 @@ JAX package:
     ``cedar_decision_cache_coalesced_total{path}``;
   * ``cedar_decision_cache_size{path}`` and
     ``cedar_decision_cache_hit_ratio{path}``.
+
+And so are the observability plane's (obs/), recorded by the tracer, the
+audit log and the SLO tracker, and by the server once per audit line:
+
+  * ``cedar_trace_kept_total{path,reason}`` (reason: sampled, slow, error,
+    fallback);
+  * ``cedar_audit_records_total{path}`` and
+    ``cedar_audit_rotations_total``;
+  * ``cedar_slo_burn_rate{path,slo,window}`` and
+    ``cedar_slo_target{path,slo}``, refreshed at each /metrics scrape.
 """
 
 from __future__ import annotations
@@ -171,6 +181,23 @@ class Histogram:
                     counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+
+    def fraction_over(self, bound: float) -> Dict[_Key, float]:
+        """Per-label-set fraction of observations strictly above the
+        largest bucket <= ``bound``: the public read of the SLO plane's
+        histogram cross-check (obs/slo.py slo_from_histogram)."""
+        out: Dict[_Key, float] = {}
+        with self._lock:
+            for key, counts in self._counts.items():
+                total = self._totals.get(key, 0)
+                if not total:
+                    continue
+                under = 0
+                for b, c in zip(self.buckets, counts):
+                    if b <= bound:
+                        under = c
+                out[key] = 1.0 - under / total
+        return out
 
     def totals(self, **labels) -> Tuple[int, float]:
         """(observation count, sum) of one label set."""
@@ -383,6 +410,48 @@ class _ProcessFamilies:
             "reloads are churning generations.",
             ["path"],
         )
+        # the observability plane's families (obs/)
+        self.trace_kept_total = Counter(
+            "cedar_trace_kept_total",
+            "Finished request traces kept into the /debug/traces ring, "
+            "partitioned by path and keep reason (sampled: head sampling; "
+            "slow: tail-keep past the tail latency budget; error: the "
+            "request answered with an evaluation error; fallback: answered "
+            "with the failure posture). A rising error/fallback rate with "
+            "sampled flat is the tracing plane catching exactly the requests "
+            "head sampling would have missed.",
+            ["path", "reason"],
+        )
+        self.audit_records_total = Counter(
+            "cedar_audit_records_total",
+            "Decision audit log lines appended, partitioned by path. Compare "
+            "with the requests answered: a persistent gap means audit "
+            "appends are failing (the log disables itself on I/O errors "
+            "rather than slowing serving).",
+            ["path"],
+        )
+        self.audit_rotations_total = Counter(
+            "cedar_audit_rotations_total",
+            "Size-based audit log rotations (<path> -> <path>.1 shifts).",
+            [],
+        )
+        self.slo_burn_rate = Gauge(
+            "cedar_slo_burn_rate",
+            "Error-budget burn rate per path, objective (availability / "
+            "latency) and trailing window (5m / 1h / 6h): bad-request "
+            "fraction over the window divided by the objective's error "
+            "budget. 1.0 consumes the budget exactly at the sustain rate; "
+            "the canonical fast-burn page is rate > 14.4 on the short window "
+            "AND > 1 on the long one.",
+            ["path", "slo", "window"],
+        )
+        self.slo_target = Gauge(
+            "cedar_slo_target",
+            "Configured SLO target per path and objective (availability: "
+            "non-error answer fraction; latency: fraction answered within "
+            "the latency budget).",
+            ["path", "slo"],
+        )
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -392,6 +461,8 @@ class _ProcessFamilies:
             self.decision_cache_hits_total, self.decision_cache_misses_total,
             self.decision_cache_evictions_total, self.decision_cache_coalesced_total,
             self.decision_cache_size, self.decision_cache_hit_ratio,
+            self.trace_kept_total, self.audit_records_total, self.audit_rotations_total,
+            self.slo_burn_rate, self.slo_target,
         )
 
     def collect(self) -> List[str]:
@@ -495,6 +566,26 @@ def set_cache_size(path: str, size: int) -> None:
 
 def set_cache_hit_ratio(path: str, ratio: float) -> None:
     _PROCESS.decision_cache_hit_ratio.set(round(ratio, 6), path=path)
+
+
+def record_trace_kept(path: str, reason: str) -> None:
+    _PROCESS.trace_kept_total.inc(path=path, reason=reason)
+
+
+def record_audit_record(path: str) -> None:
+    _PROCESS.audit_records_total.inc(path=path)
+
+
+def record_audit_rotation() -> None:
+    _PROCESS.audit_rotations_total.inc()
+
+
+def set_slo_burn_rate(path: str, slo: str, window: str, rate: float) -> None:
+    _PROCESS.slo_burn_rate.set(round(rate, 4), path=path, slo=slo, window=window)
+
+
+def set_slo_target(path: str, slo: str, value: float) -> None:
+    _PROCESS.slo_target.set(value, path=path, slo=slo)
 
 
 class WebhookMetrics:

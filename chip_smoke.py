@@ -242,7 +242,7 @@ Phases, each a hard failure with a nonzero exit:
      swap, the gated rows per batch before and after the partial swap,
      launches, peak RSS and the phase's wall time.
 
-  14. the decision cache (this slice's main path): phase 12's 1,002
+  14. the decision cache: phase 12's 1,002
      Policy objects on FakeApiServer, the CLI at its cache defaults
      (--decision-cache-size 65536, TTLs 300 / 30 / 5 s), both engines
      incremental over 64 buckets, --reload-seconds 1. A working set of
@@ -266,10 +266,49 @@ Phases, each a hard failure with a nonzero exit:
      ratio, misses and coalesced totals; the server's peak RSS; and the
      host memory of a full cache (65,536 entries and memo rows,
      tracemalloc in this process).
+  15. the request observability plane (this slice's main path): the CLI
+     over phase 12's 1,002 Policy objects on FakeApiServer, both engines
+     and the cache at its defaults, with --trace-sample-rate 1.0
+     --trace-ring 4096 --trace-log-file, --audit-log-file,
+     --enable-recording --recording-dir, and the artificial injector
+     behind --confirm-non-prod-inject-errors at 2 errors and 3 denies per
+     second (unequal rates: with equal ones both token buckets refill in
+     step and the deny, consulted second, hides every error). Traffic:
+     (a) phase 14's 1,024 distinct-key SARs at concurrency 64 (misses)
+     beside 256 admission_bodies(seed + 9) at concurrency 16; (a') 100
+     other keys at concurrency 1 (misses); (b) 300 allow hits at
+     concurrency 1, the keys injected in (a) first. Every 16th SAR and 8th
+     review of (a) carries a traceparent. Checks, each failing the run:
+     every answer held against the interpreter over the served objects,
+     every difference an injected answer (NoOpinion with the injector's
+     error, or its deny) whose count is the
+     cedar_chaos_injections_total{seam="response"} delta (a request both
+     limiters fire on answers the deny) and at most rate x window + 1 per
+     kind, 0 flips; a key injected in (a) answers its real answer in (b)
+     unless injected again (an injected answer is never cached); every
+     answer carries X-Cedar-Trace-Id and a sampled traceparent, and a
+     sent traceparent's id comes back; /debug/traces/<id> has every
+     request's trace with the answer's decision: a miss's spans hold
+     cache.lookup and the four batch.* spans (or coalesce.wait), a hit's
+     are cache.lookup alone with 0 launches over (b), admission traces
+     have path admission; the audit log has one line per answer with its
+     path, decision and cached flag, its fingerprint naming a recorder
+     file that holds the body; the trace log one line per kept trace,
+     and python -m cedar_tpu_torch.cli.trace finds one id in it;
+     /debug/slo and cedar_slo_burn_rate for both paths, the availability
+     errors equal to the injected errors (and to the admission answers
+     the oracle errs on); no breaker transition, supervisor restart or
+     device rebuild. Prints per window requests/s, p50 and p99,
+     span_tree_coverage (min, p50, p99), the median duration of each span
+     of a c=1 miss and a c=1 hit, the injections, launches, the server's
+     peak RSS and the phase's wall time.
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
-transition, no supervisor restart and no device rebuild, and so does
-14. Every server of phases 8-13 runs with --decision-cache-size 0:
+transition, no supervisor restart and no device rebuild, and so do
+14 and 15. Every server runs at the CLI's observability defaults, as
+users deploy it: tracing armed at sample rate 0 (slow, errored and
+posture-answered requests tail-kept) and the SLO tracker on; phase 15
+arms the rest. Every server of phases 8-13 runs with --decision-cache-size 0:
 they measure the device path and the breaker's posture, which cached
 answers would bypass. Every server of phases 8-12 gates its loads with
 the config's default validationMode (permissive): each load's compile
@@ -278,7 +317,8 @@ seconds carry the gate's ``analyze`` phase.
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
 reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
-and ``--only-cache`` phases 1, 2 and 14; none prints result lines.
+``--only-cache`` phases 1, 2 and 14, and ``--only-obs`` phases 1, 2 and
+15; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -910,21 +950,24 @@ def http_get(port: int, path: str):
 class Client:
     """One keep-alive connection to the webhook; post() -> (answer,
     seconds): a SAR's status on /v1/authorize, an AdmissionReview's
-    response on /v1/admit. A request that fails in any way (a reset or
-    dropped connection, a non-200 answer) raises: nothing is retried."""
+    response on /v1/admit; the response's headers stay in `headers`. A
+    request that fails in any way (a reset or dropped connection, a
+    non-200 answer) raises: nothing is retried."""
 
     def __init__(self, port: int, path: str = "/v1/authorize"):
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         self.path = path
         self.key = "response" if path == "/v1/admit" else "status"
+        self.headers: dict = {}
 
-    def post(self, body: bytes):
+    def post(self, body: bytes, headers=None):
         t = time.perf_counter()
         self.conn.request("POST", self.path, body=body,
-                          headers={"Content-Type": "application/json"})
+                          headers={"Content-Type": "application/json", **(headers or {})})
         resp = self.conn.getresponse()
         data = resp.read()
         dt = time.perf_counter() - t
+        self.headers = dict(resp.getheaders())
         if resp.status != 200:
             raise RuntimeError(f"HTTP {resp.status}: {data[:200]!r}")
         if resp.will_close:
@@ -966,6 +1009,9 @@ def main() -> None:
     ap.add_argument("--only-cache", action="store_true",
                     help="run phases 1, 2 and 14 only (the decision cache); prints no "
                          "result lines")
+    ap.add_argument("--only-obs", action="store_true",
+                    help="run phases 1, 2 and 15 only (the observability plane); prints "
+                         "no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
@@ -1040,6 +1086,10 @@ def main() -> None:
     if args.only_cache:
         corpus = synth_corpus(args.policies, seed=args.seed)
         cache_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
+    if args.only_obs:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1520,14 +1570,19 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 14. the decision cache ahead of the CRD-served engines
     cache_launches = cache_phase(args, card, g_batch)
 
-    # each kernel's launches on this slice's main path, phase 14's cache
-    # misses (counted in the server process); and on the earlier paths
+    # ---- 15. the request observability plane around both endpoints
+    obs_launches = obs_phase(args, card, g_batch)
+
+    # each kernel's launches on this slice's main path, phase 15's misses
+    # on both endpoints (counted in the server process); and on the
+    # earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": cache_launches[k],
+            "launches": obs_launches[k],
+            "launches_obs": obs_launches[k],
             "launches_cache": cache_launches[k],
             "launches_gate": gate_launches[k],
             "launches_crd": crd_launches[k],
@@ -3968,6 +4023,407 @@ def full_cache_bytes(card: str, bodies: list) -> None:
     tracemalloc.stop()
     print(f"cache full ({card}): {cache.size()} entries and {len(memo._memo)} memo rows hold "
           f"{used / 2**20:.1f} MiB of host memory (tracemalloc, this process)", flush=True)
+
+
+# phase 15's injector rates (answers per second): unequal, so the two
+# token buckets do not refill in step (with equal rates both fire on the
+# same request and the deny, consulted second, hides every error)
+OBS_ERROR_RATE, OBS_DENY_RATE = 2.0, 3.0
+# an injected answer's status: NoOpinion with the injector's error, or a
+# deny with its reason (chaos/registry.py Seam.fire)
+INJECTED_ERROR = {"allowed": False, "denied": False, "reason": "",
+                  "evaluationError": "encountered error"}
+INJECTED_DENY = {"allowed": False, "denied": True, "reason": "Authorization denied"}
+
+
+def drive_traced(port: int, items: list, concurrency: int, path: str = "/v1/authorize"):
+    """drive() with headers: items are (body, traceparent or None) ->
+    (wall s, [latency s], [answer], [response headers], [(unix send, unix
+    done)], [client error])."""
+    n = len(items)
+    lat, got, hdrs, when = [0.0] * n, [None] * n, [None] * n, [None] * n
+    errors, next_i, lock = [], [0], threading.Lock()
+
+    def worker():
+        c = Client(port, path)
+        try:
+            while True:
+                with lock:
+                    i = next_i[0]
+                    next_i[0] += 1
+                if i >= n:
+                    return
+                body, tp = items[i]
+                sent = time.time()
+                got[i], lat[i] = c.post(body, {"traceparent": tp} if tp else None)
+                hdrs[i], when[i] = c.headers, (sent, time.time())
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish within 600 s")
+    return wall, lat, got, hdrs, when, errors
+
+
+def injections(port: int) -> dict:
+    """cedar_chaos_injections_total{seam="response"} by kind."""
+    text = http_get(port, "/metrics")[1].decode()
+    out = {"response_error": 0.0, "response_deny": 0.0}
+    for line in text.splitlines():
+        if line.startswith('cedar_chaos_injections_total{') and 'seam="response"' in line:
+            out[line.split('kind="')[1].split('"')[0]] = float(line.rsplit(" ", 1)[1])
+    return out
+
+
+def sar_label(status: dict) -> str:
+    """The decision label a SAR answer is counted and audited under."""
+    if status.get("evaluationError"):
+        return "<error>"
+    return "Allow" if status["allowed"] else "Deny" if status["denied"] else "NoOpinion"
+
+
+def adm_label(resp: dict) -> str:
+    """The label of an AdmissionReview response (server/http.py
+    _admit_outcome)."""
+    if resp["status"]["code"] not in (None, 200):
+        return "<error>"
+    return "allowed" if resp["allowed"] else "denied"
+
+
+def obs_phase(args, card: str, sars: list) -> dict:
+    """Phase 15 (module docstring): the request observability plane around
+    both webhook paths of the CLI over phase 12's Policy objects, with the
+    cache at its defaults, the tracer at rate 1, the audit log, the
+    recorder and the injector on. `sars` is phase 12's SAR pool. Returns
+    the server's served kernel launches over the phase, both engines."""
+    from cedar_tpu_torch.obs.trace import parse_traceparent, span_tree_coverage
+
+    t_phase = time.monotonic()
+    grace = 5.0
+    n_keys, n_c1, n_adm, n_hits = 1024, 100, 256, 300
+    distinct = cache_working_set(sars, n_keys + n_c1)
+    bodies, c1_bodies = distinct[:n_keys], distinct[n_keys:]
+    adm = admission_bodies(n_adm, args.seed + 9)
+    base = crd_objects(args.policies, args.seed)
+    api = FakeApiServer(hold_s=30.0)
+    with tempfile.TemporaryDirectory(prefix="cedar-obs-") as tmp:
+        vfile = os.path.join(tmp, "v0.json")
+        with open(vfile, "w") as f:
+            json.dump([{"metadata": {"name": n, "uid": f"uid-{n}"}, "spec": {"content": c}}
+                       for n, c in base.items()], f)
+        for name, content in base.items():
+            api.apply(name, content)
+        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "crd", "crdStore": {}}]}}, f)
+        trace_log, audit_log = os.path.join(tmp, "traces.jsonl"), os.path.join(tmp, "audit.jsonl")
+        rec_dir = os.path.join(tmp, "recordings")
+        # phase 14's serving flags and cache defaults, the plane armed
+        srv = Webhook(cfg, tmp, "webhook-obs", grace,
+                      ("--kubeconfig", kube, "--reload-seconds", "1",
+                       "--request-timeout-ms", "10000", "--shard-buckets", "64",
+                       "--trace-sample-rate", "1.0", "--trace-ring", "4096",
+                       "--trace-log-file", trace_log, "--audit-log-file", audit_log,
+                       "--enable-recording", "--recording-dir", rec_dir,
+                       "--confirm-non-prod-inject-errors",
+                       "--artificial-error-rate", str(OBS_ERROR_RATE),
+                       "--artificial-deny-rate", str(OBS_DENY_RATE)),
+                      cache=True)
+        try:
+            t0 = time.monotonic()
+            answers = interpreter_answers(
+                {"set": (f"crd-authorize:{vfile}", bodies), "c1": (f"crd-authorize:{vfile}", c1_bodies),
+                 "adm": (f"crd-admit:{vfile}", adm)},
+                args.policies, args.seed, piece=128)
+            want = {"set": answers["set"], "c1": answers["c1"]}
+            want_adm = [a["response"] for a in answers["adm"]]
+            print(f"obs oracle: {n_keys + n_c1 + n_adm} interpreter answers in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            srv.wait_ready(card)
+
+            def launches():
+                doc = srv.debug_engine()
+                return {k: sum(doc[p]["engine"]["launches"][k]
+                               for p in ("authorization", "admission"))
+                        for k in doc["authorization"]["engine"]["launches"]}
+
+            problems, requests = [], []  # requests: (window, path, body, answer, headers, sent tp)
+            l_start = launches()
+
+            def check_sars(label, items, got, expected, wall, inj0, inj1):
+                """Flips: every answer unlike the oracle's must be an
+                injected one, their count the injector's (a request both
+                limiters fire on answers the deny), within rate x wall + 1
+                per kind -> the indices of injected answers."""
+                # no real answer has the injector's error or deny reason
+                errs = [i for i, g in enumerate(got) if g == INJECTED_ERROR]
+                denies = [i for i, g in enumerate(got) if g == INJECTED_DENY]
+                flips = [i for i, g in enumerate(got) if g not in (INJECTED_ERROR, INJECTED_DENY)
+                         and canon({"status": g}) != expected[i]]
+                d_err = inj1["response_error"] - inj0["response_error"]
+                d_deny = inj1["response_deny"] - inj0["response_deny"]
+                both = d_err - len(errs)
+                for i in flips[:3]:
+                    print(f"obs {label} flip: expected {json.dumps(expected[i])}, got "
+                          f"{json.dumps(got[i])}", flush=True)
+                if flips:
+                    problems.append(f"{label}: {len(flips)} flips beyond the injections")
+                if d_deny != len(denies) or not 0 <= both <= len(denies):
+                    problems.append(f"{label}: {len(errs)} injected errors and {len(denies)} "
+                                    f"denies answered, the injector fired {d_err:g} / {d_deny:g}")
+                for kind, n, rate in (("error", d_err, OBS_ERROR_RATE),
+                                      ("deny", d_deny, OBS_DENY_RATE)):
+                    if n > rate * wall + 1:
+                        problems.append(f"{label}: {n:g} injected {kind}s in {wall:.3f} s at "
+                                        f"{rate:g}/s")
+                return set(errs) | set(denies), (len(errs), len(denies), both)
+
+            def report(label, wall, lat, n, conc, extra=""):
+                print(f"obs {label} ({card}): {n} requests at concurrency {conc}, "
+                      f"{n / wall:.1f} requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, "
+                      f"p99 {pct(lat, 99) * 1e3:.3f} ms{extra}", flush=True)
+
+            # (a) misses: the working set at c=64 beside the admission
+            # reviews at c=16; every 16th SAR and 8th review carries a
+            # traceparent, whose id must come back
+            items = []
+            for i, b in enumerate(bodies):
+                h = f"00-{i + 1:032x}-{i + 1:016x}-01" if i % 16 == 0 else None
+                items.append((b, h))
+            adm_items = [(b, f"00-{0xadd00000 + i:032x}-{i + 1:016x}-00" if i % 8 == 0 else None)
+                         for i, b in enumerate(adm)]
+            inj0, l0 = injections(srv.mport), launches()
+            out = {}
+            th = threading.Thread(target=lambda: out.update(
+                adm=drive_traced(srv.port, adm_items, 16, "/v1/admit")))
+            th.start()
+            wall, lat, got, hdrs, when, errors = drive_traced(srv.port, items, 64)
+            th.join(timeout=600)
+            inj1, l1 = injections(srv.mport), launches()
+            a_wall, a_lat, a_got, a_hdrs, _a_when, a_errors = out["adm"]
+            if errors or a_errors:
+                fail(f"obs (a): client errors {(errors + a_errors)[:3]}")
+            window = max(w[1] for w in when) - min(w[0] for w in when)
+            injected_a, counts = check_sars("(a) misses", items, got, want["set"], window, inj0, inj1)
+            adm_flips = sum(adm_key(g) != adm_key(w) for g, w in zip(a_got, want_adm))
+            if adm_flips:
+                problems.append(f"(a) admission: {adm_flips} flips")
+            dl = {k: l1[k] - l0[k] for k in l1}
+            report("(a) misses", wall, lat, n_keys, 64,
+                   f"; injected errors / denies / both-fired {list(counts)}; launches "
+                   f"{json.dumps(dl)}")
+            report("(a) admission", a_wall, a_lat, n_adm, 16, f"; flips {adm_flips}")
+            if not all(dl.values()):
+                problems.append(f"(a): a kernel did not launch: {dl}")
+            requests += [("a", "/v1/authorize", b, g, h, t) for (b, t), g, h in zip(items, got, hdrs)]
+            requests += [("a", "/v1/admit", b, g, h, t)
+                         for (b, t), g, h in zip(adm_items, a_got, a_hdrs)]
+
+            # (a') misses at c=1: the span breakdown of a lone miss
+            c1_items = [(b, None) for b in c1_bodies]
+            inj0, l0 = injections(srv.mport), launches()
+            wall, lat, got, hdrs, when, errors = drive_traced(srv.port, c1_items, 1)
+            inj1, l1 = injections(srv.mport), launches()
+            if errors:
+                fail(f"obs (a'): client errors {errors[:3]}")
+            _inj_c1, counts_c1 = check_sars("(a') misses c=1", c1_items, got, want["c1"], wall,
+                                            inj0, inj1)
+            report("(a') misses c=1", wall, lat, n_c1, 1,
+                   f"; injected {list(counts_c1)}; launches "
+                   f"{json.dumps({k: l1[k] - l0[k] for k in l1})}")
+            requests += [("c1", "/v1/authorize", b, g, h, None)
+                         for (b, _), g, h in zip(c1_items, got, hdrs)]
+
+            # (b) hits at c=1: the allow keys, those injected in (a) first
+            allow = [i for i in range(n_keys) if want["set"][i]["allowed"]]
+            first = [i for i in allow if i in injected_a]
+            order = first + [i for i in allow if i not in injected_a]
+            hit_idx = [order[k % len(order)] for k in range(n_hits)]
+            hit_items = [(bodies[i], None) for i in hit_idx]
+            inj0, l0 = injections(srv.mport), launches()
+            wall, lat, got, hdrs, when, errors = drive_traced(srv.port, hit_items, 1)
+            inj1, l1 = injections(srv.mport), launches()
+            if errors:
+                fail(f"obs (b): client errors {errors[:3]}")
+            injected_b, counts_b = check_sars("(b) hits c=1", hit_items, got,
+                                              [want["set"][i] for i in hit_idx], wall, inj0, inj1)
+            dl = {k: l1[k] - l0[k] for k in l1}
+            if any(dl.values()):
+                problems.append(f"(b) hits: launches {dl}, want 0")
+            # an answer injected in (a) was never cached: its key answers
+            # its real answer now unless injected again
+            recached = [i for k, i in enumerate(hit_idx)
+                        if i in injected_a and k not in injected_b
+                        and canon({"status": got[k]}) != want["set"][i]]
+            if recached:
+                problems.append(f"(b): {len(recached)} keys injected in (a) answer an "
+                                f"injected answer from the cache")
+            report("(b) hits c=1", wall, lat, n_hits, 1,
+                   f"; {len(first)} keys injected in (a) among them; injected "
+                   f"{list(counts_b)}; launches {json.dumps(dl)}")
+            requests += [("b", "/v1/authorize", b, g, h, None)
+                         for (b, _), g, h in zip(hit_items, got, hdrs)]
+            injected_total = sum(c[0] for c in (counts, counts_c1, counts_b))
+
+            # the headers: an id and a sampled traceparent on every
+            # answer; a sent traceparent's id comes back
+            for win, path, body, ans, h, sent in requests:
+                rid = h.get("X-Cedar-Trace-Id", "")
+                parsed = parse_traceparent(h.get("traceparent"))
+                if len(rid) != 32 or parsed is None or parsed[0] != rid or \
+                        not h["traceparent"].endswith("-01"):
+                    problems.append(f"headers: {win} {path} answered {json.dumps(h)}")
+                    break
+                if sent and sent.split("-")[1] != rid:
+                    problems.append(f"headers: sent {sent}, answered {rid}")
+                    break
+
+            # every request's trace, from /debug/traces/<id>
+            conn = http.client.HTTPConnection("127.0.0.1", srv.mport, timeout=60)
+            spans_of = {"a": [], "c1": [], "b": [], "adm": []}
+            bad_trace = []
+            try:
+                for win, path, body, ans, h, sent in requests:
+                    rid = h["X-Cedar-Trace-Id"]
+                    conn.request("GET", f"/debug/traces/{rid}")
+                    resp = conn.getresponse()
+                    data = resp.read()
+                    if resp.status != 200:
+                        bad_trace.append(f"{win} {path} {rid}: HTTP {resp.status}")
+                        continue
+                    doc = json.loads(data)
+                    names = [sp["name"] for sp in doc["spans"]]
+                    label = adm_label(ans) if path == "/v1/admit" else sar_label(ans)
+                    key = "adm" if path == "/v1/admit" else win
+                    spans_of[key].append(doc)
+                    if doc["decision"] != label or doc["traceId"] != rid:
+                        bad_trace.append(f"{rid}: trace decision {doc['decision']}, answer {label}")
+                    elif sent and doc["upstreamParent"] != sent.split("-")[2]:
+                        bad_trace.append(f"{rid}: upstream parent {doc['upstreamParent']}")
+                    elif path == "/v1/admit":
+                        if doc["path"] != "admission":
+                            bad_trace.append(f"{rid}: admission trace path {doc['path']}")
+                    elif win == "b":
+                        if names != ["authorization", "cache.lookup"]:
+                            bad_trace.append(f"{rid}: hit spans {names}")
+                    elif "cache.lookup" not in names or not (
+                            {"batch.queue_wait", "batch.encode", "batch.dispatch",
+                             "batch.decode"} <= set(names) or "coalesce.wait" in names):
+                        bad_trace.append(f"{rid}: miss spans {names}")
+            finally:
+                conn.close()
+            if bad_trace:
+                problems.append(f"traces: {len(bad_trace)} bad, first {bad_trace[:3]}")
+            for key, docs in spans_of.items():
+                cov = [span_tree_coverage(d) for d in docs]
+                if cov:
+                    print(f"obs coverage {key}: {len(cov)} traces, min {min(cov):.4f}, p50 "
+                          f"{pct(cov, 50):.4f}, p99 {pct(cov, 99):.4f}", flush=True)
+            for key, what in (("c1", "a c=1 miss"), ("b", "a c=1 hit")):
+                spans: dict = {}
+                for d in spans_of[key]:
+                    spans.setdefault("e2e (root)", []).append(d["duration_us"])
+                    for sp in d["spans"][1:]:
+                        spans.setdefault(sp["name"], []).append(sp["duration_us"])
+                    spans.setdefault("not covered", []).append(
+                        d["duration_us"] * (1 - span_tree_coverage(d)))
+                print(f"obs spans of {what} ({card}), median us over {len(spans_of[key])}: "
+                      + json.dumps({k: round(float(np.median(v)), 1) for k, v in spans.items()}),
+                      flush=True)
+
+            # the audit log: one line per answer, joined to the recorder
+            with open(audit_log) as f:
+                lines = [json.loads(ln) for ln in f]
+            by_id = {}
+            for ln in lines:
+                by_id.setdefault(ln["traceId"], []).append(ln)
+            recorded: dict = {}
+            for name in os.listdir(rec_dir):
+                _req, endpoint, fp, _ns = name.split("-")
+                recorded.setdefault((endpoint, fp), []).append(os.path.join(rec_dir, name))
+            bad_audit = []
+            for win, path, body, ans, h, sent in requests:
+                got_lines = by_id.get(h["X-Cedar-Trace-Id"], [])
+                label = adm_label(ans) if path == "/v1/admit" else sar_label(ans)
+                want_path = "admission" if path == "/v1/admit" else "authorization"
+                if len(got_lines) != 1:
+                    bad_audit.append(f"{len(got_lines)} lines for {h['X-Cedar-Trace-Id']}")
+                    continue
+                ln = got_lines[0]
+                if (ln["path"], ln["decision"], ln["cached"]) != (want_path, label, win == "b"):
+                    bad_audit.append(f"line {json.dumps(ln)} for a {win} {label} answer")
+                    continue
+                endpoint = "admit" if path == "/v1/admit" else "authorize"
+                files = recorded.get((endpoint, ln["fingerprint"]), [])
+                if not any(open(fn, "rb").read() == body for fn in files):
+                    bad_audit.append(f"no recorder file holds the body of {ln['fingerprint']}")
+            if len(lines) != len(requests) or bad_audit:
+                problems.append(f"audit: {len(lines)} lines for {len(requests)} answers; "
+                                f"{len(bad_audit)} bad, first {bad_audit[:3]}")
+            n_files = sum(len(v) for v in recorded.values())
+            print(f"obs audit: {len(lines)} lines for {len(requests)} answers, {n_files} "
+                  f"recorder files, {len(bad_audit)} unjoined", flush=True)
+
+            # the trace log, and cedar-trace over it
+            with open(trace_log) as f:
+                logged = [json.loads(ln)["traceId"] for ln in f]
+            ids = {h["X-Cedar-Trace-Id"] for _w, _p, _b, _a, h, _t in requests}
+            if len(logged) != len(requests) or set(logged) != ids:
+                problems.append(f"trace log: {len(logged)} lines for {len(requests)} kept traces")
+            chosen = spans_of["c1"][0]["traceId"]
+            cli = subprocess.run([sys.executable, "-m", "cedar_tpu_torch.cli.trace", "--log",
+                                  trace_log, chosen[:16]], capture_output=True, text=True,
+                                 timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+            if cli.returncode != 0 or chosen not in cli.stdout:
+                problems.append(f"cedar-trace: exit {cli.returncode}: {cli.stderr[-300:]}")
+            print(f"obs cedar-trace --log {chosen[:16]}: exit {cli.returncode}; "
+                  + " | ".join(cli.stdout.strip().splitlines()[-2:]), flush=True)
+
+            # SLO: both paths, availability errors = the injected errors
+            slo = json.loads(http_get(srv.mport, "/debug/slo")[1])
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            adm_errors = sum(adm_label(w) == "<error>" for w in want_adm)
+            for path_label, want_errors in (("authorization", injected_total),
+                                            ("admission", adm_errors)):
+                w = slo["paths"].get(path_label, {}).get("1h", {})
+                if w.get("errors") != want_errors:
+                    problems.append(f"slo {path_label}: {w.get('errors')} errors, want "
+                                    f"{want_errors}")
+                if f'cedar_slo_burn_rate{{path="{path_label}",slo="availability",window="5m"}}' \
+                        not in text:
+                    problems.append(f"no cedar_slo_burn_rate series for {path_label}")
+            print(f"obs slo (1h window): " + json.dumps(
+                {p: slo["paths"][p]["1h"] for p in slo["paths"]}), flush=True)
+            problems += resilience_quiet("obs", text)
+            fallback = metric_total(text, "cedar_authorizer_fallback_batches_total")
+            if fallback:
+                problems.append(f"{fallback:g} fallback batches")
+            l_end = launches()
+            launches_obs = {k: l_end[k] - l_start[k] for k in l_end}
+            total_inj = injections(srv.mport)
+            print(f"obs totals ({card}): injections {json.dumps(total_inj)}, launches "
+                  f"{json.dumps(launches_obs)}", flush=True)
+            if problems:
+                fail("obs: " + "; ".join(problems))
+            took, rss = srv.terminate()
+            print(f"obs webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+            api.shutdown()
+    print(f"obs phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches_obs
 
 
 def chaos_builtin(name: str) -> dict:

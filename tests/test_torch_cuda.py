@@ -407,6 +407,71 @@ def test_decision_cache_hits_launch_no_kernel(cuda):
 
 
 @pytest.mark.cuda
+def test_traced_miss_on_card_carries_the_batch_spans(cuda):
+    """The WebhookServer on the card with a tracer at rate 1 and the
+    decision cache: each miss's trace (under its X-Cedar-Trace-Id) holds
+    cache.lookup and the four pipelined batch spans, in that order, each
+    inside the root span, and the misses launched match_words_kernel; a
+    repeat's trace holds cache.lookup alone and launches nothing."""
+    import http.client
+    import json
+
+    from cedar_tpu_torch.cache import DecisionCache, fingerprint_body, plane_composite
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.obs import Tracer
+    from cedar_tpu_torch.server.http import WebhookServer
+
+    corpus = synth_corpus(400, seed=9)
+    gpu, _cpu = _fast_paths([PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]])
+    bodies, keys = [], set()
+    for b in _mixed_bodies(corpus, 64, seed=14):
+        key = fingerprint_body("authorize", b)
+        if key is not None and key not in keys and len(bodies) < 16:
+            keys.add(key)
+            bodies.append(b)
+    cache = DecisionCache(generation_fn=lambda: plane_composite(gpu.authorizer.stores, gpu.engine))
+    tracer = Tracer(sample_rate=1.0, ring_capacity=64)
+    srv = WebhookServer(gpu.authorizer, address="127.0.0.1", port=0, metrics_port=0,
+                        fastpath=gpu, pipeline_depth=2, request_timeout_s=60.0,
+                        decision_cache=cache, tracer=tracer)
+    srv.start()
+    conn = http.client.HTTPConnection("127.0.0.1", srv.bound_port, timeout=60)
+
+    def post(body):
+        conn.request("POST", "/v1/authorize", body=body)
+        resp = conn.getresponse()
+        resp.read()
+        return resp.getheader("X-Cedar-Trace-Id")
+
+    try:
+        post(_mixed_bodies(corpus, 1, seed=15)[0])  # the kernels' library loads
+        cuda_match.reset_launch_counts()
+        misses = [post(b) for b in bodies]
+        miss_launches = cuda_match.launch_counts()
+        cuda_match.reset_launch_counts()
+        hits = [post(b) for b in bodies]
+        hit_launches = cuda_match.launch_counts()
+    finally:
+        conn.close()
+        srv.stop()
+    assert miss_launches["match_words_kernel"] > 0
+    assert hit_launches == {"match_groups_kernel": 0, "match_words_kernel": 0}
+    for tid in misses:
+        doc = tracer.get(tid)
+        names = [s["name"] for s in doc["spans"]]
+        assert names == ["authorization", "cache.lookup", "batch.queue_wait", "batch.encode",
+                         "batch.dispatch", "batch.decode"], names
+        for s in doc["spans"][1:]:
+            assert 0.0 <= s["start_us"] and s["start_us"] + s["duration_us"] <= (
+                doc["duration_us"] + 0.2), s
+        dispatch = doc["spans"][4]
+        assert dispatch["duration_us"] > 0
+    for tid in hits:
+        assert [s["name"] for s in tracer.get(tid)["spans"]] == ["authorization", "cache.lookup"]
+
+
+@pytest.mark.cuda
 def test_engine_warmup_launches_per_bucket(cuda):
     """warmup(128) takes buckets 1, 8, 32 and 128: per bucket one words
     launch, one groups launch (want_full) and one words launch with the

@@ -3,8 +3,9 @@ and store modules under it, against the JAX package's, on the CPU.
 
   * every flag the port serves has the JAX parser's default, except
     --backend (the port serves from the card by default) and the port's
-    own --device; each decision cache flag parses as the JAX parser
-    parses it; a JAX flag the port does not serve is rejected;
+    own --device; each decision cache, observability and game-day flag
+    parses as the JAX parser parses it; a JAX flag the port does not
+    serve is rejected;
   * --device cuda (the default) without CUDA exits nonzero at start; a
     spawned --device cpu --insecure server (JAX blocked at import) answers
     a SAR and exits 0 on SIGTERM; build_server wires each backend and
@@ -58,12 +59,16 @@ PORTED_FLAGS = [
     "--decision-cache-size", "--decision-cache-allow-ttl-seconds",
     "--decision-cache-deny-ttl-seconds", "--decision-cache-no-opinion-ttl-seconds",
     "--decision-cache-admission",
+    "--trace-sample-rate", "--trace-tail-ms", "--trace-ring", "--trace-log-file", "--no-trace",
+    "--audit-log-file", "--audit-max-bytes", "--audit-max-files", "--slo-availability-target",
+    "--slo-latency-target", "--slo-latency-budget-ms", "--artificial-error-rate",
+    "--artificial-deny-rate", "--enable-recording", "--recording-dir",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
     ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
     ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--rollout-candidate-dir", "/tmp"],
-    ["--artificial-error-rate", "0.1"], ["--tpu-reload-seconds", "1"],
+    ["--shed-normal-at", "0.5"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
 permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
@@ -134,6 +139,30 @@ def test_cache_flag_parses_as_jax(argv):
             defaults.decision_cache_deny_ttl_seconds,
             defaults.decision_cache_no_opinion_ttl_seconds,
             defaults.decision_cache_admission) == (65536, 300.0, 30.0, 5.0, False)
+
+
+# each observability and game-day flag with a value other than its default
+OBS_FLAGS = [
+    ["--trace-sample-rate", "0.25"], ["--trace-tail-ms", "40"], ["--trace-ring", "64"],
+    ["--trace-log-file", "t.jsonl"], ["--no-trace"], ["--audit-log-file", "a.jsonl"],
+    ["--audit-max-bytes", "8192"], ["--audit-max-files", "5"],
+    ["--slo-availability-target", "0.99"], ["--slo-latency-target", "0.9"],
+    ["--slo-latency-budget-ms", "250"], ["--artificial-error-rate", "0.1"],
+    ["--artificial-deny-rate", "2"], ["--enable-recording"], ["--recording-dir", "rec"],
+]
+
+
+@pytest.mark.parametrize("argv", OBS_FLAGS, ids=lambda a: a[0])
+def test_obs_flag_parses_as_jax(argv):
+    """An observability or game-day flag parses to the JAX CLI's value;
+    the defaults arm tracing at rate 0 and the SLO tracker, as the JAX
+    CLI's do."""
+    jp, tp = j_make_parser(), make_parser()
+    dest = tp._option_string_actions[argv[0]].dest
+    assert getattr(tp.parse_args(argv), dest) == getattr(jp.parse_args(argv), dest)
+    defaults = tp.parse_args([])
+    assert (defaults.no_trace, defaults.trace_sample_rate, defaults.slo_availability_target,
+            defaults.audit_log_file, defaults.enable_recording) == (False, 0.0, 0.999, "", False)
 
 
 @pytest.mark.parametrize("argv", UNPORTED_FLAGS, ids=lambda a: a[0])
