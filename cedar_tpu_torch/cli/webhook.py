@@ -82,9 +82,21 @@ request budget) behind ``/debug/slo`` and ``cedar_slo_*``;
 /v1/authorize answers at those rates per second, only with
 ``--confirm-non-prod-inject-errors``.
 
+Overload control, with the JAX CLI's flags and defaults: ``--max-inflight``
+(0, the default, wires no gate) sizes the priority-aware ingress gate
+(load/admission.py: ``--shed-sheddable-at``, ``--shed-normal-at``, the
+per-client quota ``--client-qps`` / ``--client-burst`` /
+``--client-enforce-at``, ``--shed-retry-after-seconds``) in front of both
+endpoints; ``--adaptive-batching`` runs one SLO-adaptive batch tuner per
+batcher (load/tuner.py, ``--tuner-*``), under the supervisor as
+``tuner.<path>``, and needs the SLO tracker. On the card every load and
+rebuild then warms each engine up to ``max(--max-batch,
+--tuner-max-batch)`` (at most 32768 rows), so no batch the tuner grows to
+meets a cold bucket. ``/debug/load`` serves both.
+
 Flags of the JAX CLI that this port does not serve (fleet, tenancy,
-rollout, lifecycle, load shedding, partition specs, ...) do not exist
-here, so argparse rejects them.
+rollout, lifecycle, partition specs, ...) do not exist here, so argparse
+rejects them.
 """
 
 from __future__ import annotations
@@ -310,8 +322,9 @@ def _arm_startup_scenario(args) -> None:
 
 def _register_supervised(supervisor, server) -> None:
     """Put the long-lived workers under the watchdog: both paths'
-    batchers, every directory store's reload ticker and every CRD store's
-    list+watch thread (``store.crd.<name>``). The ``threads``
+    batchers, the adaptive batch tuners (``tuner.<path>``), every
+    directory store's reload ticker and every CRD store's list+watch
+    thread (``store.crd.<name>``). The ``threads``
     providers re-read the live objects, so a revived generation stays
     covered; a restart abandons live workers only when the probe read a
     wedge."""
@@ -332,6 +345,15 @@ def _register_supervised(supervisor, server) -> None:
             threads=lambda b=batcher: list(b._threads),
             restart=lambda reason, b=batcher: b.revive(force=_force(reason)),
             heartbeat=HeartbeatGroup(lambda b=batcher: b.heartbeats),
+        )
+    for tuner in server.tuners:
+        # a dead or wedged tuner restarts (start() is idempotent on a
+        # live thread) rather than silently stop tuning
+        supervisor.register(
+            f"tuner.{tuner.path}",
+            threads=lambda t=tuner: [t._thread] if t._thread is not None else [],
+            restart=lambda reason, t=tuner: (t.start(), True)[1],
+            heartbeat=HeartbeatGroup(lambda t=tuner: {"tick": t.heartbeat}),
         )
     stacks = [server.authorizer.stores]
     if server.admission_handler is not None:
@@ -439,6 +461,72 @@ def _observability(args) -> dict:
                 recorder=recorder)
 
 
+def _client_enforce_at(args) -> float:
+    """The load fraction where per-client quota enforcement starts: the
+    flag, or by default (--client-enforce-at < 0) the pressure threshold,
+    so the quota acts across the band below --shed-normal-at (above it
+    normal traffic sheds wholesale anyway)."""
+    if args.client_enforce_at >= 0:
+        return args.client_enforce_at
+    return args.shed_sheddable_at
+
+
+def _load_controller(args):
+    """The overload gate (load/admission.py), sized by --max-inflight;
+    None when it is 0."""
+    if args.max_inflight <= 0:
+        return None
+    from ..load import AdmissionController
+
+    return AdmissionController(
+        max_inflight=args.max_inflight,
+        shed_sheddable_at=args.shed_sheddable_at,
+        shed_normal_at=args.shed_normal_at,
+        client_qps=args.client_qps,
+        client_burst=args.client_burst,
+        client_enforce_at=_client_enforce_at(args),
+        retry_after_s=args.shed_retry_after_seconds,
+    )
+
+
+def _warm_top(args) -> int:
+    """The largest batch each load and rebuild warms on the card: the
+    batcher's --max-batch, or with --adaptive-batching the tuner's clamp
+    when larger, so no batch the tuner grows to meets a bucket whose
+    first-use costs (pinned staging, TMA maps, the float product's shape)
+    would land inside a request's deadline; at most one pipeline chunk."""
+    from ..engine.evaluator import _PIPELINE_SB
+
+    top = args.max_batch
+    if args.adaptive_batching:
+        top = max(top, args.tuner_max_batch)
+    return min(top, _PIPELINE_SB)
+
+
+def _start_tuners(args, server: WebhookServer) -> None:
+    """--adaptive-batching: one tuner per batcher of the fast paths,
+    sensing the SLO tracker's latency burn, appended to server.tuners."""
+    from ..load import AdaptiveBatchTuner, TuningBounds
+
+    bounds = TuningBounds(
+        min_batch=args.tuner_min_batch,
+        max_batch=args.tuner_max_batch,
+        min_window_s=args.tuner_min_linger_us / 1e6,
+        max_window_s=args.tuner_max_linger_us / 1e6,
+    )
+    for path, batcher in (("authorization", server._batcher),
+                          ("admission", server._adm_raw_batcher)):
+        if batcher is None:
+            continue
+        tuner = AdaptiveBatchTuner(
+            batcher, server.slo, path=path, bounds=bounds,
+            interval_s=args.tuner_interval_seconds,
+            window_s=args.tuner_burn_window_seconds,
+        )
+        tuner.start()
+        server.tuners.append(tuner)
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -458,7 +546,16 @@ def build_server(args) -> WebhookServer:
     device backend it first waits for the stores' initial loads. Raises
     when the device is unavailable, the native encoder or the kernels
     cannot be built, or strict validation rejects the initial corpus
-    (AnalysisRejected)."""
+    (AnalysisRejected), and refuses --adaptive-batching without the SLO
+    tracker before anything starts (ValueError)."""
+    if args.adaptive_batching and args.slo_availability_target <= 0:
+        # before any store ticker or worker thread exists: an error here
+        # leaks nothing
+        raise ValueError(
+            "--adaptive-batching requires the SLO tracker "
+            "(--slo-availability-target > 0): the burn rate is the "
+            "control signal"
+        )
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
         certfile = keyfile = None
@@ -516,15 +613,16 @@ def build_server(args) -> WebhookServer:
                                              shard_buckets=args.shard_buckets, name="admission")
         # every load warms its plane on the device before the swap: nvcc
         # and every first-use cost of the device paths then, not inside
-        # the first requests' deadlines (the CPU's plain versions have no
-        # per-shape first-use cost, so one bucket does there); the
-        # warm-ups' launches count in engine.stats["warmup_launches"],
-        # apart from the served launch counts
+        # the first requests' deadlines, up to the largest batch a
+        # batcher can form (_warm_top: the tuner's clamp with adaptive
+        # batching). The CPU's plain versions have no per-shape first-use
+        # cost, so one bucket does there; the warm-ups' launches count in
+        # engine.stats["warmup_launches"], apart from the served ones
         reloader = TorchReloader(
             stores,
             targets=[(engine, stores), (admission_engine, admission_stores)],
             interval_s=args.reload_seconds,
-            max_batch=args.max_batch if engine.device.type == "cuda" else 1,
+            max_batch=_warm_top(args) if engine.device.type == "cuda" else 1,
             on_load=metrics.record_compile,
         )
         _wait_for_stores(stores)
@@ -606,8 +704,11 @@ def build_server(args) -> WebhookServer:
         analysis_provider=analysis_provider,
         chaos_control_enabled=args.confirm_non_prod_inject_errors,
         decision_cache=_decision_cache(args, stores, engine, "authorization"),
+        load=_load_controller(args),
         **obs,
     )
+    if args.adaptive_batching:
+        _start_tuners(args, server)
     if supervisor is not None:
         _register_supervised(supervisor, server)
     if fastpath is not None:
@@ -795,6 +896,103 @@ def make_parser() -> argparse.ArgumentParser:
         default=5.0,
         help="drain window on SIGTERM: /readyz flips to 503, new requests "
         "are shed, in-flight requests get this long to finish",
+    )
+
+    overload = parser.add_argument_group("overload control")
+    overload.add_argument(
+        "--max-inflight",
+        type=int,
+        default=0,
+        help="size of the overload-control plane (load/): requests are "
+        "classified at ingress (kubelet/system SARs high, controller and "
+        "admission traffic normal) and shed by priority as "
+        "inflight/max-inflight crosses the graduated load states; sheds "
+        "answer honestly (NoOpinion + Retry-After / the admission "
+        "fail-mode) and /readyz reports the state (0 disables admission "
+        "control entirely)",
+    )
+    overload.add_argument(
+        "--shed-sheddable-at",
+        type=float,
+        default=0.5,
+        help="load fraction at which sheddable (explain/operator) traffic "
+        "sheds: the `pressure` state",
+    )
+    overload.add_argument(
+        "--shed-normal-at",
+        type=float,
+        default=0.8,
+        help="load fraction at which normal (controller/admission) "
+        "traffic sheds: the `overload` state; high-priority traffic "
+        "sheds only at saturation (load >= 1.0)",
+    )
+    overload.add_argument(
+        "--client-qps",
+        type=float,
+        default=0.0,
+        help="per-client fair-share quota (tokens/second) enforced under "
+        "pressure so one hot controller cannot starve the kubelets; keyed "
+        "by the SAR/admission username, high priority exempt (0 disables)",
+    )
+    overload.add_argument(
+        "--client-burst",
+        type=float,
+        default=0.0,
+        help="per-client quota burst headroom (0 = qps/2, min 1)",
+    )
+    overload.add_argument(
+        "--client-enforce-at",
+        type=float,
+        default=-1.0,
+        help="load fraction at which the per-client quota starts being "
+        "enforced; default (-1) derives it from --shed-sheddable-at so "
+        "the quota acts across the whole pressure band",
+    )
+    overload.add_argument(
+        "--shed-retry-after-seconds",
+        type=float,
+        default=1.0,
+        help="the Retry-After hint shed answers carry",
+    )
+    overload.add_argument(
+        "--adaptive-batching",
+        action="store_true",
+        help="SLO-adaptive batch tuning (load/tuner.py): a control loop "
+        "reads the SLO latency burn rate and retunes each batcher's "
+        "max-batch/linger inside the bounds below (grow batches while the "
+        "latency objective has headroom, shrink linger the moment it "
+        "burns; decisions at /debug/load); on the card every bucket up to "
+        "--tuner-max-batch is warmed. Requires the SLO tracker "
+        "(--slo-availability-target > 0)",
+    )
+    overload.add_argument(
+        "--tuner-interval-seconds",
+        type=float,
+        default=1.0,
+        help="adaptive-batching control cadence (one knob move per tick)",
+    )
+    overload.add_argument(
+        "--tuner-burn-window-seconds",
+        type=float,
+        default=60.0,
+        help="trailing window the tuner reads the latency burn rate over "
+        "(floored to one 10s SLO ring bucket)",
+    )
+    overload.add_argument(
+        "--tuner-min-batch", type=int, default=64,
+        help="adaptive-batching lower clamp on max-batch",
+    )
+    overload.add_argument(
+        "--tuner-max-batch", type=int, default=16384,
+        help="adaptive-batching upper clamp on max-batch",
+    )
+    overload.add_argument(
+        "--tuner-min-linger-us", type=float, default=50.0,
+        help="adaptive-batching lower clamp on the batch linger window",
+    )
+    overload.add_argument(
+        "--tuner-max-linger-us", type=float, default=2000.0,
+        help="adaptive-batching upper clamp on the batch linger window",
     )
 
     obs = parser.add_argument_group("observability")

@@ -254,6 +254,11 @@ class MicroBatcher:
                 "largest_batch": self._largest_batch,
             }
 
+    def queue_fill(self) -> int:
+        """Queued (unclaimed) items."""
+        with self._cv:
+            return len(self._queue)
+
     def debug_stats(self) -> dict:
         """Live queue, batch and configuration snapshot for /debug/engine."""
         return {
@@ -419,17 +424,21 @@ class MicroBatcher:
                 return None
             if self._stopped and not self._queue:
                 return None
+            # the knobs are read once per claim: a tuner (load/tuner.py)
+            # writing max_batch or window_s from its own thread takes
+            # effect at the next claim and never changes this one
+            max_batch = int(self.max_batch)
             # the forming window lets concurrent submitters pile in
             window = self._linger_window_s()
             if window > 0:
                 deadline = time.monotonic() + window
-                while len(self._queue) < self.max_batch:
+                while len(self._queue) < max_batch:
                     remaining = deadline - time.monotonic()
                     if remaining <= 0:
                         break
                     self._cv.wait(timeout=remaining)
-            batch = self._queue[: self.max_batch]
-            del self._queue[: self.max_batch]
+            batch = self._queue[:max_batch]
+            del self._queue[:max_batch]
             # claimed entries leave the coalesce map: later submitters
             # must not attach to a result computed against an older set.
             # The batch's stage record takes the oldest member's enqueue
@@ -439,6 +448,7 @@ class MicroBatcher:
                 self._batches_total += 1
                 self._rows_total += len(batch)
                 self._largest_batch = max(self._largest_batch, len(batch))
+                self._claimed(len(batch), epoch)
             for _, slot in batch:
                 slot.times = times
                 if times.first_enq is None or slot.t_enq < times.first_enq:
@@ -455,6 +465,10 @@ class MicroBatcher:
         """The forming window of this claim; the pipelined batcher
         overrides it."""
         return self.window_s
+
+    def _claimed(self, n: int, epoch: Optional[int]) -> None:
+        """A batch of ``n`` entries left the submit queue (the caller
+        holds the lock); the pipelined batcher counts it in flight."""
 
     def _record_batch_stages(self, times: _StageTimes) -> None:
         """One claimed batch's stage windows -> the stage histograms."""
@@ -576,11 +590,13 @@ class PipelinedBatcher(MicroBatcher):
             encode_workers = max(2, min(4, _default_encode_threads() // 4))
         self.encode_workers = max(1, int(encode_workers))
         self._pool = ThreadPoolExecutor(self.encode_workers, thread_name_prefix="pipe-encode")
-        # batches accepted into the pipeline and not yet decoded (three
-        # threads update it, always under _inflight_lock), and its
-        # high-water mark: above 1 shows batch N+1 staged or launched
-        # while batch N was still in the pipeline
+        # batches claimed off the submit queue and not yet decoded, and
+        # the entries they carry (three threads update both, always under
+        # _inflight_lock, and only for the current worker generation),
+        # with the batch count's high-water mark: above 1 shows batch N+1
+        # staged or launched while batch N was still in the pipeline
         self._inflight = 0
+        self._inflight_entries = 0
         self._inflight_peak = 0
         self._inflight_lock = threading.Lock()
         self._stall_s = {"collect": 0.0, "dispatch": 0.0, "decode": 0.0}
@@ -665,7 +681,7 @@ class PipelinedBatcher(MicroBatcher):
             stranded = self._take_in_hand(old_threads)
         self._shed_stranded(stranded, force)
         with self._inflight_lock:
-            self._inflight = 0
+            self._inflight = self._inflight_entries = 0
         with self._cv:
             if self._stopped:
                 return False
@@ -745,11 +761,31 @@ class PipelinedBatcher(MicroBatcher):
             return 0.0
         return self.window_s
 
-    def _inflight_add(self, n: int) -> None:
-        # a superseded stage's late decrement must not drive it below 0
+    def _inflight_add(self, n: int, entries: int = 0, epoch: Optional[int] = None) -> None:
+        # a superseded generation's late update must not move the live
+        # generation's counts (revive() resets them once it is retired);
+        # no epoch: the live one's
         with self._inflight_lock:
+            if epoch is not None and epoch != self._epoch:
+                return
             self._inflight = max(0, self._inflight + n)
+            self._inflight_entries = max(0, self._inflight_entries + entries)
             self._inflight_peak = max(self._inflight_peak, self._inflight)
+
+    def _claimed(self, n: int, epoch: Optional[int]) -> None:
+        # counted under the submit queue's lock, in the step that takes
+        # the entries off it: backlog() never misses one in between
+        self._inflight_add(1, n, epoch)
+
+    def backlog(self) -> int:
+        """Submitted and unanswered entries across the whole batcher:
+        queued plus claimed into the pipeline stages. The adaptive batch
+        tuner's demand signal (load/tuner.py): under saturation most of
+        the waiting is in the stage hand-off queues, which queue_fill()
+        does not see."""
+        with self._cv:
+            with self._inflight_lock:
+                return len(self._queue) + self._inflight_entries
 
     def _encode_timed(self, items, times: _StageTimes):
         times.encode0 = time.monotonic()
@@ -805,10 +841,10 @@ class PipelinedBatcher(MicroBatcher):
                 fut = self._pool.submit(self._encode_timed, items, batch[0][1].times)
             except RuntimeError as e:  # the pool was shut down
                 self._drop("collect", epoch)
+                self._inflight_add(-1, -len(batch), epoch)
                 self._fail_batch(batch, e)
                 continue
             t0 = time.monotonic()
-            self._inflight_add(1)
             self._hold("collect", epoch, batch, fut)
             ok = self._put(dispatch_q, (batch, fut), dispatcher)
             self._drop("collect", epoch)
@@ -819,7 +855,7 @@ class PipelinedBatcher(MicroBatcher):
             # blocked on a full dispatch queue: device or decode backpressure
             self._stall("collect", time.monotonic() - t0)
             if not ok:
-                self._inflight_add(-1)
+                self._inflight_add(-1, -len(batch), epoch)
                 self._fail_batch(batch, RuntimeError("pipeline dispatch stage died"))
                 self._discard_ctx(fut)
         if self._epoch == epoch:
@@ -858,7 +894,7 @@ class PipelinedBatcher(MicroBatcher):
                 ctx = fut.result()  # the encode worker's result (or its error)
             except BaseException as e:  # noqa: BLE001 — fails this batch
                 self._drop("dispatch", epoch)
-                self._inflight_add(-1)
+                self._inflight_add(-1, -len(batch), epoch)
                 self._fail_batch(batch, e)
                 continue
             # waiting on the encode future: encode too slow to feed the device
@@ -871,7 +907,7 @@ class PipelinedBatcher(MicroBatcher):
                 # (the fast path handed its staging back)
                 self._drop("dispatch", epoch)
                 times.dispatch1 = time.monotonic()
-                self._inflight_add(-1)
+                self._inflight_add(-1, -len(batch), epoch)
                 self._fail_batch(batch, e)
                 continue
             times.dispatch1 = time.monotonic()
@@ -881,7 +917,7 @@ class PipelinedBatcher(MicroBatcher):
             if self._epoch != epoch:
                 self._shed_queues([decode_q])  # see _collect_loop
             if not ok:
-                self._inflight_add(-1)
+                self._inflight_add(-1, -len(batch), epoch)
                 self._fail_batch(batch, RuntimeError("pipeline decode stage died"))
                 self._discard_ctx(ctx)
 
@@ -930,8 +966,7 @@ class PipelinedBatcher(MicroBatcher):
                 self._fail_batch(batch, e)
             finally:
                 self._drop("decode", epoch)
-                if self._epoch == epoch:
-                    self._inflight_add(-1)
+                self._inflight_add(-1, -len(batch), epoch)
 
     def stop(self, drain_timeout_s: float = 5.0) -> None:
         """Drain the whole pipeline: the collector pushes every queued

@@ -182,7 +182,8 @@ class _StagingPool:
     (``outstanding``; 0 at rest, failed batches included), its peak, and
     the buffers waiting on a failed batch's event (``pending``); a peak
     above one batch's buffer count shows that a second batch's staging
-    overlapped the first's device work."""
+    overlapped the first's device work; ``buckets`` lists the row counts
+    (batch buckets) of every shape ever acquired."""
 
     # free buffers kept per (shape, dtype); the working set is a handful of
     # bucket shapes
@@ -200,6 +201,9 @@ class _StagingPool:
         # recorded behind their copies has completed
         self._pending: list = []
         self._retired = 0
+        # the row counts (batch buckets) of every shape acquired: a bucket
+        # the warm-up did not visit shows here once a batch meets it
+        self._rows_seen: set = set()
 
     def acquire(self, shape, dtype) -> np.ndarray:
         self._reap()
@@ -210,6 +214,7 @@ class _StagingPool:
                 self._overlapped_acquires += 1
             self._outstanding += 1
             self._peak_outstanding = max(self._peak_outstanding, self._outstanding)
+            self._rows_seen.add(key[0][0] if key[0] else 0)
             bufs = self._free.get(key)
             if bufs:
                 return bufs.pop()
@@ -288,6 +293,7 @@ class _StagingPool:
                 "overlapped_acquires": self._overlapped_acquires,
                 "pending": sum(len(a) for _e, a in self._pending),
                 "retired": self._retired,
+                "buckets": sorted(self._rows_seen),
             }
 
 
@@ -473,6 +479,8 @@ class TorchPolicyEngine:
         # kernel launches of every warmup() since construction (they do
         # not count in cuda_match.launch_counts(), the served launches)
         self.warmup_launches: dict = {}
+        # the batch buckets the last warm-up visited
+        self.warm_buckets: tuple = ()
         # called with each new compiled set after its warm-up and before
         # it is published (a fast path builds its native encoder there);
         # a hook that raises fails the load
@@ -739,7 +747,8 @@ class TorchPolicyEngine:
         with cuda_match.counting_into(launches):
             S = cs.packed.table.n_slots if cs.packed is not None else 1
             top = _round_bucket(min(max(max_batch, 1), _PIPELINE_SB), _BATCH_BUCKETS)
-            for B in (b for b in _BATCH_BUCKETS if b <= top):
+            buckets = tuple(b for b in _BATCH_BUCKETS if b <= top)
+            for B in buckets:
                 codes = np.zeros((B, S), dtype=np.int32)
                 extras = np.full((B, 1), cs.L, dtype=np.int32)
                 self.match_arrays(codes, extras, cs=cs)
@@ -750,6 +759,7 @@ class TorchPolicyEngine:
         with self._lock:
             for k, n in launches.items():
                 self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
+            self.warm_buckets = buckets
         return launches
 
     @property
@@ -913,6 +923,7 @@ class TorchPolicyEngine:
             "device": str(self.device),
             "launches": cuda_match.launch_counts(),
             "warmup_launches": warmup_launches,
+            "warm_buckets": list(self.warm_buckets),
             "staging": self._staging.stats(),
             "last_load": dict(self.last_load),
             "last_rebuild": dict(self.last_rebuild),

@@ -1,6 +1,6 @@
 """SLO plane: availability + latency objectives with multi-window burn
-rates (a copy of the JAX package's obs/slo.py, without the burn queries
-its load tuner reads: the port has no load/ yet).
+rates (a copy of the JAX package's obs/slo.py, with the burn queries over
+an arbitrary trailing window that the load tuner reads, load/tuner.py).
 
 The serving path already histograms every request
 (cedar_authorizer_request_duration_seconds); what an operator pages on is
@@ -104,6 +104,37 @@ class SLOTracker:
             if ring is None:
                 ring = self._rings[path] = _PathRing()
             ring.add(epoch, error, slow)
+
+    # ----------------------------------------------------------- burn queries
+
+    def latency_burn(self, path: str, window_s: float) -> float:
+        """Latency-objective burn rate over an arbitrary trailing window:
+        the SLO-adaptive batch tuner's sensor (load/tuner.py). The window
+        floors to one ring bucket so short storms still register; a path
+        with no traffic reads 0.0 (nothing is burning)."""
+        _, _, slow, total = self._window_counts(path, window_s)
+        if not total:
+            return 0.0
+        return (slow / total) / (1.0 - self.latency_target)
+
+    def availability_burn(self, path: str, window_s: float) -> float:
+        """Availability-objective burn rate over an arbitrary trailing
+        window (error answers / budget), with latency_burn's floor."""
+        _, errors, _, total = self._window_counts(path, window_s)
+        if not total:
+            return 0.0
+        return (errors / total) / (1.0 - self.availability_target)
+
+    def _window_counts(self, path: str, window_s: float):
+        """(epoch, errors, slow, total) over the trailing window, floored
+        to one bucket."""
+        epoch = int(self._clock() / _BUCKET_S)
+        with self._lock:
+            ring = self._rings.get(path)
+        if ring is None:
+            return epoch, 0, 0, 0
+        total, errors, slow = ring.window(epoch, max(window_s, _BUCKET_S))
+        return epoch, errors, slow, total
 
     # -------------------------------------------------------------- reporting
 

@@ -81,13 +81,34 @@ changes an answer. /v1/authorize's clean answers then pass the artificial
 error/deny injector (server/error_injector.py, after the cache, so an
 injected answer is never cached) and the ``response`` chaos seam.
 
+The overload-control plane (load/, ``load``) gates both endpoints as in
+the JAX server. do_POST classifies each body after the drain check and
+before the recorder and the trace (load.admit): a refused request answers
+the honest shed with ``Retry-After`` (``render_shed``: NoOpinion with the
+evaluationError "request shed under overload (<reason>); retry after
+<n>s" on /v1/authorize, the admission fail-mode with code 500 on
+/v1/admit) and is never recorded, traced or seen by an SLO ring; an
+admitted one runs inside ``load.track(path, priority)`` until its answer
+is written, so the in-flight count is the load signal. A cache miss meets
+the evaluation-stage gate (load.check_eval) before the breaker and the
+batcher: a RequestShed never feeds the breaker and is never cached, and a
+follower coalesced behind a shed leader gets the same shed at once.
+``serve_authorize`` / ``serve_admit`` run the same gate without HTTP.
+With a plane wired, /readyz carries the load state in its body and the
+``X-Cedar-Load-State`` header (``saturated`` answers 503), and
+``/debug/load`` serves the controller's stats and the adaptive batch
+tuners' status (``tuners``, appended by the CLI); without one, /readyz is
+unchanged and /debug/load answers 404.
+
 The server starts the policy reloader (cli/webhook.py TorchReloader) and
 the supervisor (server/supervisor.py) with its listeners; stop() stops
-the supervisor first, then the reloader and the stores' reload tickers.
+the supervisor first, then the reloader, the tuners, the batchers and the
+stores' reload tickers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -103,6 +124,7 @@ from ..engine.batcher import DeadlineExceeded, MicroBatcher, PipelinedBatcher
 from ..engine.breaker import BreakerOpen
 from ..entities.admission import AdmissionRequest, review_request_uid
 from ..lang.values import EntityUID
+from ..load.admission import STATE_SATURATED, RequestShed
 from ..obs.audit import audit_entry
 from ..obs.trace import (
     current_trace,
@@ -283,8 +305,18 @@ class WebhookServer:
         slo=None,
         error_injector: Optional[ErrorInjector] = None,
         recorder=None,
+        load=None,
     ):
         self.authorizer = authorizer
+        # the overload-control plane (load/admission.py
+        # AdmissionController): every POST is gated at ingress, before the
+        # recorder and the trace; None keeps the gate-free path byte for
+        # byte
+        self.load = load
+        # SLO-adaptive batch tuners (load/tuner.py), appended by the CLI
+        # after construction: stopped with the server, their status on
+        # /debug/load
+        self.tuners: list = []
         # the /v1/authorize decision cache (cache/decision_cache.py), read
         # before the breaker and the batcher; None serves every request
         # from the engines
@@ -421,6 +453,70 @@ class WebhookServer:
             log.exception("readiness check failed")
             return False
 
+    # ----------------------------------------------------- overload control
+
+    def render_shed(self, path_label: str, body: bytes, shed) -> dict:
+        """The honest answer to a request the overload gate refused without
+        evaluating it (``shed`` a Shed or a RequestShed): on /v1/authorize
+        NoOpinion with an evaluationError naming the shed and the retry
+        hint (the apiserver falls through its authorizer chain), on
+        /v1/admit the configured fail-open/closed review, code 500, as a
+        deadline expiry answers."""
+        msg = f"request shed under overload ({shed.reason}); retry after {shed.retry_after_s:g}s"
+        if path_label != "admission":
+            return sar_response(DECISION_NO_OPINION, "", msg)
+        uid = ""
+        try:
+            uid = review_request_uid(json.loads(body)) or ""
+        except Exception:  # noqa: BLE001 — the uid is best-effort on a shed
+            pass
+        allowed = self.admission_fail_open
+        return AdmissionResponse(
+            uid=uid, allowed=allowed,
+            error=f"{msg} ({'allowed' if allowed else 'denied'} on shed)",
+        ).to_admission_review()
+
+    def ingress(self, path_label: str, body: bytes):
+        """The ingress gate on one body (a plane wired) -> (priority,
+        None) for an admitted request, or (priority, (shed answer,
+        Retry-After value)) for a shed one. do_POST and the serve_*
+        wrappers both gate through here."""
+        priority, shed = self.load.admit(path_label, body)
+        if shed is None:
+            return priority, None
+        return priority, (self.render_shed(path_label, body, shed),
+                          str(max(1, round(shed.retry_after_s))))
+
+    def _serve(self, path_label: str, body: bytes, handle) -> dict:
+        """The gate, track and handle sequence do_POST runs, without HTTP;
+        with no plane wired this is ``handle(body)``."""
+        if self.load is None:
+            return handle(body)
+        priority, shed = self.ingress(path_label, body)
+        if shed is not None:
+            return shed[0]
+        with self.load.track(path_label, priority):
+            return handle(body, priority=priority)
+
+    def serve_authorize(self, body: bytes) -> dict:
+        """One /v1/authorize body through the gate, without HTTP."""
+        return self._serve("authorization", body, self.handle_authorize)
+
+    def serve_admit(self, body: bytes) -> dict:
+        """One /v1/admit body through the gate, without HTTP."""
+        return self._serve("admission", body, self.handle_admit)
+
+    def debug_load(self) -> dict:
+        """The /debug/load document: the admission controller's stats
+        (``admission_control``) and each tuner's status by path
+        (``tuning``), each when wired."""
+        doc = {}
+        if self.load is not None:
+            doc["admission_control"] = self.load.stats()
+        if self.tuners:
+            doc["tuning"] = {t.path: t.status() for t in self.tuners}
+        return doc
+
     def _begin_obs(self, path: str, request_id, parent_span_id, root_span_id, sampled):
         """Open the request's trace (when a tracer is wired) as the calling
         thread's current one, and its observation context -> (trace or
@@ -462,12 +558,14 @@ class WebhookServer:
     def handle_authorize(self, body: bytes, request_id: Optional[str] = None,
                          parent_span_id: Optional[str] = None,
                          root_span_id: Optional[str] = None,
-                         sampled: Optional[bool] = None) -> dict:
+                         sampled: Optional[bool] = None, priority: str = "") -> dict:
         """One SubjectAccessReview body -> the SubjectAccessReview response
         document, with the request metrics, the observability plane and
         the log line. ``request_id`` is the end-to-end trace id (do_POST's
         ingested traceparent, else fresh); ``sampled`` a head-sampling
-        decision drawn before (None draws here)."""
+        decision drawn before (None draws here); ``priority`` the ingress
+        gate's class of an admitted request (empty without a plane), which
+        arms the evaluation-stage gate on a miss."""
         start = time.monotonic()
         if request_id is None:
             request_id = new_trace_id()
@@ -475,7 +573,13 @@ class WebhookServer:
             "authorization", request_id, parent_span_id, root_span_id, sampled)
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
-            decision, reason, error = self._authorize_cached(body, request_id, start)
+            try:
+                decision, reason, error = self._authorize_cached(
+                    body, request_id, start, priority=priority)
+            except RequestShed as e:
+                # the evaluation-stage gate refused an admitted request:
+                # the honest shed, the breaker untouched
+                decision, reason, error = DECISION_NO_OPINION, "", str(e)
             if error is None:
                 # after the cache: an injected answer is never cached
                 decision, reason, error = self.error_injector.inject_if_enabled(
@@ -494,21 +598,24 @@ class WebhookServer:
                 "authorize requestId=%s decision=%s latency=%.6fs", request_id, label, latency
             )
 
-    def _authorize_cached(self, body: bytes, request_id: str, start: float):
+    def _authorize_cached(self, body: bytes, request_id: str, start: float,
+                          priority: str = ""):
         """(decision, reason, error) through the decision cache: a hit
         answers without touching the breaker, the batcher or the engine; a
         miss leads (or follows) one singleflight evaluation whose clean
         answer is stored for the next arrival. An answer with an error is
         never stored. One budget for the whole request, since ``start``:
-        the lookup, the coalesced wait and the submit spend it."""
+        the lookup, the coalesced wait and the submit spend it. Raises
+        RequestShed when the evaluation-stage gate sheds the leader, to its
+        followers too."""
         cache = self.decision_cache
         if cache is None or not self._cache_usable():
-            return self._authorize_uncached(body, request_id, start)
+            return self._authorize_uncached(body, request_id, start, priority=priority)
         key = self._sar_memo.fingerprint("authorize", body)
         if key is None:
             # a body that does not parse: the uncached path gives its
             # decode-error answer (never cached: no parse, no key)
-            return self._authorize_uncached(body, request_id, start)
+            return self._authorize_uncached(body, request_id, start, priority=priority)
         # the generation snapshot comes BEFORE the evaluation: a reload
         # landing while the leader evaluates leaves the entry stamped
         # pre-reload, so it dies at its first lookup after the swap. A
@@ -521,13 +628,14 @@ class WebhookServer:
                     sp.set_attr("hit", hit is not None)
         except Exception:  # noqa: BLE001 — a sick cache is a miss
             log.exception("decision cache lookup failed; evaluating")
-            return self._authorize_uncached(body, request_id, start)
+            return self._authorize_uncached(body, request_id, start, priority=priority)
         if hit is not None:
             _octx_mark("cached")
             return hit[0], hit[1], None
 
         def _leader():
-            res = self._authorize_uncached(body, request_id, start, coalesce_key=key)
+            res = self._authorize_uncached(body, request_id, start, coalesce_key=key,
+                                           priority=priority)
             if res[2] is None:
                 try:
                     # scoped to the shards of the policies the reason
@@ -544,12 +652,18 @@ class WebhookServer:
 
         try:
             result, _ = self._sar_flights.do(key, _leader, timeout=self._remaining(start))
+        except RequestShed:
+            raise  # the leader was shed: handle_authorize renders it
         except DeadlineExceeded as e:
             # a FOLLOWER's budget ran out waiting on its leader, which
             # keeps running; its answer still warms the cache
             self.metrics.record_deadline_exceeded("authorization")
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         except Exception as e:  # noqa: BLE001 — always answer the apiserver
+            if isinstance(e.__cause__, RequestShed):
+                # a follower coalesced behind a shed leader: the same
+                # honest shed, at once, not an opaque coalesced failure
+                raise e.__cause__
             log.exception("coalesced authorize requestId=%s failed", request_id)
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         return result
@@ -571,12 +685,18 @@ class WebhookServer:
         return self.request_timeout_s - (time.monotonic() - start)
 
     def _authorize_uncached(self, body: bytes, request_id: str, start: float,
-                            coalesce_key: Optional[str] = None):
+                            coalesce_key: Optional[str] = None, priority: str = ""):
         """(decision, reason, error) through the fast path's batcher (the
         breaker first), or, without a fast path, through the authorizer in
         this thread. The batcher gets what remains of the request's budget
         since ``start``; ``coalesce_key`` lets concurrent identical
-        submits share one batch row."""
+        submits share one batch row. An admitted request (``priority``
+        set) meets the evaluation-stage gate first, which raises
+        RequestShed on a saturated server."""
+        if self.load is not None and priority:
+            # before the breaker and any submit: a shed neither burns a
+            # batcher slot nor reads as a device failure
+            self.load.check_eval(priority)
         if self._batcher is not None:
             if not self._breaker_admits(self.fastpath, "authorization"):
                 return DECISION_NO_OPINION, "", f"evaluation error: {BreakerOpen.MESSAGE}"
@@ -620,7 +740,7 @@ class WebhookServer:
     def handle_admit(self, body: bytes, request_id: Optional[str] = None,
                      parent_span_id: Optional[str] = None,
                      root_span_id: Optional[str] = None,
-                     sampled: Optional[bool] = None) -> dict:
+                     sampled: Optional[bool] = None, priority: str = "") -> dict:
         """One AdmissionReview body -> the AdmissionReview response
         document, with the observability plane and the log line (the
         request metrics count /v1/authorize only, as in the JAX package).
@@ -632,7 +752,7 @@ class WebhookServer:
             "admission", request_id, parent_span_id, root_span_id, sampled)
         doc = None
         try:
-            doc = self._handle_admit(body, start)
+            doc = self._handle_admit(body, start, priority=priority)
             return doc
         finally:
             latency = time.monotonic() - start
@@ -674,12 +794,19 @@ class WebhookServer:
         breaker = getattr(fast, "breaker", None)
         return breaker.state if breaker is not None else ""
 
-    def _handle_admit(self, body: bytes, start: float) -> dict:
+    def _handle_admit(self, body: bytes, start: float, priority: str = "") -> dict:
         """The response document through the admission fast path's
         batcher, or, without one, through the handler (its batcher when
         it has one). Every batcher gets what remains of the request's
         budget since ``start``. A failure answers the fail-mode; nothing
-        re-runs the request on another path."""
+        re-runs the request on another path. An admitted request
+        (``priority`` set) meets the evaluation-stage gate first: on a
+        saturated server it answers the shed."""
+        if self.load is not None and priority:
+            try:
+                self.load.check_eval(priority)
+            except RequestShed as e:
+                return self.render_shed("admission", body, e)
 
         def remaining():
             if self.request_timeout_s is None:
@@ -860,6 +987,21 @@ class WebhookServer:
                         self.send_error(413, "request body too large")
                         return
                     body = self.rfile.read(length) if length else b""
+                    path_label = (
+                        "authorization" if path == "/v1/authorize"
+                        else "admission" if path == "/v1/admit"
+                        and server.admission_handler is not None
+                        else None
+                    )
+                    priority = ""
+                    if server.load is not None and path_label is not None:
+                        # the ingress gate, before the recorder, the trace
+                        # and the serving path: a shed is never served,
+                        # recorded or traced, and no SLO ring sees it
+                        priority, shed = server.ingress(path_label, body)
+                        if shed is not None:
+                            self._write_json(shed[0], headers={"Retry-After": shed[1]})
+                            return
                     if server.recorder is not None:
                         server.recorder.record(path, body)
                     # one request id end to end: the ingested W3C
@@ -878,13 +1020,21 @@ class WebhookServer:
                         sampled = server.tracer.head_sample()
                         headers["traceparent"] = format_traceparent(request_id, root_span, sampled)
                     ids = dict(request_id=request_id, parent_span_id=parent_span,
-                               root_span_id=root_span, sampled=sampled)
-                    if path == "/v1/authorize":
-                        self._write_json(server.handle_authorize(body, **ids), headers=headers)
-                    elif path == "/v1/admit" and server.admission_handler is not None:
-                        self._write_json(server.handle_admit(body, **ids), headers=headers)
-                    else:
-                        self.send_error(404)
+                               root_span_id=root_span, sampled=sampled, priority=priority)
+                    # an admitted request is tracked until its answer is
+                    # written: queue wait and evaluation are the load
+                    tracked = (
+                        server.load.track(path_label, priority) if priority
+                        else contextlib.nullcontext()
+                    )
+                    with tracked:
+                        if path_label == "authorization":
+                            self._write_json(server.handle_authorize(body, **ids),
+                                             headers=headers)
+                        elif path_label == "admission":
+                            self._write_json(server.handle_admit(body, **ids), headers=headers)
+                        else:
+                            self.send_error(404)
                 finally:
                     with server._inflight_cv:
                         server._inflight -= 1
@@ -926,7 +1076,19 @@ class WebhookServer:
                 if self.path == "/healthz":
                     self._send(b"", "")
                 elif self.path == "/readyz":
-                    self._send(b"", "", 200 if server.ready() else 503)
+                    if server.load is None:
+                        self._send(b"", "", 200 if server.ready() else 503)
+                        return
+                    # graduated: the body and X-Cedar-Load-State carry the
+                    # load state, and saturated reads 503 so an apiserver
+                    # honoring readiness steers new traffic elsewhere
+                    state = server.load.load_state()
+                    ready = server.ready() and state != STATE_SATURATED
+                    self.send_response(200 if ready else 503)
+                    self.send_header("X-Cedar-Load-State", state)
+                    self.send_header("Content-Length", str(len(state)))
+                    self.end_headers()
+                    self.wfile.write(state.encode())
                 elif self.path == "/metrics":
                     if server.slo is not None:
                         try:
@@ -945,6 +1107,11 @@ class WebhookServer:
                     self._debug("cache stats", server.debug_cache)
                 elif self.path == "/debug/chaos":
                     self._debug("chaos stats", default_registry().stats)
+                elif self.path == "/debug/load":
+                    if server.load is None and not server.tuners:
+                        self.send_error(404)
+                        return
+                    self._debug("load status", server.debug_load)
                 elif self.path == "/debug/slo":
                     if server.slo is None:
                         self.send_error(404)
@@ -1107,7 +1274,14 @@ class WebhookServer:
 
     def stop_batchers(self) -> None:
         """Drain and stop the batchers without touching the listeners (for
-        a server used as a serving core without start())."""
+        a server used as a serving core without start()); the tuners
+        first, since a control loop moving a batcher's knobs would race
+        its join."""
+        for tuner in self.tuners:
+            try:
+                tuner.stop()
+            except Exception:  # noqa: BLE001 — teardown must finish
+                log.exception("batch tuner stop failed")
         for batcher in (self._batcher, self._adm_raw_batcher, self._admission_batcher):
             if batcher is not None:
                 batcher.stop()

@@ -84,6 +84,16 @@ audit log and the SLO tracker, and by the server once per audit line:
     ``cedar_audit_rotations_total``;
   * ``cedar_slo_burn_rate{path,slo,window}`` and
     ``cedar_slo_target{path,slo}``, refreshed at each /metrics scrape.
+
+And so are the overload-control plane's (load/), recorded by the
+admission controller and the adaptive batch tuners:
+
+  * ``cedar_load_shed_total{priority,reason}``,
+    ``cedar_inflight_requests{path,priority}`` and ``cedar_load_state``;
+  * ``cedar_batch_tuning{path,param}``;
+  * ``cedar_client_throttled_total{client}``, its client label capped at
+    64 distinct ids (later ones fold into ``other``, counted by
+    ``cedar_client_label_overflow_total``).
 """
 
 from __future__ import annotations
@@ -452,6 +462,53 @@ class _ProcessFamilies:
             "the latency budget).",
             ["path", "slo"],
         )
+        # the overload-control plane's families (load/)
+        self.load_shed_total = Counter(
+            "cedar_load_shed_total",
+            "Requests refused by the overload-control plane, by priority and "
+            "reason (load_pressure / load_overload / saturated / client_quota "
+            "/ eval_saturated / chaos). Sheds answer honestly — SAR NoOpinion "
+            "+ Retry-After, admission per the fail-open/closed flag — and "
+            "offered == admitted + shed holds exactly at the ingress gate.",
+            ["priority", "reason"],
+        )
+        self.inflight_requests = Gauge(
+            "cedar_inflight_requests",
+            "Admitted requests currently in flight (queue wait + evaluation), "
+            "per path and priority — the load signal the admission "
+            "controller's graduated states derive from.",
+            ["path", "priority"],
+        )
+        self.load_state = Gauge(
+            "cedar_load_state",
+            "Graduated overload state: 0 ok, 1 pressure (sheddable traffic "
+            "shedding), 2 overload (normal traffic shedding), 3 saturated "
+            "(everything sheds; /readyz reads 503).",
+            [],
+        )
+        self.batch_tuning = Gauge(
+            "cedar_batch_tuning",
+            "Live value of each adaptive-batching knob per serving path "
+            "(param: max_batch, linger_us) — watch the SLO-adaptive "
+            "controller move during a storm (decision log at /debug/load).",
+            ["path", "param"],
+        )
+        self.client_throttled_total = Counter(
+            "cedar_client_throttled_total",
+            "Requests shed by a per-client fair-share quota, by client "
+            "(the SAR/admission username; CAPPED at 64 distinct ids, later "
+            "ids fold into `other` — cedar_client_label_overflow_total "
+            "counts the folds).",
+            ["client"],
+        )
+        self.client_label_overflow_total = Counter(
+            "cedar_client_label_overflow_total",
+            "Client-labeled throttle observations folded into `other` "
+            "because the bounded client label set was full.",
+            [],
+        )
+        self._client_labels: set = set()
+        self._client_label_lock = threading.Lock()
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -463,6 +520,9 @@ class _ProcessFamilies:
             self.decision_cache_size, self.decision_cache_hit_ratio,
             self.trace_kept_total, self.audit_records_total, self.audit_rotations_total,
             self.slo_burn_rate, self.slo_target,
+            self.load_shed_total, self.inflight_requests, self.load_state,
+            self.batch_tuning, self.client_throttled_total,
+            self.client_label_overflow_total,
         )
 
     def collect(self) -> List[str]:
@@ -586,6 +646,39 @@ def set_slo_burn_rate(path: str, slo: str, window: str, rate: float) -> None:
 
 def set_slo_target(path: str, slo: str, value: float) -> None:
     _PROCESS.slo_target.set(value, path=path, slo=slo)
+
+
+# the client label of cedar_client_throttled_total is bounded: a reconnect
+# storm minting principals must not explode the exposition
+_CLIENT_LABEL_CAP = 64
+
+
+def record_load_shed(priority: str, reason: str) -> None:
+    _PROCESS.load_shed_total.inc(priority=priority, reason=reason)
+
+
+def set_inflight(path: str, priority: str, n: int) -> None:
+    _PROCESS.inflight_requests.set(n, path=path, priority=priority)
+
+
+def set_load_state(code: int) -> None:
+    _PROCESS.load_state.set(code)
+
+
+def set_batch_tuning(path: str, param: str, value: float) -> None:
+    _PROCESS.batch_tuning.set(value, path=path, param=param)
+
+
+def record_client_throttled(client: str) -> None:
+    with _PROCESS._client_label_lock:
+        labels = _PROCESS._client_labels
+        if client != "other" and client not in labels:
+            if len(labels) >= _CLIENT_LABEL_CAP:
+                _PROCESS.client_label_overflow_total.inc()
+                client = "other"
+            else:
+                labels.add(client)
+    _PROCESS.client_throttled_total.inc(client=client)
 
 
 class WebhookMetrics:

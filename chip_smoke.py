@@ -302,10 +302,50 @@ Phases, each a hard failure with a nonzero exit:
      span_tree_coverage (min, p50, p99), the median duration of each span
      of a c=1 miss and a c=1 hit, the injections, launches, the server's
      peak RSS and the phase's wall time.
+  16. the overload-control plane (this slice's main path): the CLI over
+     phase 12's 1,002 Policy objects on FakeApiServer, both engines, the
+     cache off, the SLO tracker with --slo-latency-budget-ms 50,
+     --adaptive-batching (--max-batch 64, --tuner-max-batch 4096,
+     --tuner-interval-seconds 0.5, --tuner-burn-window-seconds 10). C:
+     the answers a second of a 3 s closed loop at c=64 of the mix below
+     without the hot user (every client below its quota), on a first
+     server with these flags and no gate (--max-inflight 0), so C is
+     what the server serves; the oracle runs alongside its start-up.
+     The storm, on a second server with the gate, --max-inflight 64,
+     and --client-qps at 5% of C: the
+     port's flash_crowd_schedule (seed, base 0.5 C, peak 3 C, the crowd
+     at 2 s with a 3 s ramp, 16 s) then 4 s of Poisson arrivals at the
+     base; 25% kubelet SARs (system:node:node-<k>, system:nodes), 50%
+     controller SARs of the SAR pool's 64 most frequent users (a third
+     the first's, the hot user), 25% admission reviews of 64 service
+     accounts; fired at their due times from 4 spawned asyncio processes,
+     each on an idle keep-alive connection of a pool of 64 per process
+     that opens another whenever all are busy, so no arrival waits for
+     an earlier answer; /readyz polled every 100 ms. Checks, each
+     failing the run: the driver's fire lag p99 at most 50 ms (past it
+     the driver set the offered rate); the server's offered / admitted / shed / eval_shed
+     and shed_by on /debug/load equal the clients' counts, offered ==
+     admitted + shed, cedar_load_shed_total equals the shed answers;
+     every shed the honest shape (NoOpinion + "request shed under
+     overload (<reason>); retry after 1s" / the fail-open review, code
+     500; Retry-After 1 at ingress); every other answer the
+     interpreter's, deadlines counted apart (0 flips); no high-priority
+     shed unless /readyz read saturated; at least one normal shed;
+     client_quota sheds for the hot user and no other (and
+     cedar_client_throttled_total's clients the same); no breaker
+     transition, restart or rebuild; every tuner move inside its
+     bounds; both engines warmed 1..4096 and no batch above it; both
+     kernels launched. Prints C, offered and admitted requests/s, sheds
+     by priority and reason, the normal share shed (all, and at the
+     5-8 s peak), admitted p50 / p99 per priority and endpoint, the
+     /readyz states, the tuners' moves and final knobs, the clients'
+     fire lag, the rate sent at the peak (from the send times), the most
+     requests unanswered at once and the connections opened, launches
+     and the phase's wall time.
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
-14 and 15. Every server runs at the CLI's observability defaults, as
+14, 15 and 16. Every server runs at the CLI's observability defaults, as
 users deploy it: tracing armed at sample rate 0 (slow, errored and
 posture-answered requests tail-kept) and the SLO tracker on; phase 15
 arms the rest. Every server of phases 8-13 runs with --decision-cache-size 0:
@@ -317,8 +357,8 @@ seconds carry the gate's ``analyze`` phase.
 ``--only-reload`` runs phases 1, 2 and 10 alone (a quick check of the
 reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
-``--only-cache`` phases 1, 2 and 14, and ``--only-obs`` phases 1, 2 and
-15; none prints result lines.
+``--only-cache`` phases 1, 2 and 14, ``--only-obs`` phases 1, 2 and 15,
+and ``--only-load`` phases 1, 2 and 16; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. Exits nonzero, printing no result, when
@@ -339,6 +379,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -1012,6 +1053,9 @@ def main() -> None:
     ap.add_argument("--only-obs", action="store_true",
                     help="run phases 1, 2 and 15 only (the observability plane); prints "
                          "no result lines")
+    ap.add_argument("--only-load", action="store_true",
+                    help="run phases 1, 2 and 16 only (the overload-control plane under a "
+                         "flash crowd); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
@@ -1090,6 +1134,10 @@ def main() -> None:
     if args.only_obs:
         corpus = synth_corpus(args.policies, seed=args.seed)
         obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
+    if args.only_load:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        load_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1573,15 +1621,19 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 15. the request observability plane around both endpoints
     obs_launches = obs_phase(args, card, g_batch)
 
-    # each kernel's launches on this slice's main path, phase 15's misses
-    # on both endpoints (counted in the server process); and on the
-    # earlier paths
+    # ---- 16. the overload-control plane under an open-loop flash crowd
+    load_launches = load_phase(args, card, g_batch)
+
+    # each kernel's launches on this slice's main path, phase 16's
+    # admitted misses on both endpoints (counted in the server process);
+    # and on the earlier paths
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         kernels.append({
             "name": k, **meta,
-            "launches": obs_launches[k],
+            "launches": load_launches[k],
+            "launches_load": load_launches[k],
             "launches_obs": obs_launches[k],
             "launches_cache": cache_launches[k],
             "launches_gate": gate_launches[k],
@@ -1682,10 +1734,13 @@ def profile_stages(card: str, fast, bodies: list) -> None:
           f"p50 {pct(lat, 50) * 1e3:.3f} ms; mean stage ms {json.dumps(stages)}", flush=True)
 
 
-def stage_totals(metrics_text: str) -> dict:
-    """{stage: (sum s, count)} of cedar_pipeline_stage_seconds."""
+def stage_totals(metrics_text: str, path=None) -> dict:
+    """{stage: (sum s, count)} of cedar_pipeline_stage_seconds (of one
+    path's series when `path` is given)."""
     out: dict = {}
     for line in metrics_text.splitlines():
+        if path is not None and f'path="{path}"' not in line:
+            continue
         for part, k in (("_sum{", 0), ("_count{", 1)):
             if line.startswith("cedar_pipeline_stage_seconds" + part):
                 stage = line.split('stage="')[1].split('"')[0]
@@ -4424,6 +4479,579 @@ def obs_phase(args, card: str, sars: list) -> dict:
             api.shutdown()
     print(f"obs phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
     return launches_obs
+
+
+# phase 16's flags (both servers), beside phase 12's serving flags; the
+# gate (LOAD_GATE) and the per-client quota, which needs C, only on the
+# storm's server
+LOAD_FLAGS = ("--reload-seconds", "1", "--shard-buckets", "64", "--slo-latency-budget-ms", "50",
+              "--adaptive-batching", "--max-batch", "64",
+              "--tuner-max-batch", "4096", "--tuner-interval-seconds", "0.5",
+              "--tuner-burn-window-seconds", "10")
+LOAD_GATE = 64
+# the batch buckets a warm-up up to the tuner's clamp visits
+LOAD_WARM_BUCKETS = [1, 8, 32, 128, 512, 1024, 2048, 4096]
+SHED_PREFIX = "request shed under overload ("
+
+
+def load_bodies(sars: list, seed: int) -> dict:
+    """Phase 16's distinct bodies {key: (path, body, user, priority)}:
+    256 kubelet SARs (pool bodies of no gated scope, their user
+    system:node:node-<k> in group system:nodes); the pool's bodies of its
+    64 most frequent users as the controllers' (the first, whose bodies
+    are mostly gated, is the hot user); 256 admission reviews, each user
+    one of 64 service accounts. Returns the bodies and the controller
+    users, hot first."""
+    import collections
+
+    out = {}
+    kube = [i for i in range(len(sars)) if i % 8][:256]
+    for k, i in enumerate(kube):
+        doc = json.loads(sars[i])
+        user = f"system:node:node-{k % 64}"
+        doc["spec"]["user"], doc["spec"]["groups"] = user, ["system:nodes"]
+        out[("kubelet", k)] = ("/v1/authorize", json.dumps(doc).encode(), user, "high")
+    users = [u for u, _ in collections.Counter(
+        json.loads(b)["spec"]["user"] for b in sars).most_common(64)]
+    for i, b in enumerate(sars):
+        user = json.loads(b)["spec"]["user"]
+        if user in users:
+            out[("controller", i)] = ("/v1/authorize", b, user, "normal")
+    for k, b in enumerate(admission_bodies(256, seed)):
+        doc = json.loads(b)
+        user = f"system:serviceaccount:team-{k % 8}:controller-{k % 64}"
+        doc["request"]["userInfo"].update(username=user, uid=f"uid-{user}")
+        out[("admission", k)] = ("/v1/admit", json.dumps(doc).encode(), user, "normal")
+    return {"bodies": out, "users": users}
+
+
+def load_mix(pool: dict, seed, hot_share: float = 1 / 3):
+    """A seeded draw of phase 16's traffic -> a function returning the
+    next body key: a kubelet SAR (25%), a controller SAR (50%; a
+    `hot_share` of them the hot user's, the rest spread over the 63 other
+    users) or an admission review (25%)."""
+    by_user: dict = {}
+    for key, (_p, _b, user, _pr) in pool["bodies"].items():
+        if key[0] == "controller":
+            by_user.setdefault(user, []).append(key)
+    hot, others = pool["users"][0], pool["users"][1:]
+    rng = random.Random(f"{seed}:mix")
+
+    def draw():
+        r = rng.random()
+        if r < 0.25:
+            return ("kubelet", rng.randrange(256))
+        if r < 0.75:
+            user = hot if rng.random() < hot_share else rng.choice(others)
+            return rng.choice(by_user[user])
+        return ("admission", rng.randrange(256))
+
+    return draw
+
+
+def load_schedule(C: float, pool: dict, seed: int) -> list:
+    """[(due s, body key)]: the port's flash_crowd_schedule (base 0.5 C,
+    peak 3 C, the crowd at 2 s with a 3 s ramp, 16 s), then 4 s of
+    Poisson arrivals at the base, each arrival drawn from the full mix
+    (load_mix)."""
+    from cedar_tpu_torch.load import flash_crowd_schedule, poisson_schedule
+
+    due = flash_crowd_schedule(0.5 * C, 3 * C, 2.0, 3.0, 16.0, seed=seed)
+    due += [16.0 + t for t in poisson_schedule(0.5 * C, 4.0, seed=f"{seed}:tail")]
+    draw = load_mix(pool, seed)
+    return [(t, draw()) for t in due]
+
+
+def stage_means(text0: str, text1: str, path: str) -> dict:
+    """{stage: mean ms per batch} of cedar_pipeline_stage_seconds{path}
+    between two /metrics texts."""
+    a, b = stage_totals(text0, path), stage_totals(text1, path)
+    return {st: round((v[0] - a.get(st, [0, 0])[0]) * 1e3
+                      / max(v[1] - a.get(st, [0, 0])[1], 1), 3) for st, v in b.items()}
+
+
+# the storm's fire-lag bound: past it the driver, not the server, set the
+# offered rate, and the phase fails
+STORM_LAG_P99_S = 0.050
+
+
+def _storm_proc(task):
+    """One storm client process: fires each of its arrivals at its due
+    time (monotonic t0 + due) on an idle keep-alive connection of its
+    pool, opening another when none is idle, so no arrival waits for an
+    answer to an earlier one -> ([(index, status, body bytes, Retry-After,
+    fire lag s, latency s, error, send time)], connections opened)."""
+    import asyncio
+
+    port, t0, items, n_conns = task
+    return asyncio.run(_storm_async(port, t0, items, n_conns))
+
+
+async def _storm_async(port: int, t0: float, items: list, n_conns: int):
+    import asyncio
+
+    idle: list = []
+    opened = [0]
+
+    async def connect():
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.get_extra_info("socket").setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        opened[0] += 1
+        return reader, writer
+
+    async def exchange(conn, path: str, body: bytes):
+        reader, writer = conn
+        writer.write(b"POST %s HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: application/json"
+                     b"\r\nContent-Length: %d\r\n\r\n%s" % (path.encode(), len(body), body))
+        status = int((await reader.readline()).split()[1])
+        length, retry, close = 0, None, False
+        while True:
+            line = await reader.readline()
+            if line in (b"\r\n", b""):
+                break
+            name, _, value = line.decode("latin-1").partition(":")
+            name, value = name.strip().lower(), value.strip()
+            if name == "content-length":
+                length = int(value)
+            elif name == "retry-after":
+                retry = value
+            elif name == "connection":
+                close = value.lower() == "close"
+        return status, await reader.readexactly(length), retry, close
+
+    out = [None] * len(items)
+
+    async def fire(j: int):
+        k, due, path, body = items[j]
+        conn = idle.pop() if idle else None
+        t_send = time.monotonic()
+        try:
+            if conn is None:
+                conn = await connect()
+                t_send = time.monotonic()
+            status, data, retry, close = await asyncio.wait_for(exchange(conn, path, body), 60)
+            out[j] = (k, status, data, retry, t_send - (t0 + due), time.monotonic() - t_send,
+                      None, t_send)
+            if close:
+                conn[1].close()
+            else:
+                idle.append(conn)
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            out[j] = (k, None, None, None, t_send - (t0 + due), None, repr(e), t_send)
+            if conn is not None:
+                conn[1].close()
+
+    idle.extend(await asyncio.gather(*(connect() for _ in range(n_conns))))
+    tasks = []
+    for j, (_k, due, _p, _b) in enumerate(items):
+        wait = t0 + due - time.monotonic()
+        if wait > 0:
+            await asyncio.sleep(wait)
+        tasks.append(asyncio.ensure_future(fire(j)))
+    await asyncio.gather(*tasks)
+    for _r, w in idle:
+        w.close()
+    return out, opened[0]
+
+
+def storm(port: int, schedule: list, bodies: dict, n_procs: int = 4, n_conns: int = 64):
+    """Fire `schedule` ([(due s, body key)]) open loop from `n_procs`
+    spawned processes (arrival i from process i mod n_procs), each
+    starting with `n_conns` keep-alive connections and opening more
+    whenever every one is busy -> (one record per arrival, in order:
+    index, status, body, Retry-After, fire lag, latency, error, send
+    time; the connections opened); the processes are gone on return."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    t0 = time.monotonic() + 3.0  # the processes start and connect before
+    tasks = []
+    for p in range(n_procs):
+        items = [(i, due, bodies[key][0], bodies[key][1])
+                 for i, (due, key) in enumerate(schedule) if i % n_procs == p]
+        tasks.append((port, t0, items, n_conns))
+    with ctx.Pool(n_procs) as pool:
+        parts = pool.map(_storm_proc, tasks, chunksize=1)
+    records = [None] * len(schedule)
+    for part, _opened in parts:
+        for rec in part:
+            records[rec[0]] = rec
+    return records, sum(opened for _part, opened in parts)
+
+
+def peak_outstanding(records: list) -> int:
+    """The most requests the storm held unanswered at once (send to
+    answer, every process together)."""
+    events = []
+    for r in records:
+        if r[5] is not None:
+            events += [(r[7], 1), (r[7] + r[5], -1)]
+    peak = cur = 0
+    for _t, d in sorted(events, key=lambda e: (e[0], e[1])):
+        cur += d
+        peak = max(peak, cur)
+    return peak
+
+
+class ReadyzPoller:
+    """GET /readyz every 100 ms on its own thread: (monotonic, status,
+    body) per read."""
+
+    def __init__(self, mport: int):
+        self.mport, self.reads = mport, []
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(0.1):
+            t = time.monotonic()
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{self.mport}/readyz",
+                                            timeout=10) as r:
+                    self.reads.append((t, r.status, r.read().decode()))
+            except urllib.error.HTTPError as e:
+                self.reads.append((t, e.code, e.read().decode()))
+            except OSError as e:
+                self.reads.append((t, None, repr(e)))
+
+    def __enter__(self):
+        self._th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._th.join(timeout=30)
+        return False
+
+
+def shed_of(path: str, status: int, data: bytes, retry, uid: str):
+    """A shed answer's reason, None for a served answer; raises
+    ValueError when a shed answer is not the honest shape: NoOpinion with
+    the evaluationError "request shed under overload (<reason>); retry
+    after 1s" on /v1/authorize, the fail-open review (allowed, code 500,
+    the same message and " (allowed on shed)", the request's uid) on
+    /v1/admit; Retry-After 1 on an ingress shed, none on an
+    evaluation-stage shed (eval_saturated)."""
+    doc = json.loads(data)
+    if path == "/v1/admit":
+        resp = doc["response"]
+        msg = resp["status"]["message"]
+        if SHED_PREFIX not in msg:
+            return None
+        reason = msg[len(SHED_PREFIX):].split(")")[0]
+        want = {"uid": uid, "allowed": True, "status": {
+            "code": 500, "message": f"{SHED_PREFIX}{reason}); retry after 1s (allowed on shed)"}}
+        shape = resp == want
+    else:
+        st = doc["status"]
+        err = st.get("evaluationError") or ""
+        if not err.startswith(SHED_PREFIX):
+            return None
+        reason = err[len(SHED_PREFIX):].split(")")[0]
+        shape = st == {"allowed": False, "denied": False, "reason": "",
+                       "evaluationError": f"{SHED_PREFIX}{reason}); retry after 1s"}
+    want_retry = None if reason == "eval_saturated" else "1"
+    if not shape or status != 200 or retry != want_retry:
+        raise ValueError(f"dishonest shed on {path}: HTTP {status}, Retry-After {retry}: "
+                         f"{data[:300]!r}")
+    return reason
+
+
+def load_phase(args, card: str, sars: list) -> dict:
+    """Phase 16 (module docstring): the overload-control plane in front of
+    both webhook paths of the CLI over phase 12's Policy objects, under an
+    open-loop flash crowd. `sars` is phase 12's SAR pool. Returns the
+    kernels' served launches over the storm, both engines."""
+    t_phase = time.monotonic()
+    grace = 5.0
+    pool = load_bodies(sars, args.seed + 16)
+    bodies = pool["bodies"]
+    keys = list(bodies)
+    base = crd_objects(args.policies, args.seed)
+    api = FakeApiServer(hold_s=30.0)
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="cedar-load-") as tmp:
+        vfile = os.path.join(tmp, "v0.json")
+        with open(vfile, "w") as f:
+            json.dump([{"metadata": {"name": n, "uid": f"uid-{n}"}, "spec": {"content": c}}
+                       for n, c in base.items()], f)
+        for name, content in base.items():
+            api.apply(name, content)
+        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
+                       "spec": {"stores": [{"type": "crd", "crdStore": {}}]}}, f)
+        # the probe server: the phase's flags without the gate, so C is
+        # what the server serves, not what a gate lets through
+        srv = Webhook(cfg, tmp, "webhook-load-probe", grace,
+                      ("--kubeconfig", kube, *LOAD_FLAGS, "--max-inflight", "0"))
+        try:
+            # the oracle alongside the server's start-up
+            t0 = time.monotonic()
+            sar_keys = [k for k in keys if bodies[k][0] == "/v1/authorize"]
+            adm_keys = [k for k in keys if bodies[k][0] == "/v1/admit"]
+            answers = interpreter_answers(
+                {"sar": (f"crd-authorize:{vfile}", [bodies[k][1] for k in sar_keys]),
+                 "adm": (f"crd-admit:{vfile}", [bodies[k][1] for k in adm_keys])},
+                args.policies, args.seed, piece=128)
+            want = {k: a for k, a in zip(sar_keys, answers["sar"])}
+            want.update({k: adm_key(a["response"]) for k, a in zip(adm_keys, answers["adm"])})
+            print(f"load oracle: {len(want)} interpreter answers in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            srv.wait_ready(card)
+            # C: the answers a second of a 3 s closed loop at c=64 of the
+            # mix without the hot user (every client below its quota) on
+            # the ungated server
+            draw = load_mix(pool, f"{args.seed}:probe", hot_share=0.0)
+            flips = []
+            probe = {"admitted": 0, "shed": 0, "stop": time.monotonic() + 3.0}
+            lock = threading.Lock()
+
+            def prober():
+                conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+                try:
+                    while time.monotonic() < probe["stop"]:
+                        with lock:
+                            key = draw()
+                        path, body = bodies[key][:2]
+                        conn.request("POST", path, body=body,
+                                     headers={"Content-Type": "application/json"})
+                        resp = conn.getresponse()
+                        data = resp.read()
+                        uid = json.loads(body)["request"]["uid"] if path == "/v1/admit" else ""
+                        if shed_of(path, resp.status, data, resp.getheader("Retry-After"),
+                                   uid) is not None:
+                            with lock:
+                                probe["shed"] += 1
+                            continue
+                        doc = json.loads(data)
+                        got = adm_key(doc["response"]) if path == "/v1/admit" else canon(doc)
+                        if got != want[key]:
+                            flips.append((path, key, got))
+                        with lock:
+                            probe["admitted"] += 1
+                except Exception as e:  # noqa: BLE001 — reported below
+                    problems.append(f"probe client: {e!r}")
+                finally:
+                    conn.close()
+
+            t = time.perf_counter()
+            threads = [threading.Thread(target=prober) for _ in range(64)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=120)
+            C = probe["admitted"] / (time.perf_counter() - t)
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            problems += resilience_quiet("load probe", text)
+            print(f"load probe ({card}): C = {C:.1f} requests/s ({probe['admitted']} answers "
+                  f"of the mix without the hot user at c=64 in 3 s, no gate)", flush=True)
+            if probe["shed"]:
+                problems.append(f"{probe['shed']} shed answers from the ungated server")
+            if problems:
+                fail("load probe: " + "; ".join(problems))
+            srv.terminate()
+        finally:
+            srv.kill()
+        qps = round(0.05 * C, 3)
+        srv = Webhook(cfg, tmp, "webhook-load", grace,
+                      ("--kubeconfig", kube, *LOAD_FLAGS, "--max-inflight", str(LOAD_GATE),
+                       "--client-qps", str(qps)))
+        try:
+            srv.wait_ready(card)
+
+            def launches():
+                doc = srv.debug_engine()
+                return {k: sum(doc[p]["engine"]["launches"][k]
+                               for p in ("authorization", "admission"))
+                        for k in doc["authorization"]["engine"]["launches"]}
+
+            schedule = load_schedule(C, pool, args.seed)
+            text0 = http_get(srv.mport, "/metrics")[1].decode()
+            l0 = launches()
+            t_storm = time.monotonic()
+            with ReadyzPoller(srv.mport) as poller:
+                records, opened = storm(srv.port, schedule, bodies)
+            storm_s = time.monotonic() - t_storm
+            l1 = launches()
+            launches_load = {k: l1[k] - l0[k] for k in l1}
+            errors = [r[6] for r in records if r is None or r[6] is not None]
+            if errors:
+                fail(f"load storm: {len(errors)} client errors, first {errors[:3]}")
+            dl = json.loads(http_get(srv.mport, "/debug/load")[1])
+            eng = srv.debug_engine()
+            text = http_get(srv.mport, "/metrics")[1].decode()
+
+            # every answer: a shed of the honest shape, a deadline, or a
+            # served answer equal to the interpreter's
+            shed_by: dict = {}
+            ingress_shed = eval_shed = deadlines = 0
+            quota_users: dict = {}
+            lat: dict = {}
+            prio_of = {}
+            normal_total = {"all": 0, "peak": 0}
+            normal_shed = {"all": 0, "peak": 0}
+            for (due, key), rec in zip(schedule, records):
+                path, _body, user, prio = bodies[key]
+                _i, status, data, retry, _lag, dt, _err, _t = rec
+                uid = json.loads(_body)["request"]["uid"] if path == "/v1/admit" else ""
+                try:
+                    reason = shed_of(path, status, data, retry, uid)
+                except ValueError as e:
+                    fail(f"load: {e}")
+                peak = 5.0 <= due < 8.0
+                if prio == "normal":
+                    normal_total["all"] += 1
+                    normal_total["peak"] += peak
+                if reason is not None:
+                    shed_by[f"{prio}/{reason}"] = shed_by.get(f"{prio}/{reason}", 0) + 1
+                    if reason == "eval_saturated":
+                        eval_shed += 1
+                    else:
+                        ingress_shed += 1
+                    if reason == "client_quota":
+                        quota_users[user] = quota_users.get(user, 0) + 1
+                    if prio == "normal":
+                        normal_shed["all"] += 1
+                        normal_shed["peak"] += peak
+                    continue
+                endpoint = "admission" if path == "/v1/admit" else "authorization"
+                lat.setdefault((prio, endpoint), []).append(dt)
+                if path == "/v1/admit":
+                    got = adm_key(json.loads(data)["response"])
+                    if "deadline" in got[3] and got[2] == 500:
+                        deadlines += 1
+                        continue
+                else:
+                    got = canon(json.loads(data))
+                    if "deadline" in (got.get("evaluationError") or ""):
+                        deadlines += 1
+                        continue
+                if got != want[key]:
+                    flips.append((path, key, got))
+            n = len(records)
+            admitted = n - ingress_shed
+            ac = dl["admission_control"]
+            for f_ in flips[:3]:
+                print(f"load flip: {f_[0]} {f_[1]}: got {json.dumps(f_[2])[:300]}, want "
+                      f"{json.dumps(want[f_[1]])[:300]}", flush=True)
+            if flips:
+                problems.append(f"{len(flips)} flips")
+            if (ac["offered"], ac["admitted"], ac["shed"], ac["eval_shed"]) != (
+                    n, admitted, ingress_shed, eval_shed) or ac["offered"] != \
+                    ac["admitted"] + ac["shed"]:
+                problems.append(f"server offered/admitted/shed/eval_shed {ac['offered']} / "
+                                f"{ac['admitted']} / {ac['shed']} / {ac['eval_shed']}, clients "
+                                f"{n} / {admitted} / {ingress_shed} / {eval_shed}")
+            if ac["shed_by"] != shed_by:
+                problems.append(f"server shed_by {ac['shed_by']}, clients {shed_by}")
+            metric_sheds = metric_total(text, "cedar_load_shed_total")
+            if metric_sheds != ingress_shed + eval_shed:
+                problems.append(f"cedar_load_shed_total {metric_sheds:g}, shed answers "
+                                f"{ingress_shed + eval_shed}")
+            states = sorted({body for _t, _s, body in poller.reads})
+            bad_ready = [r for r in poller.reads if r[1] != (503 if r[2] == "saturated" else 200)]
+            if bad_ready:
+                problems.append(f"/readyz: {bad_ready[:3]}")
+            high_sheds = sum(v for k, v in shed_by.items() if k.startswith("high/"))
+            if high_sheds and "saturated" not in states:
+                problems.append(f"{high_sheds} high-priority sheds, /readyz never read saturated")
+            if not normal_shed["all"]:
+                problems.append("the storm shed no normal-priority request: not an overload")
+            hot = pool["users"][0]
+            if not quota_users.get(hot) or set(quota_users) != {hot}:
+                problems.append(f"client_quota sheds by user {quota_users}, want the hot user "
+                                f"{hot} only")
+            throttled = {ln.split('client="')[1].split('"')[0] for ln in text.splitlines()
+                         if ln.startswith("cedar_client_throttled_total{")}
+            if throttled != set(quota_users):
+                problems.append(f"cedar_client_throttled_total clients {throttled}")
+            problems += resilience_quiet("load", text)
+            # the tuners: every move inside its bounds; the warm-up
+            # visited every bucket up to the clamp, and no batch met a
+            # bucket above it
+            moves = {}
+            for p_, st in dl["tuning"].items():
+                b = st["bounds"]
+                lim = {"max_batch": (b["min_batch"], b["max_batch"]),
+                       "linger_us": (b["min_window_us"], b["max_window_us"])}
+                out_of = [d for d in st["decisions"]
+                          if not lim[d["param"]][0] <= d["to"] <= lim[d["param"]][1]]
+                if out_of or not lim["max_batch"][0] <= st["max_batch"] <= lim["max_batch"][1]:
+                    problems.append(f"tuner {p_}: moves out of bounds {out_of[:3]}")
+                moves[p_] = st
+                e = eng[p_]["engine"]
+                if e["warm_buckets"] != LOAD_WARM_BUCKETS:
+                    problems.append(f"{p_} engine warmed {e['warm_buckets']}, want "
+                                    f"{LOAD_WARM_BUCKETS}")
+                if max(e["staging"]["buckets"], default=0) > LOAD_WARM_BUCKETS[-1]:
+                    problems.append(f"{p_} engine met buckets {e['staging']['buckets']}")
+            if not all(launches_load.values()):
+                problems.append(f"a kernel did not launch in the storm: {launches_load}")
+
+            # the offered rate from the sends themselves, and whether the
+            # driver kept to the schedule
+            lags = [r[4] for r in records]
+            sends = [r[7] for r in records]
+            span = max(sends) - min(sends)
+            if pct(lags, 99) > STORM_LAG_P99_S:
+                problems.append(f"storm fire lag p99 {pct(lags, 99) * 1e3:.3f} ms, bound "
+                                f"{STORM_LAG_P99_S * 1e3:g} ms: the driver, not the schedule, "
+                                f"set the offered rate")
+            outstanding = peak_outstanding(records)
+            # when the tail happened: admitted p99 per priority in 2 s
+            # windows of the schedule
+            windows: dict = {}
+            for (due, key), rec in zip(schedule, records):
+                if rec[5] is not None:
+                    windows.setdefault((bodies[key][3], int(due // 2) * 2), []).append(rec[5])
+            print(f"load latency by 2 s window ({card}), p99 ms of every answer: " + json.dumps(
+                {f"{pr}@{w}": round(pct(v, 99) * 1e3, 1)
+                 for (pr, w), v in sorted(windows.items())}), flush=True)
+            for p_ in ("authorization", "admission"):
+                print(f"load stage means over the storm, {p_} ({card}), ms per batch: "
+                      + json.dumps(stage_means(text0, text, p_)), flush=True)
+            print(f"load storm ({card}): C {C:.1f} requests/s, quota {qps:g}/s; {n} arrivals "
+                  f"in {span:.2f} s: offered {n / span:.1f} requests/s, admitted "
+                  f"{admitted / span:.1f} requests/s ({ac['admitted']} admitted, "
+                  f"{ac['shed']} shed at ingress, {ac['eval_shed']} at evaluation, "
+                  f"{deadlines} deadlines); normal traffic shed {normal_shed['all']} of "
+                  f"{normal_total['all']}, at the peak (5-8 s) {normal_shed['peak']} of "
+                  f"{normal_total['peak']}", flush=True)
+            print("load sheds by priority/reason: " + json.dumps(dict(sorted(shed_by.items())))
+                  + f"; client_quota by user {json.dumps(quota_users)}", flush=True)
+            print(f"load admitted latency ({card}), ms: " + json.dumps(
+                {f"{pr}/{ep}": {"n": len(v), "p50": round(pct(v, 50) * 1e3, 3),
+                                "p99": round(pct(v, 99) * 1e3, 3)}
+                 for (pr, ep), v in sorted(lat.items())}), flush=True)
+            counts = {s: sum(1 for r in poller.reads if r[2] == s) for s in states}
+            print(f"load /readyz: {len(poller.reads)} reads, states " + json.dumps(counts),
+                  flush=True)
+            for p_, st in moves.items():
+                seq = [f"{d['param']} {d['from']:g}->{d['to']:g} (burn {d['latency_burn']}, "
+                       f"queue {d['queue_fill']})" for d in st["decisions"]]
+                print(f"load tuner {p_}: {st['moves']} moves in {st['ticks']} ticks, final "
+                      f"max_batch {st['max_batch']} linger_us {st['linger_us']}; first "
+                      + "; ".join(seq[:6]), flush=True)
+            peak_sends = [r[7] for (due, _k), r in zip(schedule, records) if 5.0 <= due < 8.0]
+            peak_rate = len(peak_sends) / max(max(peak_sends) - min(peak_sends), 1e-9)
+            print(f"load storm client fire lag: p50 {pct(lags, 50) * 1e3:.3f} ms, p99 "
+                  f"{pct(lags, 99) * 1e3:.3f} ms, max {max(lags) * 1e3:.3f} ms; sent at the "
+                  f"peak (5-8 s) {peak_rate:.1f} requests/s = {peak_rate / C:.2f} C; at most "
+                  f"{outstanding} requests unanswered at once (gate {LOAD_GATE}) over "
+                  f"{opened} connections; storm {storm_s:.1f} s; launches "
+                  f"{json.dumps(launches_load)}", flush=True)
+            if problems:
+                fail("load: " + "; ".join(problems))
+            took, rss = srv.terminate()
+            print(f"load webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+            api.shutdown()
+    print(f"load phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches_load
 
 
 def chaos_builtin(name: str) -> dict:

@@ -79,6 +79,22 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402 — admission_bodies, the gated policies
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_counters_restored():
+    """The JAX package's counters are process-wide, and its own tests read
+    exact counts off them (tests/test_cache.py a hit count of 1). The JAX
+    servers of a module using this fixture count into them, so every
+    counter is put back as it was when the module ends, whichever file
+    the same test process runs next."""
+    saved = [(m, dict(m._values)) for m in j_metrics.REGISTRY._metrics
+             if isinstance(m, j_metrics.Counter)]
+    yield
+    for m, values in saved:
+        with m._lock:
+            m._values.clear()
+            m._values.update(values)
+
 # ------------------------------------------------------------ fingerprints
 
 USERS = ["sam", "alice", "c0-user-1", "system:serviceaccount:ns:sa", "system:node:n1",

@@ -827,3 +827,76 @@ def test_partial_gate_on_the_card_equals_plain_versions(cuda):
     np.testing.assert_array_equal(f_gpu, f_cpu)
     np.testing.assert_array_equal(l_gpu, l_cpu)
     assert launched["match_words_kernel"] >= 1 and launched["match_groups_kernel"] >= 1
+
+
+@pytest.mark.cuda
+def test_tuner_grows_a_card_batcher_to_its_warmed_clamp(cuda):
+    """An SLO-adaptive tuner over a card engine's pipelined batcher, the
+    engine warmed up to the tuner's clamp (4096) as the CLI warms it:
+    with dispatch held, 2,304 submitted requests are the backlog, and six
+    ticks at no burn grow max_batch 64 -> 4096. Released, the next claim
+    takes the rest in one batch; every answer equals the CPU engine's,
+    and no batch met a bucket above the warmed top."""
+    import threading
+    import time
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.batcher import PipelinedBatcher
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.load import AdaptiveBatchTuner, TuningBounds
+    from cedar_tpu_torch.obs.slo import SLOTracker
+
+    corpus = synth_corpus(400, seed=5)
+    tiers = [PolicySet.from_source(_EXTRA_TIER, "extra"), corpus.tiers()[0]]
+    gpu, cpu = _fast_paths(tiers)
+    gpu.engine.warmup(4096)
+    assert gpu.engine.warm_buckets == (1, 8, 32, 128, 512, 1024, 2048, 4096)
+    gate = threading.Event()
+
+    class Held:
+        def pipeline_encode(self, items):
+            return gpu.pipeline_encode(items)
+
+        def pipeline_dispatch(self, ctx):
+            gate.wait(120)
+            return gpu.pipeline_dispatch(ctx)
+
+        def pipeline_decode(self, ctx):
+            return gpu.pipeline_decode(ctx)
+
+        def pipeline_discard(self, ctx):
+            gpu.pipeline_discard(ctx)
+
+    batcher = PipelinedBatcher(Held(), max_batch=64, window_s=0.0002, depth=2, encode_workers=2)
+    tuner = AdaptiveBatchTuner(batcher, SLOTracker(), bounds=TuningBounds(min_batch=64,
+                                                                          max_batch=4096))
+    bodies = _mixed_bodies(corpus, 2302, seed=3)
+    results = [None] * len(bodies)
+
+    def one(i):
+        results[i] = batcher.submit(bodies[i], timeout=120.0)
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(len(bodies))]
+    try:
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 60
+        while batcher.backlog() < len(bodies) and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert batcher.backlog() == len(bodies)
+        # (a seventh tick would see the backlog within the batch and decay
+        # home: the grown knob is released at once)
+        moves = [tuner.tick() for _ in range(6)]
+        assert [(d["param"], d["from"], d["to"]) for d in moves] == [
+            ("max_batch", 64 * 2**k, 128 * 2**k) for k in range(6)]
+        assert batcher.max_batch == 4096
+        gate.set()
+        for th in threads:
+            th.join(120)
+    finally:
+        gate.set()
+        batcher.stop()
+    assert results == cpu.authorize_raw(bodies)
+    assert batcher.backlog() == 0
+    assert 64 < batcher.debug_stats()["largest_batch"] <= 4096
+    assert max(gpu.engine.staging_stats()["buckets"]) <= 4096

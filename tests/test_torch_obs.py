@@ -89,6 +89,7 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402 — the gated and admission policies, admission traffic
 import test_torch_cache as cache_tests  # noqa: E402 — the 1,200 seeded bodies
+from test_torch_cache import _jax_counters_restored  # noqa: E402,F401 — JAX counters put back
 
 HEX = "0123456789abcdef"
 

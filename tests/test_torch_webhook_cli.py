@@ -68,7 +68,7 @@ PORTED_FLAGS = [
 UNPORTED_FLAGS = [
     ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
     ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--rollout-candidate-dir", "/tmp"],
-    ["--shed-normal-at", "0.5"], ["--tpu-reload-seconds", "1"],
+    ["--fanout-workers", "2"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
 permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
