@@ -151,9 +151,11 @@ def resolve_device(device=None) -> torch.device:
     return d
 
 
-def _bits_rule_indices(bits_row: np.ndarray, n_rules: int) -> np.ndarray:
+def bits_rule_indices(bits_row: np.ndarray, n_rules: int) -> np.ndarray:
     """Set-bit positions of one uint32 rule-bitset row (little-endian bit
-    order), bounded by n_rules."""
+    order), bounded by n_rules: the one decoder of the bits plane, read by
+    the engine's diagnostics (_bits_groups) and the explain plane
+    (explain/attribution.py sat_from_bits)."""
     bits = np.unpackbits(
         np.ascontiguousarray(bits_row).view(np.uint8), bitorder="little"
     )
@@ -1164,7 +1166,7 @@ class TorchPolicyEngine:
         """Decode one rule bitset row -> {group id: [policy indices,
         ascending]} with every matched policy (deduped across the several
         DNF rules one policy may lower to)."""
-        idx = _bits_rule_indices(bits_row, cs.R)
+        idx = bits_rule_indices(bits_row, cs.R)
         pols = cs.rule_policy[idx]
         grps = cs.rule_group[idx]
         valid = pols != INT32_MAX  # padding rules never match; belt and braces

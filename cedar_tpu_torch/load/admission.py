@@ -11,8 +11,9 @@ deadline budget. The controller keeps the damage shaped:
     ``high`` (shed only at the hard saturation cap), controller and
     admission traffic is ``normal``, and explain requests are
     ``sheddable`` (operator surface, first overboard). Classification is
-    a byte scan, with no JSON parse on the hot path. The port serves no
-    explain requests, so nothing it serves classifies ``sheddable``.
+    a byte scan, with no JSON parse on the hot path. The server passes
+    ``explain`` for every ``?explain=1`` request (server/http.py), so
+    those are the ``sheddable`` class.
   * **Graduated load states**: inflight/max_inflight maps to
     ok -> pressure -> overload -> saturated. Sheddable traffic sheds at
     ``pressure``, normal at ``overload``, high only at ``saturated``, and

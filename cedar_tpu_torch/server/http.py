@@ -100,6 +100,19 @@ With a plane wired, /readyz carries the load state in its body and the
 tuners' status (``tuners``, appended by the CLI); without one, /readyz is
 unchanged and /debug/load answers 404.
 
+``?explain=1`` (explain/, as in the JAX server): do_POST splits the
+query off the path and reads ``explain`` by the JAX rule (``0``,
+``false`` and an empty value keep the bare path). An explain request
+passes the ingress gate as ``sheddable`` (the first class shed under
+pressure), is recorded and answers ``X-Cedar-Trace-Id``, then branches
+before the tracer, the cache, the breaker check and the batcher: the
+Explainer (built at the first explain request, from each path's fast
+path or its authorizer's bound engine) answers it with the decision and
+an ``explanation`` document. It counts on
+``cedar_explain_requests_total{path}`` only: never on the serving
+request counter and histogram, the SLO rings or the audit log, never
+traced, never cached and never seen by the error injector.
+
 The server starts the policy reloader (cli/webhook.py TorchReloader) and
 the supervisor (server/supervisor.py) with its listeners; stop() stops
 the supervisor first, then the reloader, the tuners, the batchers and the
@@ -145,7 +158,12 @@ from .authorizer import (
     CedarWebhookAuthorizer,
 )
 from .error_injector import ErrorInjector
-from .metrics import WebhookMetrics, fallback_decision_counts, record_audit_record
+from .metrics import (
+    WebhookMetrics,
+    fallback_decision_counts,
+    record_audit_record,
+    record_explain_request,
+)
 from .sar import get_authorizer_attributes, sar_response
 
 log = logging.getLogger(__name__)
@@ -354,6 +372,10 @@ class WebhookServer:
         self.slo = slo
         self.error_injector = error_injector or ErrorInjector(None)
         self.recorder = recorder
+        # ?explain=1 (explain/): the Explainer is built at the first
+        # explain request, so the serving path never imports the package
+        self._explainer = None
+        self._explainer_lock = threading.Lock()
         # canonical-fingerprint memos for the audit lines, joinable with
         # the recorder's file names and the cache's keys; the
         # authorization side shares the cache's memo when there is one
@@ -476,35 +498,36 @@ class WebhookServer:
             error=f"{msg} ({'allowed' if allowed else 'denied'} on shed)",
         ).to_admission_review()
 
-    def ingress(self, path_label: str, body: bytes):
+    def ingress(self, path_label: str, body: bytes, explain: bool = False):
         """The ingress gate on one body (a plane wired) -> (priority,
         None) for an admitted request, or (priority, (shed answer,
-        Retry-After value)) for a shed one. do_POST and the serve_*
-        wrappers both gate through here."""
-        priority, shed = self.load.admit(path_label, body)
+        Retry-After value)) for a shed one; an explain request classifies
+        ``sheddable``. do_POST and the serve_* wrappers both gate through
+        here."""
+        priority, shed = self.load.admit(path_label, body, explain)
         if shed is None:
             return priority, None
         return priority, (self.render_shed(path_label, body, shed),
                           str(max(1, round(shed.retry_after_s))))
 
-    def _serve(self, path_label: str, body: bytes, handle) -> dict:
+    def _serve(self, path_label: str, body: bytes, handle, explain: bool) -> dict:
         """The gate, track and handle sequence do_POST runs, without HTTP;
-        with no plane wired this is ``handle(body)``."""
+        with no plane wired this is ``handle(body, explain=explain)``."""
         if self.load is None:
-            return handle(body)
-        priority, shed = self.ingress(path_label, body)
+            return handle(body, explain=explain)
+        priority, shed = self.ingress(path_label, body, explain)
         if shed is not None:
             return shed[0]
         with self.load.track(path_label, priority):
-            return handle(body, priority=priority)
+            return handle(body, explain=explain, priority=priority)
 
-    def serve_authorize(self, body: bytes) -> dict:
+    def serve_authorize(self, body: bytes, explain: bool = False) -> dict:
         """One /v1/authorize body through the gate, without HTTP."""
-        return self._serve("authorization", body, self.handle_authorize)
+        return self._serve("authorization", body, self.handle_authorize, explain)
 
-    def serve_admit(self, body: bytes) -> dict:
+    def serve_admit(self, body: bytes, explain: bool = False) -> dict:
         """One /v1/admit body through the gate, without HTTP."""
-        return self._serve("admission", body, self.handle_admit)
+        return self._serve("admission", body, self.handle_admit, explain)
 
     def debug_load(self) -> dict:
         """The /debug/load document: the admission controller's stats
@@ -555,17 +578,89 @@ class WebhookServer:
         if self.audit_log is not None:
             self._audit(path, endpoint, body, request_id, label, reason, error, latency, octx)
 
-    def handle_authorize(self, body: bytes, request_id: Optional[str] = None,
+    def _get_explainer(self):
+        """The Explainer, built at the first explain request under a lock
+        (no explain import before). Each path's engine and breaker come
+        from its fast path, else from the engine bound into its stack's
+        evaluate backend (engine_of), so an open breaker sends explain to
+        the host plane. The JAX server's fleet branch waits for the port's
+        fleet."""
+        exp = self._explainer
+        if exp is not None:
+            return exp
+        with self._explainer_lock:
+            if self._explainer is None:
+                from ..explain import Explainer, engine_of
+
+                def stack_engine(stack):
+                    if stack is None:
+                        return None
+                    return (engine_of(getattr(stack, "_evaluate_batch", None))
+                            or engine_of(stack._evaluate))
+
+                engines = {}
+                for path, fast, stack in (
+                    ("authorization", self.fastpath, self.authorizer),
+                    ("admission", self.admission_fastpath, self.admission_handler),
+                ):
+                    if fast is not None:
+                        engines[path] = (fast.engine, fast.breaker)
+                    else:
+                        engines[path] = (stack_engine(stack), None)
+                self._explainer = Explainer(
+                    authorizer=self.authorizer,
+                    admission_handler=self.admission_handler,
+                    authz_engine=engines["authorization"][0],
+                    admission_engine=engines["admission"][0],
+                    authz_breaker=engines["authorization"][1],
+                    admission_breaker=engines["admission"][1],
+                )
+        return self._explainer
+
+    def _handle_authorize_explain(self, body: bytes, request_id: Optional[str] = None) -> dict:
+        """?explain=1 on /v1/authorize: the decision plus the attribution
+        payload, bypassing the decision cache (never read, never filled),
+        the batcher, the tracer, the SLO rings, the audit log and the
+        error injector (an operator surface, not serving traffic)."""
+        start = time.monotonic()
+        if request_id is None:
+            request_id = new_trace_id()
+        decision, error = DECISION_NO_OPINION, None
+        try:
+            record_explain_request("authorization")
+            decision, reason, error, explanation = self._get_explainer().explain_authorize(body)
+            resp = sar_response(decision, reason, error)
+            resp["explanation"] = explanation
+            return resp
+        except Exception as e:  # noqa: BLE001 — always answer the operator
+            log.exception("explain authorize requestId=%s failed", request_id)
+            error = f"evaluation error: {e}"
+            return sar_response(DECISION_NO_OPINION, "", error)
+        finally:
+            # not on the serving request counter and histogram:
+            # cedar_explain_requests_total is the explain-traffic signal
+            label = "<error>" if error else _DECISION_LABEL[decision]
+            log.info(
+                "authorize(explain) requestId=%s decision=%s latency=%.6fs",
+                request_id, label, time.monotonic() - start,
+            )
+
+    def handle_authorize(self, body: bytes, explain: bool = False,
+                         request_id: Optional[str] = None,
                          parent_span_id: Optional[str] = None,
                          root_span_id: Optional[str] = None,
                          sampled: Optional[bool] = None, priority: str = "") -> dict:
         """One SubjectAccessReview body -> the SubjectAccessReview response
         document, with the request metrics, the observability plane and
-        the log line. ``request_id`` is the end-to-end trace id (do_POST's
-        ingested traceparent, else fresh); ``sampled`` a head-sampling
-        decision drawn before (None draws here); ``priority`` the ingress
-        gate's class of an admitted request (empty without a plane), which
-        arms the evaluation-stage gate on a miss."""
+        the log line; with ``explain`` the explain answer instead
+        (_handle_authorize_explain). ``request_id`` is the end-to-end trace
+        id (do_POST's ingested traceparent, else fresh); ``sampled`` a
+        head-sampling decision drawn before (None draws here);
+        ``priority`` the ingress gate's class of an admitted request
+        (empty without a plane), which arms the evaluation-stage gate on a
+        miss."""
+        if explain:
+            return self._handle_authorize_explain(body, request_id)
         start = time.monotonic()
         if request_id is None:
             request_id = new_trace_id()
@@ -737,7 +832,25 @@ class WebhookServer:
             return DECISION_NO_OPINION, "", f"evaluation error: {e}"
         return decision, reason, None
 
-    def handle_admit(self, body: bytes, request_id: Optional[str] = None,
+    def _handle_admit_explain(self, body: bytes, request_id: Optional[str] = None) -> dict:
+        """?explain=1 on /v1/admit: the admission twin of
+        _handle_authorize_explain (the same bypasses). The request id is
+        logged so the answered X-Cedar-Trace-Id joins the log."""
+        if request_id is None:
+            request_id = new_trace_id()
+        try:
+            record_explain_request("admission")
+            response, explanation = self._get_explainer().explain_admit(body)
+            review = response.to_admission_review()
+            review["explanation"] = explanation
+            log.info("admit(explain) requestId=%s answered", request_id)
+            return review
+        except Exception as e:  # noqa: BLE001 — always answer the operator
+            log.exception("explain admit requestId=%s failed", request_id)
+            return self._admission_fail_mode(_loads_or_none(body), e)
+
+    def handle_admit(self, body: bytes, explain: bool = False,
+                     request_id: Optional[str] = None,
                      parent_span_id: Optional[str] = None,
                      root_span_id: Optional[str] = None,
                      sampled: Optional[bool] = None, priority: str = "") -> dict:
@@ -745,9 +858,11 @@ class WebhookServer:
         document, with the observability plane and the log line (the
         request metrics count /v1/authorize only, as in the JAX package).
         The arguments are handle_authorize's."""
-        start = time.monotonic()
         if request_id is None:
             request_id = new_trace_id()
+        if explain:
+            return self._handle_admit_explain(body, request_id)
+        start = time.monotonic()
         trace, octx = self._begin_obs(
             "admission", request_id, parent_span_id, root_span_id, sampled)
         doc = None
@@ -965,8 +1080,16 @@ class WebhookServer:
                 # the drain check and the in-flight increment are one
                 # atomic step: once stop() sets _draining and sees no
                 # request in flight under this lock, no request can slip
-                # past the check and reach a batcher stop() has joined
-                path = self.path.partition("?")[0]
+                # past the check and reach a batcher stop() has joined.
+                # ?explain=1 splits off the query here; the bare-path
+                # requests the apiserver sends take the path they always did
+                path, _, query = self.path.partition("?")
+                explain = False
+                if query:
+                    from urllib.parse import parse_qs
+
+                    vals = parse_qs(query).get("explain")
+                    explain = bool(vals) and vals[-1] not in ("0", "false", "")
                 with server._inflight_cv:
                     draining = server._draining
                     if not draining:
@@ -998,7 +1121,7 @@ class WebhookServer:
                         # the ingress gate, before the recorder, the trace
                         # and the serving path: a shed is never served,
                         # recorded or traced, and no SLO ring sees it
-                        priority, shed = server.ingress(path_label, body)
+                        priority, shed = server.ingress(path_label, body, explain)
                         if shed is not None:
                             self._write_json(shed[0], headers={"Retry-After": shed[1]})
                             return
@@ -1019,8 +1142,9 @@ class WebhookServer:
                         root_span = new_span_id()
                         sampled = server.tracer.head_sample()
                         headers["traceparent"] = format_traceparent(request_id, root_span, sampled)
-                    ids = dict(request_id=request_id, parent_span_id=parent_span,
-                               root_span_id=root_span, sampled=sampled, priority=priority)
+                    ids = dict(explain=explain, request_id=request_id,
+                               parent_span_id=parent_span, root_span_id=root_span,
+                               sampled=sampled, priority=priority)
                     # an admitted request is tracked until its answer is
                     # written: queue wait and evaluation are the load
                     tracked = (

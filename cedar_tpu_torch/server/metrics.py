@@ -94,6 +94,14 @@ admission controller and the adaptive batch tuners:
   * ``cedar_client_throttled_total{client}``, its client label capped at
     64 distinct ids (later ones fold into ``other``, counted by
     ``cedar_client_label_overflow_total``).
+
+And so are the explain plane's (explain/), recorded by the server's
+``?explain=1`` handlers and the explain plane:
+
+  * ``cedar_explain_requests_total{path}`` and
+    ``cedar_explain_compiles_total`` (in the port: explain calls that
+    built the float plane of a set that was never warmed; 0 on a server,
+    whose loads all warm).
 """
 
 from __future__ import annotations
@@ -509,6 +517,25 @@ class _ProcessFamilies:
         )
         self._client_labels: set = set()
         self._client_label_lock = threading.Lock()
+        # the explain plane's families (explain/): the JAX names and help
+        self.explain_requests_total = Counter(
+            "cedar_explain_requests_total",
+            "?explain=1 requests answered, partitioned by path (authorization "
+            "/ admission). Explain traffic bypasses the decision cache and "
+            "the batchers by design — a sustained high rate is an operator "
+            "debugging session, not serving load (docs/explainability.md).",
+            ["path"],
+        )
+        self.explain_compiles_total = Counter(
+            "cedar_explain_compiles_total",
+            "Fresh kernel traces paid by the lazily-compiled explain plane "
+            "(the standalone bits shape, on first ?explain use per compiled "
+            "set). Zero until the first explain request per (engine, "
+            "generation) — the pay-for-use contract; nonzero growth outside "
+            "policy reloads means explain traffic is hitting cold sets.",
+            [],
+        )
+        self.explain_compiles_total.inc(0)
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -523,6 +550,7 @@ class _ProcessFamilies:
             self.load_shed_total, self.inflight_requests, self.load_state,
             self.batch_tuning, self.client_throttled_total,
             self.client_label_overflow_total,
+            self.explain_requests_total, self.explain_compiles_total,
         )
 
     def collect(self) -> List[str]:
@@ -679,6 +707,15 @@ def record_client_throttled(client: str) -> None:
             else:
                 labels.add(client)
     _PROCESS.client_throttled_total.inc(client=client)
+
+
+def record_explain_request(path: str) -> None:
+    _PROCESS.explain_requests_total.inc(path=path)
+
+
+def record_explain_compiles(n: int) -> None:
+    if n:
+        _PROCESS.explain_compiles_total.inc(n)
 
 
 class WebhookMetrics:

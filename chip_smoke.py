@@ -342,6 +342,42 @@ Phases, each a hard failure with a nonzero exit:
      fire lag, the rate sent at the peak (from the send times), the most
      requests unanswered at once and the connections opened, launches
      and the phase's wall time.
+  17. the explain plane (this slice's main path), on phase 15's server
+     once phase 15's checks passed (its cache, tracer at rate 1, audit
+     log, recorder and injector all still on): phase 15's first 256
+     distinct-key SARs and its first 128 AdmissionReviews POSTed with
+     ?explain=1, the first 100 SARs at concurrency 1, the rest shuffled
+     at concurrency 8, each answer held against phase 15's interpreter
+     answers. Checks, each failing the run: 0 flips; every explanation's
+     source is device, or gate with the short circuit it names (a system
+     user, a skipped namespace, a review that does not convert;
+     explain-error only for a body whose interpreter answer is the
+     handler's own error answer, else a failed device explain); a
+     device answer that allows or denies names a determining policy
+     among the interpreter's reasons (an allowed review: a permit); no
+     answer is the injector's; /debug/cache hits, misses and sizes, both
+     kernels' served launches (/debug/engine), the injector's counts and
+     the serving request counter the same before and after the window;
+     no audit line carries an explain request's X-Cedar-Trace-Id, and no
+     kept trace (/debug/traces/<id> 404, the trace log unchanged); one
+     new recorder file per explain body, holding it;
+     cedar_explain_requests_total per path equal to what was sent,
+     cedar_explain_compiles_total 0; both breakers closed. Prints the
+     latency p50 / p99 and requests/s at concurrency 1 and 8 with the
+     server's and this process's CPU per request (/proc), the gates
+     met and the launches. Then serving beside explain: bare SARs on
+     keys the cache never saw, 16 at concurrency 1 and 128 at 64, once
+     alone and once beside an explain loop at concurrency 8 (serving
+     p50 / p99 and requests/s in each). Then, in this process on phase
+     4's engine (the same 10k corpus; with --only-explain a fresh load
+     of it): one request's split, encode, the bits fetch (CUDA events;
+     host time beside it) and build_explanation, medians over 50
+     requests; and explain with no HTTP layer from 1 and 8 threads, from
+     8 with a 0.5 ms switch interval, with one explain at a time and
+     with one bits fetch at a time (requests/s, CPU and each part's host
+     time per request), then 8 threads under torch.profiler
+     (the ops' and CUDA runtime calls' count and host time per request,
+     the card's busy share).
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
@@ -358,10 +394,15 @@ seconds carry the gate's ``analyze`` phase.
 reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
 ``--only-cache`` phases 1, 2 and 14, ``--only-obs`` phases 1, 2 and 15,
-and ``--only-load`` phases 1, 2 and 16; none prints result lines.
+``--only-load`` phases 1, 2 and 16, and ``--only-explain`` phases 1, 2,
+15 and 17; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
-{"ok": true, "device": {...}}. Exits nonzero, printing no result, when
+{"ok": true, "device": {...}}. In the kernels line each kernel carries
+its launches on every path the run drove as ``launches_<path>``, each
+counted from 0 just before that path and read just after (phase 17's
+explain window launches neither kernel by design: ``launches_explain``
+is 0); ``launches`` is their sum. Exits nonzero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
 
@@ -995,10 +1036,12 @@ class Client:
     request that fails in any way (a reset or dropped connection, a
     non-200 answer) raises: nothing is retried."""
 
-    def __init__(self, port: int, path: str = "/v1/authorize"):
+    def __init__(self, port: int, path: str = "/v1/authorize", whole: bool = False):
         self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
         self.path = path
-        self.key = "response" if path == "/v1/admit" else "status"
+        # whole: post() answers the whole document (an explain answer's
+        # explanation beside its status or response)
+        self.key = None if whole else "response" if path == "/v1/admit" else "status"
         self.headers: dict = {}
 
     def post(self, body: bytes, headers=None):
@@ -1013,7 +1056,8 @@ class Client:
             raise RuntimeError(f"HTTP {resp.status}: {data[:200]!r}")
         if resp.will_close:
             raise RuntimeError("the webhook closed a keep-alive connection")
-        return json.loads(data)[self.key], dt
+        doc = json.loads(data)
+        return (doc if self.key is None else doc[self.key]), dt
 
     def close(self):
         self.conn.close()
@@ -1056,6 +1100,9 @@ def main() -> None:
     ap.add_argument("--only-load", action="store_true",
                     help="run phases 1, 2 and 16 only (the overload-control plane under a "
                          "flash crowd); prints no result lines")
+    ap.add_argument("--only-explain", action="store_true",
+                    help="run phases 1, 2, 15 and 17 only (the explain plane on phase 15's "
+                         "server); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
@@ -1138,6 +1185,11 @@ def main() -> None:
     if args.only_load:
         corpus = synth_corpus(args.policies, seed=args.seed)
         load_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6))
+        return
+    if args.only_explain:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
+                  then=explain_then(args, card, corpus=corpus))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1618,21 +1670,23 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 14. the decision cache ahead of the CRD-served engines
     cache_launches = cache_phase(args, card, g_batch)
 
-    # ---- 15. the request observability plane around both endpoints
-    obs_launches = obs_phase(args, card, g_batch)
+    # ---- 15. the request observability plane around both endpoints, then
+    # ---- 17. the explain plane on the same server
+    obs_launches, explain_out = obs_phase(
+        args, card, g_batch, then=explain_then(args, card, engine=engine, split_bodies=bodies))
 
     # ---- 16. the overload-control plane under an open-loop flash crowd
     load_launches = load_phase(args, card, g_batch)
 
-    # each kernel's launches on this slice's main path, phase 16's
-    # admitted misses on both endpoints (counted in the server process);
-    # and on the earlier paths
+    # each kernel's launches on every path this run drove, each counted
+    # from 0 just before its path and read just after (a server's in its
+    # process); ``launches`` is their sum. Phase 17's explain window, this
+    # slice's path, launches neither kernel by design: launches_explain 0
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
-        kernels.append({
-            "name": k, **meta,
-            "launches": load_launches[k],
+        per_path = {
+            "launches_explain": explain_out["launches"][k],
             "launches_load": load_launches[k],
             "launches_obs": obs_launches[k],
             "launches_cache": cache_launches[k],
@@ -1646,6 +1700,11 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
             "launches_fastpath_gated": gated_launches[k],
             "launches_serving": serving_launches[k],
             "launches_want_full": full_launches[k],
+        }
+        total = sum(sum(v.values()) if isinstance(v, dict) else v for v in per_path.values())
+        kernels.append({
+            "name": k, **meta,
+            "launches": total, **per_path,
             "max_abs_err": err[k],
             "ms": head["ms"], "device_ms": head["device_ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -4154,19 +4213,22 @@ def adm_label(resp: dict) -> str:
     return "allowed" if resp["allowed"] else "denied"
 
 
-def obs_phase(args, card: str, sars: list) -> dict:
+def obs_phase(args, card: str, sars: list, then=None):
     """Phase 15 (module docstring): the request observability plane around
     both webhook paths of the CLI over phase 12's Policy objects, with the
     cache at its defaults, the tracer at rate 1, the audit log, the
     recorder and the injector on. `sars` is phase 12's SAR pool. Returns
-    the server's served kernel launches over the phase, both engines."""
+    the server's served kernel launches over the phase, both engines, and
+    what ``then`` returned: phase 17, run on this server once phase 15's
+    checks have passed."""
     from cedar_tpu_torch.obs.trace import parse_traceparent, span_tree_coverage
 
     t_phase = time.monotonic()
     grace = 5.0
     n_keys, n_c1, n_adm, n_hits = 1024, 100, 256, 300
-    distinct = cache_working_set(sars, n_keys + n_c1)
-    bodies, c1_bodies = distinct[:n_keys], distinct[n_keys:]
+    # past phase 15's keys: phase 17's fresh misses (BESIDE_N)
+    distinct = cache_working_set(sars, n_keys + n_c1 + BESIDE_N)
+    bodies, c1_bodies = distinct[:n_keys], distinct[n_keys:n_keys + n_c1]
     adm = admission_bodies(n_adm, args.seed + 9)
     base = crd_objects(args.policies, args.seed)
     api = FakeApiServer(hold_s=30.0)
@@ -4471,14 +4533,486 @@ def obs_phase(args, card: str, sars: list) -> dict:
                   f"{json.dumps(launches_obs)}", flush=True)
             if problems:
                 fail("obs: " + "; ".join(problems))
+            print(f"obs phase wall time ({card}): {time.monotonic() - t_phase:.1f} s",
+                  flush=True)
+            after = None
+            if then is not None:
+                after = then(srv, {
+                    "sars": bodies, "want_sars": want["set"], "adm": adm,
+                    "want_adm": want_adm, "audit_log": audit_log, "trace_log": trace_log,
+                    "rec_dir": rec_dir, "fresh": distinct[n_keys + n_c1:],
+                })
             took, rss = srv.terminate()
             print(f"obs webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
                   f"({card}): {rss}", flush=True)
         finally:
             srv.kill()
             api.shutdown()
-    print(f"obs phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
-    return launches_obs
+    return launches_obs, after
+
+
+# phase 17: the SARs and reviews sent with ?explain=1, the first EXPLAIN_C1
+# at concurrency 1, the rest at EXPLAIN_CONC (half of phase 15's first 512
+# SARs and 256 reviews: the whole smoke passed 1,100 s of its 1,200 s with
+# all of them)
+EXPLAIN_SARS, EXPLAIN_REVIEWS, EXPLAIN_C1, EXPLAIN_CONC = 256, 128, 100, 8
+# phase 17's serving window: bare misses on fresh keys at c=1, then at
+# c=64, once alone and once beside an explain loop at EXPLAIN_CONC
+BESIDE_C1, BESIDE_C64 = 16, 128
+BESIDE_N = 2 * (BESIDE_C1 + BESIDE_C64)
+
+
+def proc_cpu_s(pid: int) -> float:
+    """User + system CPU seconds of a process, all its threads."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def drive_explain(port: int, items: list, concurrency: int):
+    """items: (path, body), each POSTed to path?explain=1 -> (wall s,
+    [latency s], [whole answer document], [response headers], [client
+    error]). Nothing is retried."""
+    n = len(items)
+    lat, docs, hdrs = [0.0] * n, [None] * n, [None] * n
+    errors, next_i, lock = [], [0], threading.Lock()
+
+    def worker():
+        clients = {p: Client(port, p + "?explain=1", whole=True)
+                   for p in ("/v1/authorize", "/v1/admit")}
+        try:
+            while True:
+                with lock:
+                    i = next_i[0]
+                    next_i[0] += 1
+                if i >= n:
+                    return
+                path, body = items[i]
+                docs[i], lat[i] = clients[path].post(body)
+                hdrs[i] = clients[path].headers
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            for c in clients.values():
+                c.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish within 600 s")
+    return wall, lat, docs, hdrs, errors
+
+
+def handler_error(path: str, want: dict) -> bool:
+    """Whether the interpreter's answer for a body is the handler's error
+    answer: NoOpinion with an evaluation error on /v1/authorize, an
+    errored review (a code other than 200) on /v1/admit."""
+    if path == "/v1/authorize":
+        return bool(want.get("evaluationError")) and not (want["allowed"] or want["denied"])
+    return adm_label(want) == "<error>"
+
+
+def explain_then(args, card: str, engine=None, split_bodies=None, corpus=None):
+    """Phase 17 as the continuation obs_phase runs on its server. The
+    split runs on ``engine`` (phase 4's) over ``split_bodies``, or, with
+    ``corpus`` instead, on a fresh engine loaded with it."""
+    def run(srv, ctx):
+        out = explain_phase(args, card, srv, ctx)
+        eng, bodies = engine, split_bodies
+        if eng is None:
+            from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+
+            t0 = time.monotonic()
+            eng = TorchPolicyEngine()
+            eng.load(corpus.tiers())
+            bodies = corpus.sar_bodies(60, seed=args.seed + 1)
+            print(f"explain split: the corpus loaded in this process in "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+        explain_split(card, eng, bodies)
+        explain_threads(card, eng, bodies)
+        return out
+    return run
+
+
+def _explain_state(srv, ctx) -> dict:
+    """What an explain window must leave as it found it, and its counts."""
+    text = http_get(srv.mport, "/metrics")[1].decode()
+    explain = {}
+    for line in text.splitlines():
+        if line.startswith("cedar_explain_requests_total{"):
+            explain[line.split('path="')[1].split('"')[0]] = float(line.rsplit(" ", 1)[1])
+    eng = srv.debug_engine()
+    cache = json.loads(http_get(srv.mport, "/debug/cache")[1])
+    with open(ctx["audit_log"]) as f:
+        audit = f.read()
+    with open(ctx["trace_log"]) as f:
+        n_trace_lines = sum(1 for _ in f)
+    return {
+        "cache": {p: {k: d[k] for k in ("hits", "misses", "size")} for p, d in cache.items()},
+        "launches": {k: sum(eng[p]["engine"]["launches"][k] for p in ("authorization", "admission"))
+                     for k in eng["authorization"]["engine"]["launches"]},
+        "breakers": {p: eng[p]["breaker"] for p in ("authorization", "admission")},
+        "injections": injections(srv.mport),
+        "requests": metric_total(text, "cedar_authorizer_request_total"),
+        "explain": explain,
+        "compiles": metric_total(text, "cedar_explain_compiles_total"),
+        "audit": audit,
+        "trace_lines": n_trace_lines,
+        "files": set(os.listdir(ctx["rec_dir"])),
+    }
+
+
+def explain_phase(args, card: str, srv, ctx: dict) -> dict:
+    """Phase 17 (module docstring) on phase 15's server: ``ctx`` carries
+    phase 15's bodies, their interpreter answers and the paths of its
+    audit log, trace log and recorder directory. Returns the served
+    launches of both kernels over the window ({name: delta}: 0)."""
+    t_phase = time.monotonic()
+    sars, adm = ctx["sars"][:EXPLAIN_SARS], ctx["adm"][:EXPLAIN_REVIEWS]
+    items = [("/v1/authorize", b) for b in sars] + [("/v1/admit", b) for b in adm]
+    expected = list(ctx["want_sars"][:EXPLAIN_SARS]) + list(ctx["want_adm"][:EXPLAIN_REVIEWS])
+    rest = list(range(EXPLAIN_C1, len(items)))
+    random.Random(args.seed + 17).shuffle(rest)
+    order = list(range(EXPLAIN_C1)) + rest
+    before = _explain_state(srv, ctx)
+    cpu = [(proc_cpu_s(srv.proc.pid), time.process_time())]
+    c1 = drive_explain(srv.port, [items[i] for i in order[:EXPLAIN_C1]], 1)
+    cpu.append((proc_cpu_s(srv.proc.pid), time.process_time()))
+    cn = drive_explain(srv.port, [items[i] for i in order[EXPLAIN_C1:]], EXPLAIN_CONC)
+    cpu.append((proc_cpu_s(srv.proc.pid), time.process_time()))
+    after = _explain_state(srv, ctx)
+    if c1[4] or cn[4]:
+        fail(f"explain: client errors {(c1[4] + cn[4])[:3]}")
+    docs, hdrs = c1[2] + cn[2], c1[3] + cn[3]
+    problems = []
+    flips, not_device, bad_det, injected, gates = [], [], [], [], {}
+    for k, i in enumerate(order):
+        path, doc, want = items[i][0], docs[k], expected[i]
+        expl = doc.get("explanation")
+        if expl is None:
+            problems.append(f"an explain answer without an explanation: {json.dumps(doc)[:300]}")
+            break
+        if path == "/v1/authorize":
+            st = doc["status"]
+            if st in (INJECTED_ERROR, INJECTED_DENY):
+                injected.append(i)
+            if canon({"status": st}) != want:
+                flips.append((i, want, st))
+            # an allow or a deny names its policies in the reason
+            ids = [json.loads(r)["policy"] for r in want["reason"]] if want["reason"] else []
+            permit = None
+            decided = st["allowed"] or st["denied"]
+        else:
+            resp = doc["response"]
+            if adm_key(resp) != adm_key(want):
+                flips.append((i, want, resp))
+            # a deny names its policies in the message; an allowed review
+            # names none, and a permit decided it
+            msg = resp["status"]["message"]
+            ids = [r["policy"] for r in json.loads(msg)] if msg.startswith("[{") else []
+            permit = bool(resp["allowed"])
+            decided = permit or bool(ids)
+        src = expl["source"]
+        if src == "gate":
+            label = expl.get("shortCircuit")
+            gates[label] = gates.get(label, 0) + 1
+            if label == "explain-error" and not handler_error(path, want):
+                # only a body the bare handler also answers with its error
+                # may explain as one: any other is a failed device explain
+                not_device.append((i, label))
+            continue
+        if src != "device":
+            not_device.append((i, src))
+            continue
+        det = expl.get("determining")
+        if decided and (det is None or (det["effect"] != "permit" if permit
+                                        else det["policyId"] not in ids)):
+            bad_det.append((i, det and det["policyId"], ids))
+    for i, w, g in flips[:3]:
+        print(f"explain flip: {items[i][0]} expected {json.dumps(w)}, got {json.dumps(g)}",
+              flush=True)
+    if flips:
+        problems.append(f"{len(flips)} flips against the interpreter")
+    if not_device:
+        problems.append(f"{len(not_device)} answers not from the device with the breakers "
+                        f"closed, first {not_device[:3]}")
+    if bad_det:
+        problems.append(f"{len(bad_det)} determining policies outside the interpreter's "
+                        f"reasons, first {bad_det[:3]}")
+    if injected:
+        problems.append(f"{len(injected)} explain answers carry the injector's answer")
+    for key in ("cache", "launches", "injections", "requests", "trace_lines"):
+        if after[key] != before[key]:
+            problems.append(f"{key} moved across the window: {before[key]} -> {after[key]}")
+    if set(after["breakers"].values()) != {"closed"}:
+        problems.append(f"breakers {after['breakers']}")
+    ids = [h["X-Cedar-Trace-Id"] for h in hdrs]
+    if after["audit"] != before["audit"] or any(rid in after["audit"] for rid in ids):
+        problems.append("the audit log changed in the explain window")
+    conn = http.client.HTTPConnection("127.0.0.1", srv.mport, timeout=60)
+    kept = []
+    try:
+        for rid in ids:
+            conn.request("GET", f"/debug/traces/{rid}")
+            resp = conn.getresponse()
+            resp.read()
+            if resp.status != 404:
+                kept.append(rid)
+    finally:
+        conn.close()
+    if kept:
+        problems.append(f"{len(kept)} explain requests have a kept trace, first {kept[:2]}")
+    new = sorted(after["files"] - before["files"])
+    recorded = []
+    for name in new:
+        with open(os.path.join(ctx["rec_dir"], name), "rb") as f:
+            recorded.append(f.read())
+    if sorted(recorded) != sorted(b for _p, b in items):
+        problems.append(f"{len(new)} new recorder files for {len(items)} explain bodies, "
+                        "not one per body")
+    sent = {"authorization": len(sars), "admission": len(adm)}
+    got = {p: after["explain"].get(p, 0.0) - before["explain"].get(p, 0.0) for p in sent}
+    if got != sent:
+        problems.append(f"cedar_explain_requests_total moved {got}, {sent} sent")
+    if after["compiles"]:
+        problems.append(f"cedar_explain_compiles_total is {after['compiles']:g}, want 0")
+    launches = {k: after["launches"][k] - before["launches"][k] for k in after["launches"]}
+    for k, (label, (wall, lat, *_x)) in enumerate((("c=1", c1), (f"c={EXPLAIN_CONC}", cn))):
+        srv_cpu, own_cpu = (cpu[k + 1][j] - cpu[k][j] for j in (0, 1))
+        print(f"explain {label} ({card}): {len(lat)} requests, {len(lat) / wall:.1f} requests/s, "
+              f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms; server CPU "
+              f"{srv_cpu / len(lat) * 1e3:.3f} ms per request ({srv_cpu / wall:.2f} cores busy), "
+              f"client CPU {own_cpu / len(lat) * 1e3:.3f} ms per request", flush=True)
+    print(f"explain answers: {len(items)} ({len(sars)} SARs, {len(adm)} reviews), flips "
+          f"{len(flips)}, gates {json.dumps(gates)}, new recorder files {len(new)}, explain "
+          f"requests {json.dumps(got)}, compiles {after['compiles']:g}, launches "
+          f"{json.dumps(launches)}, cache {json.dumps(after['cache'])}", flush=True)
+    if problems:
+        fail("explain: " + "; ".join(problems))
+    explain_beside_serving(card, srv, ctx["fresh"], items)
+    print(f"explain phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return {"launches": launches}
+
+
+def explain_beside_serving(card: str, srv, fresh: list, items: list) -> None:
+    """Whether an operator's explain session slows serving: bare SARs on
+    keys the cache never saw (misses: the device path) at c=1, then at
+    c=64, once alone and once beside an explain loop over ``items`` at
+    EXPLAIN_CONC, each window on its own fresh bodies. Prints serving
+    p50 / p99 in both and the explain rate beside; a client error fails.
+    The injector stays on: a few answers are its own."""
+    per = BESIDE_C1 + BESIDE_C64
+    rows = []
+    for k, beside in enumerate((False, True)):
+        part = fresh[k * per:(k + 1) * per]
+        stop, done, errors = threading.Event(), [0] * EXPLAIN_CONC, []
+
+        def loop(j):
+            clients = {p: Client(srv.port, p + "?explain=1", whole=True)
+                       for p in ("/v1/authorize", "/v1/admit")}
+            try:
+                i = j
+                while not stop.is_set():
+                    path, body = items[i % len(items)]
+                    clients[path].post(body)
+                    done[j] += 1
+                    i += EXPLAIN_CONC
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(repr(e))
+            finally:
+                for c in clients.values():
+                    c.close()
+
+        threads = [threading.Thread(target=loop, args=(j,))
+                   for j in range(EXPLAIN_CONC if beside else 0)]
+        for th in threads:
+            th.start()
+        t0 = time.perf_counter()
+        w1 = drive(srv.port, part[:BESIDE_C1], 1)
+        w64 = drive(srv.port, part[BESIDE_C1:], 64)
+        wall = time.perf_counter() - t0
+        stop.set()
+        for th in threads:
+            th.join(timeout=120)
+        if w1[3] or w64[3] or errors or any(th.is_alive() for th in threads):
+            fail(f"explain beside serving: client errors {(w1[3] + w64[3] + errors)[:3]}")
+        rows.append((beside, w1, w64, sum(done) / wall))
+    for beside, w1, w64, rate in rows:
+        what = (f"beside explain at c={EXPLAIN_CONC} ({rate:.1f} explain requests/s)"
+                if beside else "alone")
+        print(f"serving {what} ({card}): misses at c=1 p50 {pct(w1[1], 50) * 1e3:.3f} ms, "
+              f"p99 {pct(w1[1], 99) * 1e3:.3f} ms; at c=64 {len(w64[1]) / w64[0]:.1f} "
+              f"requests/s, p50 {pct(w64[1], 50) * 1e3:.3f} ms, p99 "
+              f"{pct(w64[1], 99) * 1e3:.3f} ms", flush=True)
+
+
+def explain_threads(card: str, engine, bodies: list, n: int = 64) -> None:
+    """Explain at concurrency in this process, with no HTTP layer: ``n``
+    explain_authorize calls (and the answer's json.dumps) on an Explainer
+    over ``engine``, from 1 thread, from EXPLAIN_CONC threads, from
+    EXPLAIN_CONC threads with the interpreter's switch interval cut from
+    5 ms to 0.5 ms, with one explain at a time (a lock around each call)
+    and with one bits fetch at a time (a lock around the fetch, its wait
+    counted in the fetch). Prints for each the requests/s, this process's CPU
+    per request and the host time per request in encode, the bits fetch
+    and build_explanation (summed over threads); then one more burst at
+    EXPLAIN_CONC under torch.profiler: the CUDA runtime calls' host time
+    per request and the card's busy share of the burst."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cedar_tpu_torch.explain import explainer as ex_mod
+    from cedar_tpu_torch.explain.plane import ExplainPlane
+
+    exp = ex_mod.Explainer(authz_engine=engine)
+    spent, lock = {}, threading.Lock()
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with lock:
+                    spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    orig = (ex_mod.encode_single, ExplainPlane.explain_row, ex_mod.build_explanation)
+    serial, one_fetch = threading.Lock(), [False]
+
+    def bits_fetch(*a, **kw):
+        if not one_fetch[0]:
+            return orig[1](*a, **kw)
+        with serial:
+            return orig[1](*a, **kw)
+
+    def burst(threads: int, one_explain: bool = False) -> dict:
+        spent.clear()
+        next_i = [0]
+
+        def explain(body):
+            return json.dumps(exp.explain_authorize(body)[3])
+
+        def worker():
+            while True:
+                with lock:
+                    i = next_i[0]
+                    next_i[0] += 1
+                if i >= n:
+                    return
+                if one_explain:
+                    with serial:
+                        explain(bodies[i % len(bodies)])
+                else:
+                    explain(bodies[i % len(bodies)])
+
+        ths = [threading.Thread(target=worker) for _ in range(threads)]
+        c0, t0 = time.process_time(), time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join()
+        wall, cpu_s = time.perf_counter() - t0, time.process_time() - c0
+        return {"requests/s": round(n / wall, 1), "cpu ms/request": round(cpu_s / n * 1e3, 3),
+                "wall s": wall,
+                **{f"{k} ms/request": round(spent.get(k, 0.0) / n * 1e3, 3)
+                   for k in ("encode", "bits", "build")}}
+
+    ex_mod.encode_single = timed("encode", orig[0])
+    ExplainPlane.explain_row = timed("bits", bits_fetch)
+    ex_mod.build_explanation = timed("build", orig[2])
+    switch = sys.getswitchinterval()
+    try:
+        for body in bodies[:10]:
+            exp.explain_authorize(body)
+        rows = {"1 thread": burst(1), f"{EXPLAIN_CONC} threads": burst(EXPLAIN_CONC)}
+        sys.setswitchinterval(0.0005)
+        rows[f"{EXPLAIN_CONC} threads, switch 0.5 ms"] = burst(EXPLAIN_CONC)
+        sys.setswitchinterval(switch)
+        rows[f"{EXPLAIN_CONC} threads, one explain at a time"] = burst(EXPLAIN_CONC, True)
+        one_fetch[0] = True
+        rows[f"{EXPLAIN_CONC} threads, one bits fetch at a time"] = burst(EXPLAIN_CONC)
+        one_fetch[0] = False
+        try:  # every thread's ops, where this torch can
+            from torch._C._profiler import _ExperimentalConfig
+
+            extra = {"experimental_config": _ExperimentalConfig(profile_all_threads=True)}
+        except (ImportError, TypeError):
+            extra = {}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **extra) as prof:
+            row = burst(EXPLAIN_CONC)
+    finally:
+        sys.setswitchinterval(switch)
+        ex_mod.encode_single, ExplainPlane.explain_row, ex_mod.build_explanation = orig
+    for label, r in rows.items():
+        r.pop("wall s")
+        print(f"explain in-process, {label} ({card}): {json.dumps(r)}", flush=True)
+    events, device_us = prof.key_averages(), 0.0
+    for ev in events:
+        dev = getattr(ev, "self_device_time_total", None)
+        device_us += dev if dev is not None else getattr(ev, "self_cuda_time_total", 0.0)
+
+    def top(prefix: str, k: int) -> dict:
+        # {name: [calls per request, host ms per request]}, by host time
+        evs = sorted((ev for ev in events if ev.key.startswith(prefix)),
+                     key=lambda ev: -ev.cpu_time_total)[:k]
+        return {ev.key: [round(ev.count / n, 2), round(ev.cpu_time_total / 1e3 / n, 4)]
+                for ev in evs}
+
+    print(f"explain in-process profile, {EXPLAIN_CONC} threads ({card}): {row['requests/s']} "
+          f"requests/s, card busy {device_us / 1e6 / row['wall s']:.4f} of the burst; "
+          f"[calls, host ms] per request: aten {json.dumps(top('aten::', 6))}, CUDA runtime "
+          f"{json.dumps(top('cuda', 4))}", flush=True)
+
+
+def explain_split(card: str, engine, bodies: list, reps: int = 50) -> None:
+    """One c=1 explain request split in this process on ``engine``:
+    encode (the Python encoder into the engine's arrays), the bits fetch
+    (CUDA events around ExplainPlane.explain_row, which also returns its
+    host time) and build_explanation with its bitset decode; medians
+    over ``reps`` requests after 10 warm ones."""
+    import torch
+
+    from cedar_tpu_torch.explain.attribution import build_explanation, sat_from_bits
+    from cedar_tpu_torch.explain.plane import ExplainPlane, encode_single
+    from cedar_tpu_torch.server.authorizer import record_to_cedar_resource
+    from cedar_tpu_torch.server.sar import get_authorizer_attributes
+
+    cs = engine.compiled_set
+    plane = ExplainPlane(engine)
+    split = {"encode": [], "bits (device)": [], "bits (host)": [], "build_explanation": []}
+    sources = set()
+    for k in range(reps + 10):
+        body = bodies[k % len(bodies)]
+        ent, req = record_to_cedar_resource(get_authorizer_attributes(json.loads(body)))
+        t0 = time.perf_counter()
+        codes, extras = encode_single(engine, cs, ent, req)
+        t1 = time.perf_counter()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        bits = plane.explain_row(codes, extras, cs=cs)
+        e1.record()
+        t2 = time.perf_counter()
+        sat = sat_from_bits(cs.packed, bits[0])
+        _d, _diag, expl = build_explanation(cs.packed, sat, ent, req, source="device")
+        t3 = time.perf_counter()
+        e1.synchronize()
+        sources.add(expl["source"])
+        if k >= 10:
+            split["encode"].append((t1 - t0) * 1e3)
+            split["bits (device)"].append(e0.elapsed_time(e1))
+            split["bits (host)"].append((t2 - t1) * 1e3)
+            split["build_explanation"].append((t3 - t2) * 1e3)
+    print(f"explain split of a c=1 request ({card}), median ms over {reps} on L={cs.L} "
+          f"R={cs.R}: " + json.dumps({k: round(float(np.median(v)), 4) for k, v in split.items()}),
+          flush=True)
+    if sources != {"device"}:
+        fail(f"explain split: sources {sources}")
 
 
 # phase 16's flags (both servers), beside phase 12's serving flags; the

@@ -900,3 +900,82 @@ def test_tuner_grows_a_card_batcher_to_its_warmed_clamp(cuda):
     assert batcher.backlog() == 0
     assert 64 < batcher.debug_stats()["largest_batch"] <= 4096
     assert max(gpu.engine.staging_stats()["buckets"]) <= 4096
+
+
+# the explain plane's test policies (tests/test_torch_explain.py): two
+# overlapping pods permits, a forbid, an admission forbid on a label, and
+# an interpreter-fallback permit of every pods SAR
+EXPLAIN_POLICIES = """
+permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
+  when { principal.name == "alice" && resource.resource == "pods" };
+forbid (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
+  when { principal.name == "carol" && resource.resource == "secrets" };
+permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
+  when { resource.resource == "pods" };
+forbid (principal is k8s::User, action == k8s::admission::Action::"create",
+        resource is core::v1::ConfigMap)
+  when { resource.metadata has labels &&
+         resource.metadata.labels.contains({key: "env", value: "prod"}) };
+""" + "permit (principal, action, resource) when { " + " && ".join(
+    f'(resource.resource == "pods" || resource.name == "z{i}")' for i in range(12)) + " };"
+
+
+@pytest.mark.cuda
+def test_explain_on_card_equals_cpu(cuda):
+    """256 SARs and 128 AdmissionReviews explained by a card engine and by
+    a CPU engine over the same stacks: equal answers and explanations,
+    the card's labelled ``device`` (or the gate it met); the explain plane
+    is the plain bits product, so the served launch counts of both
+    kernels do not move."""
+    import json
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.explain import Explainer
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.admission import (
+        CedarAdmissionHandler,
+        allow_all_admission_policy_store,
+    )
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    src = EXPLAIN_POLICIES + chip_smoke.ADM_POLICIES + chip_smoke.ADM_FALLBACK_POLICY
+    stores = TieredPolicyStores([MemoryStore("explain", PolicySet.from_source(src, "explain"))])
+    adm_stores = TieredPolicyStores(list(stores.stores) + [allow_all_admission_policy_store()])
+    explainers = []
+    for device in ("cuda", "cpu"):
+        engine = TorchPolicyEngine(device=device, name="authorization")
+        engine.load([s.policy_set() for s in stores], max_batch=1)
+        adm = TorchPolicyEngine(device=device, name="admission")
+        adm.load([s.policy_set() for s in adm_stores], max_batch=1)
+        explainers.append(Explainer(
+            authorizer=CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch),
+            admission_handler=CedarAdmissionHandler(adm_stores, evaluate_batch=adm.evaluate_batch),
+            authz_engine=engine, admission_engine=adm))
+    users, resources = ["alice", "bob", "carol", "dave"], ["pods", "secrets", "services", "nodes"]
+    sars = [json.dumps({"apiVersion": "authorization.k8s.io/v1", "kind": "SubjectAccessReview",
+                        "spec": {"user": users[i % 4], "groups": [],
+                                 "resourceAttributes": {"verb": ("get", "list")[i // 128],
+                                                        "resource": resources[(i // 4) % 4],
+                                                        "namespace": f"ns-{i % 7}",
+                                                        "name": f"z{i % 13}"}}}).encode()
+            for i in range(256)]
+    reviews = chip_smoke.admission_bodies(128, 23)
+    before = cuda_match.launch_counts()
+    sources = {}
+    for path, bodies in (("authorize", sars), ("admit", reviews)):
+        for body in bodies:
+            if path == "authorize":
+                got, want = (list(e.explain_authorize(body)) for e in explainers)
+            else:
+                (rg, eg), (rw, ew) = (e.explain_admit(body) for e in explainers)
+                got, want = [rg.to_admission_review(), eg], [rw.to_admission_review(), ew]
+            assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True), body
+            sources[got[-1]["source"]] = sources.get(got[-1]["source"], 0) + 1
+    assert set(sources) <= {"device", "gate"} and sources["device"] > 300, sources
+    assert cuda_match.launch_counts() == before
