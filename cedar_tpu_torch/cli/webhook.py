@@ -94,9 +94,22 @@ rebuild then warms each engine up to ``max(--max-batch,
 --tuner-max-batch)`` (at most 32768 rows), so no batch the tuner grows to
 meets a cold bucket. ``/debug/load`` serves both.
 
+Shadow rollout, with the JAX CLI's flags and defaults: with the device
+backend a RolloutController (rollout/) stands beside both engines.
+``--rollout-candidate-dir`` stages a candidate directory at start; ``POST
+/rollout/stage|promote|rollback`` on the metrics port drive the lifecycle
+(``{"crd": true}`` stages the CRD stores' candidate-labelled objects) and
+answer 403 unless ``--rollout-control-token-file`` (then as a bearer
+token; an empty file refuses to start) or ``--rollout-insecure-control``
+is given. The shadow worker evaluates ``--shadow-sample-rate`` of the live
+answers on the candidate engines through a queue of
+``--shadow-queue-depth`` at a duty cycle of ``--shadow-duty-cycle``, under
+the supervisor as ``shadow.worker``; lifecycle steps land in the audit
+log. ``/debug/rollout`` serves its state and diff report.
+
 Flags of the JAX CLI that this port does not serve (fleet, tenancy,
-rollout, lifecycle, partition specs, ...) do not exist here, so argparse
-rejects them.
+lifecycle, partition specs, ...) do not exist here, so argparse rejects
+them.
 """
 
 from __future__ import annotations
@@ -346,6 +359,17 @@ def _register_supervised(supervisor, server) -> None:
             restart=lambda reason, b=batcher: b.revive(force=_force(reason)),
             heartbeat=HeartbeatGroup(lambda b=batcher: b.heartbeats),
         )
+    rollout = server.rollout
+    if rollout is not None:
+        supervisor.register(
+            "shadow.worker",
+            threads=rollout.shadow_worker_threads,
+            restart=lambda reason: rollout.revive_shadow(force=_force(reason)),
+            heartbeat=HeartbeatGroup(rollout.shadow_heartbeats),
+            # a shadow batch launches on the card beside serving and may
+            # wait behind it: the wedge probe gets extra slack
+            wedge_budget_s=max(60.0, 4 * supervisor.wedge_budget_s),
+        )
     for tuner in server.tuners:
         # a dead or wedged tuner restarts (start() is idempotent on a
         # live thread) rather than silently stop tuning
@@ -527,6 +551,64 @@ def _start_tuners(args, server: WebhookServer) -> None:
         server.tuners.append(tuner)
 
 
+def _rollout_control(args) -> tuple:
+    """(control enabled, bearer token or None) of the rollout lifecycle
+    POSTs, as the JAX CLI decides them: a token file's token (an empty one
+    refuses to start), else enabled only with --rollout-insecure-control."""
+    if args.rollout_control_token_file:
+        with open(args.rollout_control_token_file) as f:
+            token = f.read().strip()
+        if not token:
+            raise ValueError(
+                "--rollout-control-token-file is empty: refusing to serve "
+                "unauthenticated rollout control by accident"
+            )
+        return True, token
+    return bool(args.rollout_insecure_control), None
+
+
+def _rollout_controller(args, stores: TieredPolicyStores, engine, admission_engine):
+    """The shadow-rollout controller over both engines (None without
+    engines: promotion swaps compiled sets), with the CRD stores'
+    candidate-labelled objects as its CRD source; stages
+    --rollout-candidate-dir when given (a bad candidate is logged and
+    serving goes on)."""
+    if engine is None:
+        if args.rollout_candidate_dir:
+            log.warning("--rollout-candidate-dir requires --backend device; ignoring")
+        return None
+    from ..rollout import RolloutController
+
+    def _crd_candidates():
+        """Candidate-labelled Policy objects across every CRD store tier
+        (the stores withhold them from live serving)."""
+        out = []
+        for s in stores.stores:
+            candidates = getattr(s, "candidate_objects", None)
+            if candidates is not None:
+                out.extend(candidates())
+        return out
+
+    rollout = RolloutController(
+        authz_engine=engine,
+        admission_engine=admission_engine,
+        sample_rate=args.shadow_sample_rate,
+        queue_depth=args.shadow_queue_depth,
+        duty_cycle=args.shadow_duty_cycle,
+        crd_candidate_provider=_crd_candidates,
+        # compiled as a load is: one at a time, the collector paused
+        compile_context=_collector_paused,
+    )
+    if args.rollout_candidate_dir:
+        try:
+            rollout.stage(directory=args.rollout_candidate_dir)
+            log.info("staged rollout candidate from %s", args.rollout_candidate_dir)
+        except Exception:  # noqa: BLE001 — a bad candidate must not block serving
+            log.exception("failed to stage rollout candidate from %s",
+                          args.rollout_candidate_dir)
+    return rollout
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -547,7 +629,8 @@ def build_server(args) -> WebhookServer:
     when the device is unavailable, the native encoder or the kernels
     cannot be built, or strict validation rejects the initial corpus
     (AnalysisRejected), and refuses --adaptive-batching without the SLO
-    tracker before anything starts (ValueError)."""
+    tracker and an empty --rollout-control-token-file before anything
+    starts (ValueError)."""
     if args.adaptive_batching and args.slo_availability_target <= 0:
         # before any store ticker or worker thread exists: an error here
         # leaks nothing
@@ -556,6 +639,7 @@ def build_server(args) -> WebhookServer:
             "(--slo-availability-target > 0): the burn rate is the "
             "control signal"
         )
+    rollout_control_enabled, rollout_control_token = _rollout_control(args)
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
         certfile = keyfile = None
@@ -669,7 +753,11 @@ def build_server(args) -> WebhookServer:
             admission_fastpath.prepare()
             log.info("native SAR and admission fast paths enabled")
 
+    rollout = _rollout_controller(args, stores, engine, admission_engine)
     obs = _observability(args)
+    if rollout is not None and obs["audit_log"] is not None:
+        # stage / promote / rollback and refusals land in the audit stream
+        rollout.set_audit_sink(obs["audit_log"].record)
     supervisor = None
     if args.supervisor_interval_seconds > 0:
         from ..server.supervisor import Supervisor
@@ -705,6 +793,9 @@ def build_server(args) -> WebhookServer:
         chaos_control_enabled=args.confirm_non_prod_inject_errors,
         decision_cache=_decision_cache(args, stores, engine, "authorization"),
         load=_load_controller(args),
+        rollout=rollout,
+        rollout_control_enabled=rollout_control_enabled,
+        rollout_control_token=rollout_control_token,
         **obs,
     )
     if args.adaptive_batching:
@@ -1105,6 +1196,54 @@ def make_parser() -> argparse.ArgumentParser:
         help="arm a chaos scenario at startup: a built-in name "
         "(kill-decode, device-loss, store-stall, ...) or a scenario JSON "
         "file; requires --confirm-non-prod-inject-errors",
+    )
+
+    rollout = parser.add_argument_group("shadow rollout")
+    rollout.add_argument(
+        "--rollout-candidate-dir",
+        default="",
+        help="stage a candidate policy set from this directory of *.cedar "
+        "files at startup (shadow evaluation starts immediately; promotion "
+        "stays manual via POST /rollout/promote on the metrics port). "
+        "Requires --backend device",
+    )
+    rollout.add_argument(
+        "--shadow-sample-rate",
+        type=float,
+        default=1.0,
+        help="fraction of live traffic shadow-evaluated against the staged "
+        "candidate (0.0-1.0); sampling happens before the queue, so lower "
+        "rates also shrink shadow cost proportionally",
+    )
+    rollout.add_argument(
+        "--shadow-queue-depth",
+        type=int,
+        default=1024,
+        help="bounded shadow-evaluation queue; full-queue offers are shed "
+        "(cedar_shadow_shed_total) rather than ever delaying live answers",
+    )
+    rollout.add_argument(
+        "--shadow-duty-cycle",
+        type=float,
+        default=0.1,
+        help="max fraction of one core the shadow worker may consume; "
+        "under pressure the queue backs up and sheds so live serving "
+        "never loses cpu to shadow evaluation",
+    )
+    rollout.add_argument(
+        "--rollout-control-token-file",
+        default="",
+        help="file holding a bearer token required by the mutating "
+        "rollout endpoints (POST /rollout/stage|promote|rollback). With "
+        "neither this nor --rollout-insecure-control, those endpoints "
+        "answer 403 — a staged allow-all + promote is a cluster "
+        "authorization takeover, and the metrics listener is plain HTTP",
+    )
+    rollout.add_argument(
+        "--rollout-insecure-control",
+        action="store_true",
+        help="allow UNAUTHENTICATED rollout lifecycle POSTs on the "
+        "metrics listener (trusted-loopback deployments only)",
     )
 
     cache = parser.add_argument_group("decision cache")

@@ -37,6 +37,13 @@ package's). The shard map a compile produced is committed only once its
 set is published, so a load that fails after its compile (placement,
 warm-up, a load hook) leaves the map of the plane that serves.
 
+Adoption (``adopt_compiled``): the shadow rollout (rollout/) compiles and
+warms a candidate set on a second engine of the same device and moves it
+into the serving engine at promotion, and the prior set back at rollback,
+with no compile and no warm-up. A set's lazy first-use state (its float
+plane, TMA maps) is built under a lock, since a candidate set is warmed
+on one thread while the shadow worker evaluates through it on another.
+
 Tier semantics mirror the reference's TieredPolicyStores
 (internal/server/store/store.go:25-42): first tier with any explicit
 signal (reasons or errors) wins; the last tier's default applies.
@@ -44,6 +51,7 @@ signal (reasons or errors) wins; the last tier's default applies.
 
 from __future__ import annotations
 
+import atexit
 import itertools
 import logging
 import threading
@@ -99,6 +107,38 @@ BITS_INCALL_MAX = 4096
 # change, device rebuild) gets a fresh id, so shard generations of two
 # structurally different planes are never compared
 _plane_structs = itertools.count(1)
+
+# Daemon threads that may sit inside a CUDA call (the rollout's candidate
+# warm-up, the shadow worker) must not be running when the interpreter
+# finalizes: a thread torn down inside a CUDA call can abort the whole
+# process. atexit runs before that teardown, so it flags shutdown and
+# joins the registered threads; their loops poll warm_shutdown_set().
+_shutdown = threading.Event()
+_live_warm_threads: set = set()
+
+
+def _join_warm_threads_at_exit() -> None:
+    _shutdown.set()
+    for t in list(_live_warm_threads):
+        t.join(timeout=120)
+
+
+atexit.register(_join_warm_threads_at_exit)
+
+
+def track_warm_thread(t: threading.Thread) -> None:
+    """Register a thread that may be inside a CUDA call at interpreter
+    teardown with the atexit join above. Its loop must poll
+    warm_shutdown_set() (warmup() does between buckets) so the join ends."""
+    _live_warm_threads.add(t)
+
+
+def untrack_warm_thread(t: threading.Thread) -> None:
+    _live_warm_threads.discard(t)
+
+
+def warm_shutdown_set() -> bool:
+    return _shutdown.is_set()
 
 
 @dataclass
@@ -405,6 +445,9 @@ class _CompiledSet:
         self.act_rows_dev = torch.from_numpy(act_rows).to(dev)
         self.plane_maps: dict = {}
         self._W_f32: Optional[torch.Tensor] = None
+        # guards the float plane's first build: two threads (a candidate's
+        # warm-up and the shadow worker) may reach it at once
+        self._lazy_lock = threading.Lock()
         # shard lineage (PlaneState), set by the engine before it publishes
         self.plane: Optional[PlaneState] = None
         # host state that lives and dies with this set, keyed by its
@@ -425,9 +468,13 @@ class _CompiledSet:
         use): the plane the diagnostics bitsets are scored on (the
         in-launch compaction and match_bits_arrays), so no call converts
         the whole int8 plane again. Four bytes per cell on the device."""
-        if self._W_f32 is None:
-            self._W_f32 = self.Wt_dev.to(torch.float32).t()
-        return self._W_f32
+        w = self._W_f32
+        if w is None:
+            with self._lazy_lock:
+                w = self._W_f32
+                if w is None:
+                    w = self._W_f32 = self.Wt_dev.to(torch.float32).t()
+        return w
 
     @property
     def device_bytes(self) -> int:
@@ -730,7 +777,8 @@ class TorchPolicyEngine:
                 }
                 return dict(self.last_rebuild)
 
-    def warmup(self, max_batch: int = 1, cs: Optional[_CompiledSet] = None) -> dict:
+    def warmup(self, max_batch: int = 1, cs: Optional[_CompiledSet] = None,
+               should_continue=None) -> dict:
         """Take every device path of a compiled set (``cs``, else the
         serving one) once per batch bucket up to max_batch's, on
         all-padding rows (they activate nothing): the words launch, the
@@ -741,28 +789,78 @@ class TorchPolicyEngine:
         and its kernels per shape, the set's float plane W_f32 and TMA
         maps, each bucket's staging buffers). Its launches count into
         ``warmup_launches``, not into the served launch counts; returns
-        this call's."""
+        this call's.
+
+        ``should_continue``: an optional () -> bool polled before each
+        bucket; False stops the warm-up there (the rollout's candidate
+        warm-up passes whether its candidate is still the staged one), as
+        does interpreter shutdown. ``warm_buckets`` then lists the buckets
+        visited."""
         cs = cs or self._compiled
         if cs is None:
             raise RuntimeError("TorchPolicyEngine: no policy set loaded")
         launches = dict.fromkeys(cuda_match.LAUNCHES, 0)
+        visited = []
         with cuda_match.counting_into(launches):
             S = cs.packed.table.n_slots if cs.packed is not None else 1
             top = _round_bucket(min(max(max_batch, 1), _PIPELINE_SB), _BATCH_BUCKETS)
-            buckets = tuple(b for b in _BATCH_BUCKETS if b <= top)
-            for B in buckets:
+            for B in (b for b in _BATCH_BUCKETS if b <= top):
+                if _shutdown.is_set() or (
+                    should_continue is not None and not should_continue()
+                ):
+                    break
+                visited.append(B)
                 codes = np.zeros((B, S), dtype=np.int32)
                 extras = np.full((B, 1), cs.L, dtype=np.int32)
                 self.match_arrays(codes, extras, cs=cs)
                 self.match_arrays(codes, extras, want_full=True, cs=cs)
                 if B <= BITS_INCALL_MAX:
                     self.match_arrays_launch(codes, extras, cs=cs, want_bits=True, valid_rows=B)()
-            self.match_bits_arrays(codes[:1], extras[:1], cs=cs)
+            if visited:
+                self.match_bits_arrays(codes[:1], extras[:1], cs=cs)
         with self._lock:
             for k, n in launches.items():
                 self.warmup_launches[k] = self.warmup_launches.get(k, 0) + n
-            self.warm_buckets = buckets
+            self.warm_buckets = tuple(visited)
         return launches
+
+    def adopt_compiled(self, compiled: _CompiledSet, donor=None) -> tuple:
+        """Swap in a set compiled and warmed elsewhere: the rollout's
+        promotion and rollback primitive (the JAX package's adopt_compiled,
+        without its mesh branch). Nothing is compiled or warmed: the
+        candidate engine that built ``compiled`` on this device warmed it
+        to this engine's top bucket. The set passes through this engine's
+        ``load_hooks`` first, as a loaded set does after its warm-up (a
+        fast path builds the set's native encoder there, so the first
+        request after the swap builds nothing), then is published under
+        the load lock with ``load_generation`` bumped (the decision cache's
+        generation follows the set's plane). ``donor`` is the JAX
+        package's parameter, which carries mesh steps there; the port has
+        no mesh and reads nothing of it. Returns (prior set, new
+        load_generation); the prior set stays on the device, so adopting
+        it back later (rollback) is free too. A hook that raises fails the
+        adoption: the serving set stays."""
+        if compiled is None:
+            raise ValueError("adopt_compiled: compiled set required")
+        if compiled.device != self.device:
+            raise ValueError(
+                f"adopt_compiled: the set lives on {compiled.device}, this engine "
+                f"serves on {self.device}"
+            )
+        with self._load_lock:
+            for hook in self.load_hooks:
+                hook(compiled)
+            with self._lock:
+                prior = self._compiled
+                self._compiled = compiled
+                self.load_generation += 1
+                generation = self.load_generation
+            pl = compiled.plane
+            # how the plane arrived here (/debug/engine); the shard lineage
+            # rides the set, and the next load continues it only while the
+            # set this engine's own last load published serves (_next_plane)
+            self.last_adoption_scope = pl.scope if pl is not None else "adopted"
+        return prior, generation
 
     @property
     def loaded(self) -> bool:

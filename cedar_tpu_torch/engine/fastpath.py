@@ -214,6 +214,9 @@ class _RawFastPath:
         # carried, since construction (_note_packed)
         self.packed_transfers = 0
         self.packed_chunks = 0
+        # native encoders this fast path built (one per compiled set it met:
+        # a load's or an adoption's hook, else the set's first batch)
+        self.encoder_builds = 0
 
     def _current_snapshot(self) -> _Snapshot:
         """The snapshot for the engine's current compiled set. Raises when
@@ -243,6 +246,7 @@ class _RawFastPath:
                         )
                     state = (NativeEncoder.create(cs.packed), {}, {})
                     cs.host_state[key] = state
+                    self.encoder_builds += 1
         return _Snapshot(state[0], cs, state[1], state[2])
 
     def prepare(self) -> None:

@@ -231,7 +231,10 @@ def host_sat(
     """Per-rule satisfaction vector [n_rules] bool, computed ON HOST from
     the Python encoder's (codes, extras) for one request: the numpy twin
     of the device bits product (same activation table, same W/thresh), so
-    the attribution is byte-equal to what the bits plane would report."""
+    the attribution is byte-equal to what the bits plane would report.
+    Only the request's active literals (a handful of the L) contribute to
+    ``lit @ W``, so the product sums just their rows of W: the same
+    integers, without converting the whole [L, R] plane per call."""
     L = packed.L
     rows = packed.table.rows  # [V, L] uint8
     lit = np.zeros((L,), dtype=np.int32)
@@ -243,7 +246,8 @@ def host_sat(
         e = int(e)
         if 0 <= e < L:
             lit[e] = 1
-    scores = lit @ packed.W.astype(np.int32)  # [R]
+    active = np.nonzero(lit)[0]
+    scores = lit[active] @ packed.W[active].astype(np.int32)  # [R]
     sat = scores.astype(np.float64) >= packed.thresh
     return sat[: packed.n_rules]
 
@@ -312,12 +316,17 @@ def fallback_outcomes(
 
 def _clause_counts(packed: PackedPolicySet) -> dict:
     """{(pm_idx, group): clause count} in ONE rule_clause pass — the
-    "clause N of M" denominators, computed once per explanation instead
-    of an O(R) rescan per winning-policy doc."""
-    counts: dict = {}
-    for rc in packed.rule_clause:
-        key = (rc.pm_idx, rc.group)
-        counts[key] = counts.get(key, 0) + 1
+    "clause N of M" denominators. Computed once per pack (the pack never
+    changes once built) and kept on it: a walk over every rule clause,
+    milliseconds at 10k policies, is otherwise paid by every explanation
+    (and by every shadow diff the rollout attributes)."""
+    counts = getattr(packed, "_clause_counts", None)
+    if counts is None:
+        counts = {}
+        for rc in packed.rule_clause:
+            key = (rc.pm_idx, rc.group)
+            counts[key] = counts.get(key, 0) + 1
+        packed._clause_counts = counts  # lives and dies with the pack
     return counts
 
 

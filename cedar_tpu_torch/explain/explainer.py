@@ -17,6 +17,12 @@ answered. Three planes, chosen per path:
   * INTERPRETER: no compiled set at all (``--backend interpreter``):
     per-tier interpreter walk; policy-level attribution, no clause tests.
 
+A path without an engine may be given a host-side pack instead
+(``authz_packed`` / ``admission_packed``, a compiler/pack.py
+PackedPolicySet): it then explains on the host plane with clause tests and
+no device at all, which is how cedar-why (cli/why.py) explains recordings
+offline.
+
 Every plane merges interpreter-fallback policy verdicts as the serving
 engine's host tier walk does, so the explained decision and reason bytes
 match what the non-explain path answers for the same request.
@@ -93,12 +99,15 @@ class Explainer:
         admission_engine=None,
         authz_breaker=None,
         admission_breaker=None,
+        authz_packed=None,
+        admission_packed=None,
     ):
         self.authorizer = authorizer
         self.admission_handler = admission_handler
+        # (engine, breaker, host pack used when the engine holds no set)
         self._engines = {
-            "authorization": (authz_engine, authz_breaker),
-            "admission": (admission_engine, admission_breaker),
+            "authorization": (authz_engine, authz_breaker, authz_packed),
+            "admission": (admission_engine, admission_breaker, admission_packed),
         }
         self._planes: dict = {}
 
@@ -124,7 +133,7 @@ class Explainer:
     ) -> Tuple[str, Diagnostics, dict]:
         """(cedar decision, Diagnostics, explanation) through the best
         available plane for ``path``."""
-        engine, breaker = self._engines[path]
+        engine, breaker, packed_override = self._engines[path]
         cs = engine._compiled if engine is not None else None
         if cs is not None and (breaker is None or breaker.allow()):
             # a failure here raises to the caller's explain-error answer:
@@ -135,7 +144,7 @@ class Explainer:
             return build_explanation(
                 cs.packed, sat, entities, request, source=SOURCE_DEVICE
             )
-        packed = cs.packed if cs is not None else None
+        packed = cs.packed if cs is not None else packed_override
         if packed is not None:
             from ..compiler.table import encode_request_codes
 
@@ -279,8 +288,8 @@ class DiffAttributor:
     work beside the serving engine's; engines without a compiled set fall
     back to the interpreter walk over the candidate's store tiers. The
     candidate is duck-typed (``authz_engine``, ``tiers``,
-    ``admission_engine``, ``admission_handler``); the port has no rollout
-    controller yet to hand it one."""
+    ``admission_engine``, ``admission_handler``): the rollout controller's
+    staged candidate, or cedar-shadow's offline stacks."""
 
     def __init__(
         self,

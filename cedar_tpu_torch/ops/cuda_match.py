@@ -292,7 +292,9 @@ def _plane_map(lib, W: torch.Tensor, bn: int, maps) -> ctypes.Array:
             why = "libcuda.so.1 has no cuTensorMapEncodeTiled" if rc == -1 else f"CUresult {rc}"
             raise RuntimeError(f"TMA map of the [{R}, {L}] int8 plane failed: {why}")
         if maps is not None:
-            maps[key] = m
+            # two threads may encode the same map at once (a candidate's
+            # warm-up and the shadow worker): both keep the first stored
+            m = maps.setdefault(key, m)
     return m
 
 

@@ -29,7 +29,17 @@ reference's internal/server/server.go + health.go), for two entry points:
     ``/debug/slo`` (the SLO tracker's burn rates); and the game-day control
     ``POST /chaos/{configure,arm,disarm,reset}``, which answers 403
     unless the server was built with ``chaos_control_enabled`` (the CLI's
-    ``--confirm-non-prod-inject-errors``).
+    ``--confirm-non-prod-inject-errors``);
+  * with a rollout controller (rollout/, ``rollout``): ``GET
+    /debug/rollout`` (its status and diff report) and ``POST
+    /rollout/{stage,promote,rollback}``, which answer 403 unless
+    ``rollout_control_enabled`` and, when ``rollout_control_token`` is
+    set, need ``Authorization: Bearer <token>``; a refused lifecycle step
+    answers 409 with the error (and its detail). Every clean live answer
+    of both endpoints (the real one, before the injector) is offered to
+    the controller's shadow evaluator once the stores are ready: a
+    sampling draw and a non-blocking enqueue that never raises into the
+    request.
 
 Requests reach the device through each path's micro-batcher
 (engine/batcher.py, pipelined when ``pipeline_depth`` > 0) in front of its
@@ -123,6 +133,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hmac
 import json
 import logging
 import ssl
@@ -324,8 +335,20 @@ class WebhookServer:
         error_injector: Optional[ErrorInjector] = None,
         recorder=None,
         load=None,
+        rollout=None,
+        rollout_control_enabled: bool = True,
+        rollout_control_token: Optional[str] = None,
     ):
         self.authorizer = authorizer
+        # the shadow-rollout controller (rollout/ RolloutController): live
+        # answers are offered to it, the metrics listener serves
+        # /debug/rollout and the lifecycle POSTs. The POSTs answer 403
+        # unless control is enabled (a staged allow-all and a promote take
+        # over the cluster's authorization, and the metrics listener is
+        # plain HTTP); with a token they need it as a bearer
+        self.rollout = rollout
+        self.rollout_control_enabled = rollout_control_enabled
+        self.rollout_control_token = rollout_control_token
         # the overload-control plane (load/admission.py
         # AdmissionController): every POST is gated at ingress, before the
         # recorder and the trace; None keeps the gate-free path byte for
@@ -676,6 +699,12 @@ class WebhookServer:
                 # the honest shed, the breaker untouched
                 decision, reason, error = DECISION_NO_OPINION, "", str(e)
             if error is None:
+                if self.rollout is not None and self._cache_usable():
+                    # shadow the real answer (before the injector): a
+                    # sampling draw and a non-blocking enqueue. Gated on
+                    # the ready latch: a pre-ready NoOpinion would diff
+                    # against the always-ready candidate as noise
+                    self.rollout.offer("authorize", body, (decision, reason))
                 # after the cache: an injected answer is never cached
                 decision, reason, error = self.error_injector.inject_if_enabled(
                     decision, reason)
@@ -770,6 +799,14 @@ class WebhookServer:
         try:
             return self.authorizer is None or self.authorizer.ready()
         except Exception:  # noqa: BLE001 — unready reads as uncacheable
+            return False
+
+    def _admission_shadowable(self) -> bool:
+        """The admission stores are ready (latched, like _cache_usable):
+        the unready allow is a start-up artifact, not a decision to diff."""
+        try:
+            return self.admission_handler is None or self.admission_handler._ready()
+        except Exception:  # noqa: BLE001 — unready reads as unshadowable
             return False
 
     def _remaining(self, start: float) -> Optional[float]:
@@ -868,6 +905,11 @@ class WebhookServer:
         doc = None
         try:
             doc = self._handle_admit(body, start, priority=priority)
+            if self.rollout is not None and self._admission_shadowable():
+                # the shadow worker skips error and fail-mode answers (code
+                # other than 200), but the pre-ready allow is a clean 200:
+                # gated here
+                self.rollout.offer("admit", body, doc)
             return doc
         finally:
             latency = time.monotonic() - start
@@ -1013,7 +1055,8 @@ class WebhookServer:
     def debug_engine(self) -> dict:
         """The /debug/engine document: per path with a fast path
         (``authorization``, ``admission``), the batcher's pipeline
-        snapshot and the engine's entry; {} without a fast path."""
+        snapshot, the engine's entry, the breaker's state and the native
+        encoders the fast path built; {} without a fast path."""
         doc = {}
         for path, batcher, fast in (
             ("authorization", self._batcher, self.fastpath),
@@ -1025,6 +1068,7 @@ class WebhookServer:
                     "pipeline": batcher.debug_stats(),
                     "engine": _engine_doc(fast.engine),
                     "breaker": None if breaker is None else breaker.state,
+                    "encoder_builds": fast.encoder_builds,
                 }
         return doc
 
@@ -1256,6 +1300,11 @@ class WebhookServer:
                         self._send_json(doc)
                     else:
                         self._debug("trace listing", server.debug_traces)
+                elif self.path == "/debug/rollout":
+                    if server.rollout is None:
+                        self.send_error(404)
+                        return
+                    self._debug("rollout status", server.rollout.status)
                 elif self.path == "/debug/analysis":
                     if server.analysis_provider is None:
                         self.send_error(404)
@@ -1267,14 +1316,104 @@ class WebhookServer:
                 else:
                     self.send_error(404)
 
+            def _body(self):
+                """The POST body, or None after answering 400 / 413."""
+                try:
+                    length = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    self.send_error(400, "bad Content-Length")
+                    return None
+                if length < 0 or length > MAX_BODY_BYTES:
+                    self.send_error(413, "request body too large")
+                    return None
+                return self.rfile.read(length) if length else b""
+
             def do_POST(self):
+                if self.path.startswith("/rollout/"):
+                    self._rollout_control()
+                elif self.path.startswith("/chaos/"):
+                    self._chaos_control()
+                else:
+                    self.send_error(404)
+
+            def _rollout_control(self):
+                """Rollout lifecycle: POST /rollout/stage with
+                {"directory": ...}, {"source": ...} or {"crd": true} (and
+                optionally "description", "warm", "sampleRate"),
+                /rollout/promote with an optional {"force": true},
+                /rollout/rollback. Each answers the controller's status; a
+                refusal answers 409. 403 unless control is enabled, and
+                without the bearer token when one is set."""
+                if server.rollout is None:
+                    self.send_error(404)
+                    return
+                if not server.rollout_control_enabled:
+                    self._send_json(
+                        {"error": "rollout control is disabled on this listener; start "
+                                  "the webhook with --rollout-control-token-file (bearer "
+                                  "auth) or --rollout-insecure-control (docs/rollout.md)"},
+                        403,
+                    )
+                    return
+                if server.rollout_control_token:
+                    auth = self.headers.get("Authorization") or ""
+                    expected = f"Bearer {server.rollout_control_token}"
+                    # bytes compare: compare_digest raises on non-ASCII str,
+                    # and a stray header byte must answer 403
+                    if not hmac.compare_digest(
+                        auth.encode("utf-8", "surrogateescape"),
+                        expected.encode("utf-8", "surrogateescape"),
+                    ):
+                        self._send_json({"error": "missing or invalid bearer token"}, 403)
+                        return
+                raw = self._body()
+                if raw is None:
+                    return
+                try:
+                    doc = json.loads(raw) if raw else {}
+                except (ValueError, TypeError) as e:
+                    self._send_json({"error": f"bad JSON body: {e}"}, 400)
+                    return
+                from ..rollout import RolloutError
+                from ..rollout.source import CandidateSourceError
+
+                try:
+                    if self.path == "/rollout/stage":
+                        out = server.rollout.stage(
+                            directory=doc.get("directory"),
+                            source=doc.get("source"),
+                            crd=bool(doc.get("crd")),
+                            description=doc.get("description", ""),
+                            warm=doc.get("warm", "async"),
+                            sample_rate=doc.get("sampleRate"),
+                        )
+                    elif self.path == "/rollout/promote":
+                        out = server.rollout.promote(force=bool(doc.get("force")))
+                    elif self.path == "/rollout/rollback":
+                        out = server.rollout.rollback()
+                    else:
+                        self.send_error(404)
+                        return
+                except (RolloutError, CandidateSourceError) as e:
+                    # a structured refusal (a refused rollback's lineage
+                    # breakdown) rides the body
+                    body = {"error": str(e)}
+                    detail = getattr(e, "detail", None)
+                    if detail:
+                        body["detail"] = detail
+                    self._send_json(body, 409)
+                    return
+                except Exception as e:  # noqa: BLE001 — report, never crash
+                    log.exception("rollout control %s failed", self.path)
+                    self._send_json({"error": str(e)}, 500)
+                    return
+                self._send_json(out)
+
+            def _chaos_control(self):
                 """Game-day control: POST /chaos/configure with a scenario
                 JSON body, then /chaos/arm; /chaos/disarm stops injection at
                 once; /chaos/reset also drops the scenario. Each answers the
                 registry's stats. 403 without the non-prod gate."""
-                if not self.path.startswith("/chaos/"):
-                    self.send_error(404)
-                    return
                 if not server.chaos_control_enabled:
                     self._send_json(
                         {"error": "chaos control is disabled; start the webhook "
@@ -1282,15 +1421,9 @@ class WebhookServer:
                         403,
                     )
                     return
-                try:
-                    length = int(self.headers.get("Content-Length") or 0)
-                except ValueError:
-                    self.send_error(400, "bad Content-Length")
+                raw = self._body()
+                if raw is None:
                     return
-                if length < 0 or length > MAX_BODY_BYTES:
-                    self.send_error(413, "request body too large")
-                    return
-                raw = self.rfile.read(length) if length else b""
                 registry = default_registry()
                 try:
                     if self.path == "/chaos/configure":
@@ -1381,6 +1514,11 @@ class WebhookServer:
             self.reloader.stop()
         self.stop_batchers()
         self.close_stores()
+        if self.rollout is not None:
+            try:
+                self.rollout.stop()  # the shadow worker
+            except Exception:  # noqa: BLE001 — teardown must finish
+                log.exception("rollout stop failed")
         for closer in (self.tracer, self.audit_log):
             if closer is not None:
                 closer.close()  # the trace log's and the audit log's files

@@ -102,6 +102,13 @@ And so are the explain plane's (explain/), recorded by the server's
     ``cedar_explain_compiles_total`` (in the port: explain calls that
     built the float plane of a set that was never warmed; 0 on a server,
     whose loads all warm).
+
+And the shadow rollout's (rollout/), recorded by the shadow worker and the
+rollout controller:
+
+  * ``cedar_shadow_evaluations_total{path}``,
+    ``cedar_shadow_diffs_total{kind}``, ``cedar_shadow_shed_total{path}``
+    and ``cedar_rollout_generation``.
 """
 
 from __future__ import annotations
@@ -536,6 +543,39 @@ class _ProcessFamilies:
             [],
         )
         self.explain_compiles_total.inc(0)
+        # the shadow rollout's families (rollout/): the JAX names and help
+        self.shadow_evaluations_total = Counter(
+            "cedar_shadow_evaluations_total",
+            "Live requests re-evaluated against the staged candidate policy "
+            "set, partitioned by path (authorization / admission). Compare "
+            "with cedar_authorizer_request_total to see effective shadow "
+            "coverage after sampling and shedding.",
+            ["path"],
+        )
+        self.shadow_diffs_total = Counter(
+            "cedar_shadow_diffs_total",
+            "Shadow evaluations whose candidate answer differed from the live "
+            "answer, partitioned by kind (allow_to_deny / deny_to_allow / "
+            "decision_changed / reason_changed). Any nonzero allow_to_deny "
+            "rate means promotion would break currently-working callers "
+            "(docs/rollout.md).",
+            ["kind"],
+        )
+        self.shadow_shed_total = Counter(
+            "cedar_shadow_shed_total",
+            "Sampled requests dropped because the shadow queue was full, "
+            "partitioned by path. Shadow work is shed first under pressure by "
+            "design; a sustained rate only means the diff report covers a "
+            "smaller sample, never that live traffic slowed.",
+            ["path"],
+        )
+        self.rollout_generation = Gauge(
+            "cedar_rollout_generation",
+            "Monotonic rollout lifecycle counter: bumps on every stage, "
+            "promote, and rollback. Join against decision-latency dashboards "
+            "to correlate policy rollouts with behavior changes.",
+            [],
+        )
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -551,6 +591,8 @@ class _ProcessFamilies:
             self.batch_tuning, self.client_throttled_total,
             self.client_label_overflow_total,
             self.explain_requests_total, self.explain_compiles_total,
+            self.shadow_evaluations_total, self.shadow_diffs_total,
+            self.shadow_shed_total, self.rollout_generation,
         )
 
     def collect(self) -> List[str]:
@@ -716,6 +758,22 @@ def record_explain_request(path: str) -> None:
 def record_explain_compiles(n: int) -> None:
     if n:
         _PROCESS.explain_compiles_total.inc(n)
+
+
+def record_shadow_evaluation(path: str) -> None:
+    _PROCESS.shadow_evaluations_total.inc(path=path)
+
+
+def record_shadow_diff(kind: str) -> None:
+    _PROCESS.shadow_diffs_total.inc(kind=kind)
+
+
+def record_shadow_shed(path: str) -> None:
+    _PROCESS.shadow_shed_total.inc(path=path)
+
+
+def set_rollout_generation(generation: int) -> None:
+    _PROCESS.rollout_generation.set(generation)
 
 
 class WebhookMetrics:

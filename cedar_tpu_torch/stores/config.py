@@ -5,12 +5,15 @@ JAX package's stores/config.py): ParseConfig (YAML/JSON + validation) and
 CedarConfigStores (the ordered store list: directory, CRD and Verified
 Permissions stores, in any tier order), which carry the config's
 validationMode: the CRD store gates each Policy object with it and the
-tiered stores gate every engine load (analysis/loadgate.py).
+tiered stores gate every engine load (analysis/loadgate.py). And
+load_config_stores, which waits for the stores' initial loads, for the
+offline CLIs.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from typing import Optional
 
 from ..apis.v1alpha1 import (
@@ -82,3 +85,19 @@ def cedar_config_stores(
                 )
             )
     return TieredPolicyStores(stores, validation_mode=config.validation_mode)
+
+
+def load_config_stores(config_path: str, timeout_s: float = 30.0) -> TieredPolicyStores:
+    """Parse a StoreConfig file, build its tiered stores and wait for every
+    store's initial load: the offline CLIs' (cedar-shadow, cedar-why) open,
+    parse and poll helper. Raises RuntimeError when the stores are not
+    ready within ``timeout_s``."""
+    with open(config_path) as f:
+        config = parse_config(f.read())
+    stores = cedar_config_stores(config)
+    deadline = time.monotonic() + timeout_s
+    while not all(s.initial_policy_load_complete() for s in stores):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"stores not ready after {timeout_s:.0f}s")
+        time.sleep(0.2)
+    return stores

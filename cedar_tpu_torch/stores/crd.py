@@ -63,7 +63,8 @@ from .quarantine import quarantine_registry
 
 log = logging.getLogger(__name__)
 
-# the shadow-rollout candidate label (the JAX package's rollout/source.py)
+# the shadow-rollout candidate label (rollout/source.py stages the
+# objects that carry it)
 CANDIDATE_LABEL = "cedar.k8s.aws/rollout"
 CANDIDATE_LABEL_VALUE = "candidate"
 

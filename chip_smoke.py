@@ -30,14 +30,17 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies and 32768 more; launch counts reset before and read after each
-     batch ({words 1, groups 0} up to 16384 rows; at 32768 three words
-     launches: chunks of 16384 x 3 + 8192 x 2); routing counts (encoder_fallback held to the CPU
-     test's count at the defaults); staging stats; every answer held
-     against the authorizer path and, in spawned worker processes, the
-     interpreter (0 flips); decisions/s and batch latency at batch 1 /
-     128 / 4096 / 32768 beside the authorizer path's; the encode / device
-     / decode split of a batch-1, a batch-4096 and a batch-32768 answer
+     bodies and 24578 more (20482 new, then the batch-4096 bodies again);
+     launch counts reset before and read after each batch ({words 1,
+     groups 0} up to 16384 rows; at 24578 three words launches: a chunk
+     of 16384, then the 8194-row tail split in two of 4097); routing
+     counts (encoder_fallback held to the CPU test's count at the
+     defaults); staging stats; every answer held against the authorizer
+     path and, in spawned worker processes, the interpreter (0 flips;
+     one interpreter answer per distinct body); decisions/s and batch
+     latency at batch 1 / 128 / 4096 / 24578 beside the authorizer
+     path's; the encode / device / decode split of a batch-1, a
+     batch-4096 and a batch-24578 answer
      (--profile: the device's idle share and top kernels over each). Both kernels held
      against their plain versions on a native-encoded 16384-row chunk.
      Gated sub-phase: the corpus plus an interpreter-fallback and a
@@ -119,10 +122,10 @@ Phases, each a hard failure with a nonzero exit:
      --no-incremental-compile (every reload recompiles in full) and both
      engines. While 32 clients POST
      SARs (phase 8's gated bodies) and 32 POST AdmissionReviews without
-     pause, three edits land, each an atomic swap of the store's directory
+     pause, two edits land, each an atomic swap of the store's directory
      (a symlink re-pointed, as a Kubernetes ConfigMap volume updates): add
-     a forbid file (every watch SAR and every admission delete), edit
-     admission.cedar (its first forbid dropped), revert both. After each,
+     a forbid file (every watch SAR and every admission delete), then edit
+     admission.cedar (its first forbid dropped). After each,
      the phase waits for /debug/engine's load_generation to step on both
      engines (the directory ticker re-reads within 30 s, the reloader
      recompiles in full, warms the new plane on the card and swaps it in).
@@ -132,7 +135,7 @@ Phases, each a hard failure with a nonzero exit:
      a version gets that version's: 0 flips; a deadline expiry counts as
      a flip); each edit changed answers;
      both kernels' served launch counts rise after each swap; no fallback
-     batch; the server's card memory 4 s after the third reload (the
+     batch; the server's card memory 4 s after the second reload (the
      batches in flight at a swap hold the retired plane until they
      answer) no more than one plane above its memory 4 s after the
      first; SIGTERM ends the server
@@ -140,7 +143,7 @@ Phases, each a hard failure with a nonzero exit:
      the swap and the compile seconds by phase (lower, pack, place, warm);
      per endpoint requests/s and p99 in the 5 s before each write and
      while each reload compiles, and the latency of the first request sent
-     after each swap; the server's card memory after reloads 1 and 3
+     after each swap; the server's card memory after reloads 1 and 2
      (nvidia-smi's per-process figure where it lists the server, and the
      server's allocator counts from /debug/engine); the phase's wall time.
      Its server runs with the breaker's trip thresholds and the
@@ -148,14 +151,16 @@ Phases, each a hard failure with a nonzero exit:
      --confirm-non-prod-inject-errors, --breaker-recovery-seconds 2 and
      --supervisor-interval-seconds 0.5, and its chaos registry disarmed.
   11. resilience, on phase 10's server once
-     phase 10's checks passed, its directory back at version 0: 32
+     phase 10's checks passed, its directory at version 2: 32
      clients on /v1/authorize and 32 on /v1/admit without pause through
      four fault windows, each armed over POST /chaos/configure and
      /chaos/arm: (a) non-fatal engine.dispatch errors, disarmed once both
      breakers read open (one seam serves both engines, so a fixed count
      could trip one alone): while a path's breaker is open it forms no
      batch, with both open no kernel launches, the open breaker's answers
-     have a p99 under 50 ms, and both close by their half-open probes;
+     have a p99 below that of the answers served in the 3 s before the
+     fault (printed against 50 ms), and both close by their half-open
+     probes;
      (b) the builtin device-loss scenario, disarmed once both engines'
      DeviceRecovery saw the fatal error: each rebuilds its plane on the
      card once (cedar_device_rebuilds_total 2, one per engine), both
@@ -165,7 +170,7 @@ Phases, each a hard failure with a nonzero exit:
      kill-decode: the supervisor revives the dead decode stage within 2 x
      its interval of the arm; (d) the builtin store-stall: the directory
      store's next re-read stalls and serving goes on with no posture
-     answer. Every answer is the expected one (the oracle's, version 0),
+     answer. Every answer is the expected one (the oracle's, version 2),
      or, for a request in flight during windows a-c, the failure posture
      (NoOpinion + evaluationError, the admission fail-mode with code 500)
      and in window a only until its path's breaker closed. After the
@@ -173,7 +178,12 @@ Phases, each a hard failure with a nonzero exit:
      Prints per window the times to open / close / rebuild / revive,
      requests/s and p99 in the 3 s before, during and the 3 s after, the
      answer counts by kind, the rebuild's phases and the allocator before
-     and after; the phase's resilience metrics and wall time.
+     and after; the phase's resilience metrics and wall time; and the
+     smoke's own collection pauses and, per window, the authorizations
+     the server itself timed over 0.7 s. The smoke's heap
+     is frozen (gc.freeze) before the traffic starts, as at every
+     server's start, so that no collection of this process walks the
+     earlier phases' objects inside a timed window.
 
   12. the CRD store with incremental reloads: a
      standard-library fake apiserver (FakeApiServer: list, watch stream,
@@ -378,6 +388,46 @@ Phases, each a hard failure with a nonzero exit:
      time per request), then 8 threads under torch.profiler
      (the ops' and CUDA runtime calls' count and host time per request,
      the card's busy share).
+  18. the shadow rollout (this slice's main path), on phase 15's server
+     after phase 17 (started with --rollout-control-token-file; the
+     shadow at its defaults: sample rate 1, queue 1024, duty cycle 0.1).
+     A lifecycle POST without the token and with a wrong one answers
+     403, promote when idle 409. Under --only-rollout, the first of four
+     live-cost windows (misses on fresh keys: 400 at c=1, then 2000 at
+     c=64), with no candidate staged. Then the candidate: phase
+     12's objects again as candidate-labelled copies (cand-<name>), the
+     permits of the first 20 synth objects turned forbids, the two
+     interpreter-fallback policies left out (the strict stage gate
+     refuses them) and phase 10's flip file added, applied on
+     FakeApiServer (the store withholds them from live serving); POST
+     /rollout/stage {"crd": true} compiles both candidate engines and
+     they warm up to the live engines' top bucket. The shadow window:
+     768 fresh SARs and 192 reviews in two chunks (SARs at c=12,
+     reviews at c=4), each drained before the next, so nothing sheds:
+     the report's counts per class (and its exemplars' classes) equal
+     those the port's interpreter gives over the live and candidate
+     corpora (the oracle pool), evaluations + skipped = offered, no
+     candidate error, and the shadow worker's candidate launches
+     include match_words_kernel (a strict-gated candidate has no
+     interpreter-fallback policy, so match_groups_kernel runs in its
+     warm-up, not its shadow evaluations). Under --only-rollout, two
+     live-cost windows beside the shadow at its default duty cycle
+     (evaluations + shed + skipped = offered once it drained), the
+     candidate discarded (rollback while staged: 200, idle), the last
+     window alone, and the candidate staged again; the windows' answers
+     are held against the interpreter after the last window, and the
+     medians of the two windows alone and the two beside are printed (a
+     whole run says the cost was not measured). Promote: the next
+     answer and a window of 512 SARs (c=16) and 128 reviews equal the
+     candidate oracle's; no warm-up launch on either live engine, one
+     native encoder built per path, at the adoption. Roll back: the same
+     window equals the live oracle's; nothing built or warmed. Every
+     answer of every window is checked (an injected one apart, counted
+     against the injector's metrics). Prints stage-to-ready and each
+     candidate engine's compile and warm seconds, each swap's POST time and
+     first answer's latency, the launches (served and the shadow's), the
+     server's RSS at the phase's end (its peak over phases 15, 17 and 18
+     is phase 15's line after the SIGTERM) and the phase's wall time.
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
@@ -394,21 +444,25 @@ seconds carry the gate's ``analyze`` phase.
 reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
 ``--only-cache`` phases 1, 2 and 14, ``--only-obs`` phases 1, 2 and 15,
-``--only-load`` phases 1, 2 and 16, and ``--only-explain`` phases 1, 2,
-15 and 17; none prints result lines.
+``--only-load`` phases 1, 2 and 16, ``--only-explain`` phases 1, 2, 15
+and 17, and ``--only-rollout`` phases 1, 2, 15 and 18; none prints
+result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. In the kernels line each kernel carries
 its launches on every path the run drove as ``launches_<path>``, each
 counted from 0 just before that path and read just after (phase 17's
 explain window launches neither kernel by design: ``launches_explain``
-is 0); ``launches`` is their sum. Exits nonzero, printing no result, when
+is 0; ``launches_rollout`` adds the shadow worker's launches on the
+candidate engines to the server's served ones); ``launches`` is their
+sum. Exits nonzero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import http.client
 import json
 import os
@@ -578,7 +632,7 @@ forbid (principal, action == k8s::Action::"deletecollection",
 # encoder_fallback rows of each fast-path batch at the defaults (--seed 0
 # --policies 10000 --sars 300): tests/test_torch_fastpath.py computes the
 # same counts on the CPU from the same seeded corpus
-EXPECTED_ENCODER_FALLBACK = {"300": 0, "4096": 0, "32768": 0}
+EXPECTED_ENCODER_FALLBACK = {"300": 0, "4096": 0, "24578": 0}
 
 
 def gated_policy_set(corpus):
@@ -838,12 +892,28 @@ def _oracle(name: str):
     over a directory store of <dir> (phase 10's versions);
     "crd-authorize:<file>" and "crd-admit:<file>" the same over a CRD
     store fed the Policy objects listed in the JSON <file> (phase 12's
-    versions: the policy ids are the served ones)."""
+    versions: the policy ids are the served ones); "cand-authorize:<file>"
+    and "cand-admit:<file>" over the rollout candidate those objects stage
+    (rollout/: ids <object>.policy<N>, the admission stack with the
+    allow-all tier)."""
     if name not in _ORACLES:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
 
         if name.startswith("gate-authorize:"):
             _ORACLES[name] = _tiered_oracle(name[len("gate-authorize:"):])
+        elif name.startswith("cand-"):
+            from cedar_tpu_torch.apis.v1alpha1 import PolicyObject
+            from cedar_tpu_torch.rollout.controller import candidate_stores
+            from cedar_tpu_torch.rollout.source import candidate_tiers_from_objects
+            from cedar_tpu_torch.server.admission import CedarAdmissionHandler
+            from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+
+            kind, path = name[len("cand-"):].split(":", 1)
+            with open(path) as f:
+                objs = [PolicyObject.from_dict(d) for d in json.load(f)]
+            authz_stores, adm_stores = candidate_stores(candidate_tiers_from_objects(objs))
+            _ORACLES[name] = (CedarAdmissionHandler(adm_stores) if kind == "admit"
+                              else CedarWebhookAuthorizer(authz_stores))
         elif name.startswith("crd-"):
             from cedar_tpu_torch.server.admission import (
                 CedarAdmissionHandler,
@@ -950,7 +1020,7 @@ def _oracle_answers(task):
     from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
 
     name, bodies = task
-    if name == "admission" or name.startswith(("dir-admit:", "crd-admit:")):
+    if name == "admission" or name.startswith(("dir-admit:", "crd-admit:", "cand-admit:")):
         return [admission_oracle(_oracle(name), b) for b in bodies]
     attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
     return [canon(sar_response(d, r)) for d, r in _oracle(name).authorize_batch(attrs)]
@@ -1067,6 +1137,54 @@ def pct(xs, q: float) -> float:
     return float(np.percentile(np.asarray(xs), q))
 
 
+class ClientPauses:
+    """This process's own cyclic collections: (unix start, seconds,
+    generation) of every full collection and of any other that took 5 ms
+    or more. A collection holds the interpreter lock, so every client
+    thread of the smoke stops for it, and a request in flight then reads
+    the pause as the server's latency. main() installs it."""
+
+    def __init__(self):
+        self.events: list = []
+        self._start = None
+
+    def install(self) -> None:
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, phase, info) -> None:
+        if phase == "start":
+            self._start = (time.time(), time.perf_counter())
+        elif self._start is not None:
+            t, p = self._start
+            self._start = None
+            dt = time.perf_counter() - p
+            if info["generation"] == 2 or dt >= 0.005:
+                self.events.append((t, dt, info["generation"]))
+
+    def between(self, a: float, b: float) -> list:
+        """The collections that started in [a, b) (unix seconds)."""
+        return [e for e in self.events if a <= e[0] < b]
+
+
+CLIENT_GC = ClientPauses()
+
+
+def freeze_client_heap() -> tuple:
+    """Collect, then freeze (gc.freeze), everything this process holds,
+    so that no later collection walks it: the corpus, the phase-4 engine
+    and the earlier phases' answers make a full collection of this heap
+    take on the order of a second, and one that fell inside a timed
+    window stalled all of the window's clients at once. Called where no
+    client runs (a server's start, a phase's set-up). Returns (seconds of
+    that collection, objects frozen by this call)."""
+    frozen = gc.get_freeze_count()
+    t = time.perf_counter()
+    gc.collect()
+    took = time.perf_counter() - t
+    gc.freeze()
+    return took, gc.get_freeze_count() - frozen
+
+
 def diag_key(decision, diag):
     """Decision and reason set: what must agree with the interpreter
     (error message texts differ by design: the device plane reports
@@ -1103,13 +1221,17 @@ def main() -> None:
     ap.add_argument("--only-explain", action="store_true",
                     help="run phases 1, 2, 15 and 17 only (the explain plane on phase 15's "
                          "server); prints no result lines")
+    ap.add_argument("--only-rollout", action="store_true",
+                    help="run phases 1, 2, 15 and 18 only (the shadow rollout on phase 15's "
+                         "server); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
-                         "a batch-1, a batch-4096 and a batch-32768 answer of the fast path "
+                         "a batch-1, a batch-4096 and a batch-24578 answer of the fast path "
                          "with torch.profiler and print the device's busy and "
                          "idle share; after phase 8, split a lone request's time over "
                          "the pipeline stages in-process")
     args = ap.parse_args()
+    CLIENT_GC.install()
 
     import torch
 
@@ -1190,6 +1312,11 @@ def main() -> None:
         corpus = synth_corpus(args.policies, seed=args.seed)
         obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
                   then=explain_then(args, card, corpus=corpus))
+        return
+    if args.only_rollout:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
+                  then=rollout_then(args, card, corpus))
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1385,13 +1512,18 @@ def main() -> None:
     print(f"native build: {cmd} in {time.monotonic() - t0:.2f} s"
           + ("" if built else " (already built)"), flush=True)
     fast = SARFastPath(engine, authz)
-    # the largest batch: 32768 rows (65536 until phase 13 needed the
-    # time; every answer served is still held against the interpreter)
-    big32k = corpus.sar_bodies(32768, seed=args.seed + 5)
-    batches = {"300": bodies, "4096": big, "32768": big32k}
-    # one words launch per pipeline chunk: 16384-row chunks, the last one
-    # split in two halves (the JAX package's chunk plan), so 32768 rows
-    # are 16384 + 8192 x 2, three launches
+    # the largest batch: 24578 rows, the fewest past one chunk whose tail
+    # splits (65536 until phase 13 needed the time, 32768 until phase 18
+    # did); its last 4096 rows are the batch-4096 bodies again, so the
+    # interpreter answers 20482 new bodies for it (every answer served is
+    # still held against the interpreter; the card test of the fast
+    # path's launches serves 65536)
+    big_n = 24578
+    big_rows = corpus.sar_bodies(big_n - len(big), seed=args.seed + 5) + big
+    batches = {"300": bodies, "4096": big, str(big_n): big_rows}
+    # one words launch per pipeline chunk: 16384-row chunks, a last one
+    # above 8192 rows split in two halves (the JAX package's chunk plan),
+    # so 24578 rows are 16384 + 4097 + 4097, three launches
     want_words = {label: len(_chunk_sizes(len(b), fast._CHUNK, fast._TAIL_CHUNK))
                   for label, b in batches.items()}
     fast_answers, fast_launches = {}, {}
@@ -1415,7 +1547,7 @@ def main() -> None:
             fail(f"fast path batch {label}: {routing['encoder_fallback']} encoder_fallback "
                  f"rows, the CPU test counts {EXPECTED_ENCODER_FALLBACK[label]}")
     authz_answers = {"300": [canon(r) for r in got]}
-    for label in ("4096", "32768"):
+    for label in ("4096", str(big_n)):
         authz_answers[label] = [canon(r) for r in answer(authz, batches[label])]
     for label in batches:
         flips = sum(a != b for a, b in zip(fast_answers[label], authz_answers[label]))
@@ -1427,7 +1559,7 @@ def main() -> None:
     # both kernels on the fast path's own operands: native codes of a
     # 16384-row chunk (its bucket), pinned-staged and expanded on the card
     snap = fast._current_snapshot()
-    c16, e16, _n16, f16 = snap.encoder.encode_batch(big32k[:16384])
+    c16, e16, _n16, f16 = snap.encoder.encode_batch(big_rows[:16384])
     if not (f16 == 0).all():
         fail("the 16384-row parity chunk holds rows the encoder did not pass")
     c16, e16 = engine._pad_to_bucket(c16, e16, cs.L)
@@ -1439,15 +1571,15 @@ def main() -> None:
         return [sar_response(*r) for r in fast.authorize_raw(batch)]
 
     fperf = {}
-    for batch, reps in ((1, 20), (128, 10), (4096, 5), (32768, 3)):
+    for batch, reps in ((1, 20), (128, 10), (4096, 5), (big_n, 3)):
         row = {}
         for path, fn, n_reps in (("fastpath", fast_answer, reps),
                                  ("authorizer", lambda b: answer(authz, b),
-                                  1 if batch == 32768 else reps)):
+                                  1 if batch == big_n else reps)):
             lat = []
             for i in range(n_reps):
-                lo = (i * batch) % 32768
-                chunk = big32k[lo:lo + batch]
+                lo = (i * batch) % big_n
+                chunk = big_rows[lo:lo + batch]
                 t = time.perf_counter()
                 fn(chunk)
                 lat.append(time.perf_counter() - t)
@@ -1456,7 +1588,7 @@ def main() -> None:
         fperf[batch] = row
     print("fastpath throughput vs the authorizer path (SAR JSON -> SAR response, host "
           f"clock, {card}): " + json.dumps(fperf), flush=True)
-    for label, batch in (("1", big[:1]), ("4096", big), ("32768", big32k)):
+    for label, batch in (("1", big[:1]), ("4096", big), (str(big_n), big_rows)):
         fast.authorize_raw(batch)
         print(f"fastpath batch {label} stages (host clock, s, {card}): " + json.dumps(
             {k: round(v, 6) for k, v in fast.last_stage_s.items()}), flush=True)
@@ -1501,17 +1633,25 @@ def main() -> None:
            gcs.rule_policy_dev, gcs.n_tiers, gcs.has_gate, need_mix=False,
            maps=gcs.plane_maps)
 
-    # every answer of the phase against the port's interpreter
+    # every answer of the phase against the port's interpreter, which
+    # answers each distinct body once; in pieces of 128 (a piece of 512
+    # takes about 20 s at 10k policies, so the last of some 65 left the
+    # other workers idle that long)
     t0 = time.monotonic()
+    synth = list(dict.fromkeys(b for batch in batches.values() for b in batch))
     oracle_answers = interpreter_answers(
-        {**{label: ("synth", b) for label, b in batches.items()}, "gated": ("gated", g_batch)},
-        args.policies, args.seed)
+        {"synth": ("synth", synth), "gated": ("gated", g_batch)}, args.policies, args.seed,
+        piece=128)
+    by_body = dict(zip(synth, oracle_answers["synth"]))
+    wants = {label: [by_body[b] for b in batch] for label, batch in batches.items()}
+    wants["gated"] = oracle_answers["gated"]
     for label, mine in list(fast_answers.items()) + [("gated", g_answers)]:
-        flips = sum(a != b for a, b in zip(mine, oracle_answers[label]))
+        flips = sum(a != b for a, b in zip(mine, wants[label]))
         print(f"fastpath {label}: flips vs the interpreter {flips}", flush=True)
-        if flips or len(mine) != len(oracle_answers[label]):
+        if flips or len(mine) != len(wants[label]):
             fail(f"fast path {label}: {flips} answers differ from the interpreter")
-    print(f"interpreter check: {sum(map(len, oracle_answers.values()))} answers in "
+    print(f"interpreter check: {sum(map(len, wants.values()))} answers of "
+          f"{sum(map(len, oracle_answers.values()))} distinct bodies in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
     # ---- 5. want_full path: interpreter-fallback policies
@@ -1671,21 +1811,25 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     cache_launches = cache_phase(args, card, g_batch)
 
     # ---- 15. the request observability plane around both endpoints, then
-    # ---- 17. the explain plane on the same server
-    obs_launches, explain_out = obs_phase(
-        args, card, g_batch, then=explain_then(args, card, engine=engine, split_bodies=bodies))
+    # ---- 17. the explain plane and 18. the shadow rollout on the same server
+    obs_launches, (explain_out, rollout_launches) = obs_phase(
+        args, card, g_batch, then=then_all(
+            explain_then(args, card, engine=engine, split_bodies=bodies),
+            rollout_then(args, card, corpus)))
 
     # ---- 16. the overload-control plane under an open-loop flash crowd
     load_launches = load_phase(args, card, g_batch)
 
     # each kernel's launches on every path this run drove, each counted
     # from 0 just before its path and read just after (a server's in its
-    # process); ``launches`` is their sum. Phase 17's explain window, this
-    # slice's path, launches neither kernel by design: launches_explain 0
+    # process; phase 18's adds the shadow worker's launches on the
+    # candidate engines); ``launches`` is their sum. Phase 17's explain
+    # window launches neither kernel by design: launches_explain 0
     kernels = []
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         per_path = {
+            "launches_rollout": rollout_launches[k],
             "launches_explain": explain_out["launches"][k],
             "launches_load": load_launches[k],
             "launches_obs": obs_launches[k],
@@ -1891,7 +2035,12 @@ class Webhook:
         return "\n".join(line for line in lines if "requestId=" not in line)[-4000:]
 
     def wait_ready(self, card: str) -> None:
-        """Poll /readyz; a server that exits or is not ready in 600 s fails."""
+        """Freeze this process's heap while the server starts (no client
+        runs yet), then poll /readyz; a server that exits or is not ready
+        in 600 s fails."""
+        took, n = freeze_client_heap()
+        print(f"client heap: a full collection took {took * 1e3:.3f} ms, then {n} "
+              f"objects frozen ({gc.get_freeze_count()} in all)", flush=True)
         deadline = time.monotonic() + 600
         while True:
             if self.proc.poll() is not None:
@@ -2057,11 +2206,15 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
         # the two other serving modes of the CLI, on the card: the serial
         # batch loop (--pipeline-depth 0), and --no-native (no fast path:
         # each request thread evaluates its own SAR on the engine). The
-        # first 300 gated bodies from 16 clients, 0 flips.
-        for flags in (("--pipeline-depth", "0"), ("--no-native",)):
-            alt = Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags)
-            try:
+        # first 300 gated bodies from 16 clients, 0 flips. Both servers
+        # start at once (a start is one process's compile, about 25 s),
+        # and each serves its window while the other one idles.
+        alts = [(flags, Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags))
+                for flags in (("--pipeline-depth", "0"), ("--no-native",))]
+        try:
+            for _, alt in alts:
                 alt.wait_ready(card)
+            for flags, alt in alts:
                 wall, lat, n_flips = run_window(alt.port, bodies[:300], expected[:300], 16)
                 doc = alt.debug_engine()
                 mode = (f"{doc['authorization']['pipeline']['mode']} batcher, launches "
@@ -2078,7 +2231,8 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
                 if doc and not all(doc["authorization"]["engine"]["launches"].values()):
                     fail(f"webhook {' '.join(flags)} should launch both kernels: {mode}")
                 alt.terminate()
-            finally:
+        finally:
+            for _, alt in alts:
                 alt.kill()
         if args.profile:
             profile_stages(card, x_fast, bodies[:200])
@@ -2089,6 +2243,14 @@ def metric_total(text: str, family: str) -> float:
     """The sum of every series of one family on /metrics."""
     return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
                if line.startswith(family + "{") or line.startswith(family + " "))
+
+
+def metric_above(text: str, family: str, le: str) -> float:
+    """The observations of one histogram family above its `le` bucket,
+    summed over its series."""
+    below = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                if line.startswith(family + "_bucket{") and f'le="{le}"' in line)
+    return metric_total(text, family + "_count") - below
 
 
 RESILIENCE_FAMILIES = ("cedar_authorizer_breaker_transitions_total",
@@ -2331,11 +2493,12 @@ def reload_phase(args, card: str, sars: list, then=None):
             "admission-demo.cedar": ADM_DEMO_OWNER_POLICY,
             "admission-gated.cedar": ADM_FALLBACK_POLICY,
         }
-        # versions 0..3: the base, + the flip file, + admission.cedar
-        # edited, and the base again (both reverted)
+        # versions 0..2: the base, + the flip file, + admission.cedar
+        # edited (a third reload, back to the base, was cut to keep the
+        # whole smoke inside its time limit once phase 18 came)
         versions = [base, {**base, "flip.cedar": RELOAD_FLIP_POLICY},
                     {**base, "flip.cedar": RELOAD_FLIP_POLICY,
-                     "admission.cedar": ADM_POLICIES_EDITED}, base]
+                     "admission.cedar": ADM_POLICIES_EDITED}]
         vdirs = []
         for k, files in enumerate(versions):
             vdir = os.path.join(tmp, f"v{k}")
@@ -2378,7 +2541,7 @@ def reload_phase(args, card: str, sars: list, then=None):
         threads = []
         try:
             # the expected answers meanwhile: the interpreter over each
-            # version's directory (version 3 is version 0)
+            # version's directory
             t0 = time.monotonic()
             tasks = {}
             for k in range(3):
@@ -2390,8 +2553,8 @@ def reload_phase(args, card: str, sars: list, then=None):
                     "/v1/admit": adm_key}
             # the oracle's admission answers are whole AdmissionReviews
             oracle_of = {"/v1/authorize": lambda a: a, "/v1/admit": lambda a: a["response"]}
-            want = {path: [[keyf[path](oracle_of[path](a)) for a in answers[(k % 3, path)]]
-                           for k in range(4)]
+            want = {path: [[keyf[path](oracle_of[path](a)) for a in answers[(k, path)]]
+                           for k in range(3)]
                     for path in ("/v1/authorize", "/v1/admit")}
             print(f"reload oracle: {len(tasks) * n_pool} interpreter answers over 3 versions in "
                   f"{time.monotonic() - t0:.1f} s", flush=True)
@@ -2438,7 +2601,7 @@ def reload_phase(args, card: str, sars: list, then=None):
                 th.start()
             time.sleep(6.0)
             writes, publishes, mem, launch_marks = [], [], {}, []
-            for k in (1, 2, 3):
+            for k in (1, 2):
                 gens = {p: e["load_generation"] for p, e in engines().items()}
                 t_write = time.time()
                 swap_to(k)
@@ -2464,7 +2627,7 @@ def reload_phase(args, card: str, sars: list, then=None):
                           f"{last['published_unix'] - t_write:.3f} s, compile seconds "
                           f"{json.dumps(last['compile_seconds'])}", flush=True)
                 time.sleep(4.0)
-                if k in (1, 3):
+                if k in (1, 2):
                     # read once the batches in flight at the swap, which
                     # hold the retired plane until they answer, are done
                     dm = engines()["authorization"]["device_memory"]
@@ -2487,12 +2650,12 @@ def reload_phase(args, card: str, sars: list, then=None):
             for path, recs in records.items():
                 pubs = [pb[engine_of[path]]["published_unix"] for pb in publishes]
                 bounds = [float("-inf")] + pubs + [float("inf")]
-                changed = [0, 0, 0, 0]
+                changed = [0, 0, 0]
                 # answers no live version gives, by the version live at
                 # their answer: deadline expiries apart from the rest
                 odd = {}
                 for sent, done, i, got, _dt in recs:
-                    live = [v for v in range(4) if bounds[v] < done and bounds[v + 1] > sent]
+                    live = [v for v in range(3) if bounds[v] < done and bounds[v + 1] > sent]
                     key = keyf[path](got)
                     if not any(key == want[path][v][i] for v in live):
                         flips += 1
@@ -2508,8 +2671,8 @@ def reload_phase(args, card: str, sars: list, then=None):
                     print(f"reload {path}: answers of no live version {json.dumps(odd)}",
                           flush=True)
                 print(f"reload {path}: {len(recs)} answers, answers unlike the previous "
-                      f"version's after reloads 1-3: {changed[1:]}", flush=True)
-                need = (1, 2, 3) if path == "/v1/admit" else (1, 3)
+                      f"version's after reloads 1-2: {changed[1:]}", flush=True)
+                need = (1, 2) if path == "/v1/admit" else (1,)
                 if any(changed[k] < 1 for k in need):
                     problems.append(f"{path}: a reload changed no answer: {changed[1:]}")
             print(f"reload flips: {flips}", flush=True)
@@ -2537,7 +2700,7 @@ def reload_phase(args, card: str, sars: list, then=None):
                           f"{c1 - c0:.3f} s); first request after the swap {fb}", flush=True)
 
             # both kernels launched on each new plane
-            for k in (1, 2, 3):
+            for k in (1, 2):
                 a, b = launch_marks[k - 1], launch_marks[k]
                 if not all(b[n] > a[n] for n in a):
                     problems.append(f"reload {k}: launches did not rise after the swap: "
@@ -2556,12 +2719,12 @@ def reload_phase(args, card: str, sars: list, then=None):
             plane = max(e["device_bytes"] for e in engines().values()) / 2**20
             print(f"reload card memory of the server, MiB ({card}; nvidia-smi's per-process "
                   f"figure where it lists the server, and the server's allocator): after reload "
-                  f"1 {json.dumps(mem[1])}, after reload 3 {json.dumps(mem[3])}; one plane "
+                  f"1 {json.dumps(mem[1])}, after reload 2 {json.dumps(mem[2])}; one plane "
                   f"{plane:.1f} MiB", flush=True)
             for what in ("nvidia-smi", "allocated", "reserved"):
-                if mem[1][what] is not None and mem[3][what] - mem[1][what] > plane:
+                if mem[1][what] is not None and mem[2][what] - mem[1][what] > plane:
                     problems.append(f"card memory ({what}) grew by "
-                                    f"{mem[3][what] - mem[1][what]:.1f} MiB over reloads 2-3, "
+                                    f"{mem[2][what] - mem[1][what]:.1f} MiB over reload 2, "
                                     f"more than one plane ({plane:.1f} MiB)")
             if problems:
                 fail("reload: " + "; ".join(problems))
@@ -2569,8 +2732,8 @@ def reload_phase(args, card: str, sars: list, then=None):
                   flush=True)
             after = None
             if then is not None:
-                # version 3 is version 0: the expected answers of the base
-                after = then(srv, pools, {path: want[path][0] for path in want}, keyf)
+                # the directory stays at version 2: its expected answers
+                after = then(srv, pools, {path: want[path][2] for path in want}, keyf)
             took, rss = srv.terminate()
             print(f"reload webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
                   f"({card}): {rss}", flush=True)
@@ -2641,7 +2804,7 @@ def posture_kind(path: str, got: dict):
 
 def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) -> dict:
     """Phase 11 (module docstring) on phase 10's server, its directory
-    back at version 0: four chaos windows under 32 + 32 clients. Returns
+    at version 2: four chaos windows under 32 + 32 clients. Returns
     the server's served kernel launches over the phase."""
     t_phase = time.monotonic()
     port, mport = srv.port, srv.mport
@@ -2669,15 +2832,23 @@ def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) 
     def metrics_text():
         return http_get(mport, "/metrics")[1].decode()
 
+    took, n = freeze_client_heap()  # phase 10's answers, before any client runs
+    print(f"resilience client heap: a full collection took {took * 1e3:.3f} ms, then "
+          f"{n} objects frozen", flush=True)
     traffic = Traffic(port, pools)
     launches0 = engine_doc()["authorization"]["engine"]["launches"]
     text0 = metrics_text()
+    t_traffic = time.time()
     traffic.start()
     time.sleep(3.0)
     windows = []
 
+    def server_slow() -> float:
+        """Authorizations the server itself has timed over 0.7 s so far."""
+        return metric_above(metrics_text(), "cedar_authorizer_request_duration_seconds", "0.7")
+
     def window(name):
-        w = {"name": name, "t0": time.time()}
+        w = {"name": name, "t0": time.time(), "slow0": server_slow()}
         windows.append(w)
         return w
 
@@ -2844,6 +3015,7 @@ def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) 
     time.sleep(1.0)
 
     traffic.stop()
+    t_stop, slow_end = time.time(), server_slow()
     if traffic.errors:
         fail(f"resilience: client errors {traffic.errors[:3]}")
     doc = engine_doc()
@@ -2891,6 +3063,11 @@ def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) 
         w["counts"][kind] += 1
         if kind == "breaker":
             w["breaker_lat"].append(dt)
+    for w, nxt in zip(windows, windows[1:] + [None]):
+        w["span_end"] = nxt["t0"] if nxt else t_stop
+        w["slow"] = (nxt["slow0"] if nxt else slow_end) - w["slow0"]
+        w["own"] = max((e[1] for e in CLIENT_GC.between(w["t0"], w["span_end"])),
+                       default=0.0)
     for w in windows:
         lo, hi = w["t0"], w["t_end"]
         stats = []
@@ -2914,7 +3091,10 @@ def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) 
             if breaker_lat and served and pct(breaker_lat, 99) >= pct(served, 99):
                 problems.append(f"(a) p99 of the open breaker's answers "
                                 f"{pct(breaker_lat, 99) * 1e3:.3f} ms, not below the served "
-                                f"answers' {pct(served, 99) * 1e3:.3f} ms before the fault")
+                                f"answers' {pct(served, 99) * 1e3:.3f} ms before the fault "
+                                f"(the clients' own longest collection pause "
+                                f"{w['own'] * 1e3:.3f} ms, {w['slow']:g} authorizations "
+                                f"the server timed over 0.7 s)")
             if not breaker_lat:
                 problems.append("(a) no request was answered by an open breaker")
             extra += (f"; open-breaker answers p99 "
@@ -2937,12 +3117,19 @@ def resilience_phase(args, card: str, srv, pools: dict, want: dict, keyf: dict) 
         lat_b = (f", open-breaker answers p99 {pct(breaker_lat, 99) * 1e3:.3f} ms max "
                  f"{max(breaker_lat) * 1e3:.3f} ms" if breaker_lat else "")
         print(f"resilience ({w['name']}, {card}): {'; '.join(stats)}; answers "
-              f"{json.dumps(counts)}{lat_b}{extra}", flush=True)
+              f"{json.dumps(counts)}{lat_b}{extra}; to the next window the clients' "
+              f"longest own collection pause {w['own'] * 1e3:.3f} ms and "
+              f"{w['slow']:g} authorizations the server timed over 0.7 s", flush=True)
         if w["name"] == "store-stall" and (counts["breaker"] or counts["failed"]):
             problems.append(f"(d) {counts['breaker'] + counts['failed']} posture answers")
         if w["name"] in ("breaker", "device-loss") and not (counts["breaker"] or counts["failed"]):
             problems.append(f"({w['name']}) no posture answer: the fault did not bite")
     print(f"resilience flips: {flips}", flush=True)
+    own = CLIENT_GC.between(t_traffic, t_stop)
+    print(f"resilience pauses ({card}): the clients' own collections under traffic "
+          f"(every full one, any other of 5 ms or more) {len(own)} "
+          f"({sum(e[2] == 2 for e in own)} full), the longest "
+          f"{max((e[1] for e in own), default=0.0) * 1e3:.3f} ms", flush=True)
     yard = http_yardstick(pools)
     print(f"resilience yardstick ({card}): the same 32 + 32 clients against a Python "
           f"http.server answering a constant document: {yard['rps']:.1f} requests/s, p50 "
@@ -4217,10 +4404,10 @@ def obs_phase(args, card: str, sars: list, then=None):
     """Phase 15 (module docstring): the request observability plane around
     both webhook paths of the CLI over phase 12's Policy objects, with the
     cache at its defaults, the tracer at rate 1, the audit log, the
-    recorder and the injector on. `sars` is phase 12's SAR pool. Returns
-    the server's served kernel launches over the phase, both engines, and
-    what ``then`` returned: phase 17, run on this server once phase 15's
-    checks have passed."""
+    recorder and the injector on, and a rollout control token. `sars` is
+    phase 12's SAR pool. Returns the server's served kernel launches over
+    the phase, both engines, and what ``then`` returned: phases 17 and 18
+    (then_all), run on this server once phase 15's checks have passed."""
     from cedar_tpu_torch.obs.trace import parse_traceparent, span_tree_coverage
 
     t_phase = time.monotonic()
@@ -4246,6 +4433,9 @@ def obs_phase(args, card: str, sars: list, then=None):
                        "spec": {"stores": [{"type": "crd", "crdStore": {}}]}}, f)
         trace_log, audit_log = os.path.join(tmp, "traces.jsonl"), os.path.join(tmp, "audit.jsonl")
         rec_dir = os.path.join(tmp, "recordings")
+        token_file = os.path.join(tmp, "rollout-token")
+        with open(token_file, "w") as f:
+            f.write(ROLLOUT_TOKEN + "\n")
         # phase 14's serving flags and cache defaults, the plane armed
         srv = Webhook(cfg, tmp, "webhook-obs", grace,
                       ("--kubeconfig", kube, "--reload-seconds", "1",
@@ -4255,7 +4445,8 @@ def obs_phase(args, card: str, sars: list, then=None):
                        "--enable-recording", "--recording-dir", rec_dir,
                        "--confirm-non-prod-inject-errors",
                        "--artificial-error-rate", str(OBS_ERROR_RATE),
-                       "--artificial-deny-rate", str(OBS_DENY_RATE)),
+                       "--artificial-deny-rate", str(OBS_DENY_RATE),
+                       "--rollout-control-token-file", token_file),
                       cache=True)
         try:
             t0 = time.monotonic()
@@ -4541,6 +4732,8 @@ def obs_phase(args, card: str, sars: list, then=None):
                     "sars": bodies, "want_sars": want["set"], "adm": adm,
                     "want_adm": want_adm, "audit_log": audit_log, "trace_log": trace_log,
                     "rec_dir": rec_dir, "fresh": distinct[n_keys + n_c1:],
+                    "distinct": distinct, "api": api, "objects": base, "vfile": vfile,
+                    "tmp": tmp,
                 })
             took, rss = srv.terminate()
             print(f"obs webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
@@ -4615,6 +4808,12 @@ def handler_error(path: str, want: dict) -> bool:
     if path == "/v1/authorize":
         return bool(want.get("evaluationError")) and not (want["allowed"] or want["denied"])
     return adm_label(want) == "<error>"
+
+
+def then_all(*steps):
+    """One continuation for obs_phase running each of ``steps`` on its
+    server in turn -> their results."""
+    return lambda srv, ctx: [step(srv, ctx) for step in steps]
 
 
 def explain_then(args, card: str, engine=None, split_bodies=None, corpus=None):
@@ -5013,6 +5212,486 @@ def explain_split(card: str, engine, bodies: list, reps: int = 50) -> None:
           flush=True)
     if sources != {"device"}:
         fail(f"explain split: sources {sources}")
+
+
+# phase 18: the SARs and reviews of the shadow window, sent in chunks
+# (each drained before the next, so the 1,024-deep shadow queue never
+# fills and every offer is evaluated); the windows after each swap; under
+# --only-rollout, the misses (fresh keys) of each of the four live-cost
+# windows at c=1 and at c=64 (alone, beside the shadow at its default
+# duty cycle, beside it again, alone again)
+ROLLOUT_CHUNKS, ROLLOUT_CHUNK_SARS, ROLLOUT_CHUNK_REVIEWS = 2, 384, 96
+ROLLOUT_SWAP_SARS, ROLLOUT_SWAP_REVIEWS = 512, 128
+ROLLOUT_C1, ROLLOUT_C64 = 400, 2000
+ROLLOUT_COST_WINDOWS = ("alone", "beside", "beside", "alone")
+# the candidate: phase 12's objects as candidate-labelled copies named
+# cand-<name>, every permit of the first ROLLOUT_FLIPPED synth objects
+# turned forbid, the interpreter-fallback policies left out (the strict
+# stage gate refuses them) and one object added (phase 10's flip file)
+ROLLOUT_FLIPPED = 20
+ROLLOUT_TOKEN = "phase-18-rollout-token"
+CANDIDATE_LABEL = {"cedar.k8s.aws/rollout": "candidate"}
+
+
+def candidate_objects(base: dict) -> dict:
+    """Phase 18's candidate objects {name: content} from phase 12's."""
+    out = {}
+    for k, (name, content) in enumerate(sorted(base.items())):
+        if name == "gated":
+            content = NATIVE_OPAQUE_POLICY
+        elif name == "admission":
+            content = ADM_POLICIES + ADM_DEMO_OWNER_POLICY
+        elif k < ROLLOUT_FLIPPED:
+            content = content.replace("permit (", "forbid (")
+        out[f"cand-{name}"] = content
+    out["cand-added"] = RELOAD_FLIP_POLICY
+    return out
+
+
+def _decision_of(status: dict) -> str:
+    return "allow" if status["allowed"] else "deny" if status["denied"] else "no_opinion"
+
+
+def diff_class(live, cand, path: str):
+    """The shadow diff kind the interpreter's live and candidate answers
+    give (rollout/report.py classify_decision_diff over decisions and
+    reason sets; live and candidate policy ids always differ, so two
+    reason sets are equal only when both are empty), or "skipped" for an
+    admission answer the shadow worker does not diff (code other than
+    200)."""
+    from cedar_tpu_torch.rollout.report import classify_decision_diff
+
+    if path == "/v1/admit":
+        if adm_label(live) == "<error>":
+            return "skipped"
+        a, b = adm_key(live), adm_key(cand)
+        return classify_decision_diff("allow" if a[1] else "deny", json.dumps(a[3]),
+                                      "allow" if b[1] else "deny", json.dumps(b[3]))
+    return classify_decision_diff(_decision_of(live), json.dumps(live["reason"]),
+                                  _decision_of(cand), json.dumps(cand["reason"]))
+
+
+def rollout_then(args, card: str, corpus):
+    """Phase 18 as the continuation obs_phase runs on its server (after
+    phase 17 in a whole run): a fresh SAR pool from ``corpus``, larger
+    under --only-rollout, whose live-cost windows take 9,600 misses."""
+    def run(srv, ctx):
+        n = 16384 if args.only_rollout else 8192
+        return rollout_phase(args, card, srv, ctx, gated_bodies(corpus, n, seed=args.seed + 18))
+    return run
+
+
+def rollout_phase(args, card: str, srv, ctx: dict, pool: list) -> dict:
+    """Phase 18 (module docstring) on phase 15's server, started with
+    --rollout-control-token-file. ``ctx`` carries phase 15's fake
+    apiserver, its objects and their file, its keys and its directory.
+    Returns the phase's launches of both kernels: the server's served
+    ones and the shadow worker's on the candidate engines."""
+    from cedar_tpu_torch.cache import fingerprint_body
+    from cedar_tpu_torch.lang.parser import parse_policies
+
+    t_phase = time.monotonic()
+    problems = []
+    api, tmp = ctx["api"], ctx["tmp"]
+    bearer = {"Authorization": f"Bearer {ROLLOUT_TOKEN}"}
+
+    def post(path, doc=None, headers=None, timeout=600):
+        req = urllib.request.Request(f"http://127.0.0.1:{srv.mport}{path}", method="POST",
+                                     data=json.dumps(doc or {}).encode(),
+                                     headers={"Content-Type": "application/json",
+                                              **(headers or {})})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                code, data = r.status, r.read()
+        except urllib.error.HTTPError as e:
+            code, data = e.code, e.read()
+        return code, json.loads(data), time.perf_counter() - t
+
+    def status():
+        return json.loads(http_get(srv.mport, "/debug/rollout")[1])
+
+    def engine_state():
+        doc = srv.debug_engine()
+        return {p: {"launches": doc[p]["engine"]["launches"],
+                    "warmup": doc[p]["engine"]["warmup_launches"],
+                    "encoder_builds": doc[p]["encoder_builds"],
+                    "generation": doc[p]["engine"]["load_generation"]}
+                for p in ("authorization", "admission")}
+
+    # ---- the traffic: keys phases 15 and 17 never sent (misses)
+    seen = {fingerprint_body("authorize", b) for b in ctx["distinct"]}
+    fresh = []
+    for b in pool:
+        key = fingerprint_body("authorize", b)
+        if key is not None and key not in seen:
+            seen.add(key)
+            fresh.append(b)
+    # the live cost of the shadow is measured under --only-rollout alone:
+    # its windows take minutes a whole run has not got
+    cost = args.only_rollout
+    n_shadow = ROLLOUT_CHUNKS * ROLLOUT_CHUNK_SARS
+    n_probe = len(ROLLOUT_COST_WINDOWS) * (ROLLOUT_C1 + ROLLOUT_C64) if cost else 0
+    shadow_sars = fresh[:n_shadow]
+    probe = fresh[n_shadow:n_shadow + n_probe]
+    if len(probe) < n_probe:
+        fail(f"rollout: only {len(fresh)} fresh keys in a pool of {len(pool)}")
+    reviews = admission_bodies(ROLLOUT_CHUNKS * ROLLOUT_CHUNK_REVIEWS, args.seed + 18)
+    swap_sars, swap_reviews = shadow_sars[:ROLLOUT_SWAP_SARS], reviews[:ROLLOUT_SWAP_REVIEWS]
+
+    # ---- the candidate objects and the oracle over both corpora
+    cand = candidate_objects(ctx["objects"])
+    cfile = os.path.join(tmp, "candidate.json")
+    with open(cfile, "w") as f:
+        json.dump([{"metadata": {"name": n, "uid": f"uid-{n}", "labels": CANDIDATE_LABEL},
+                    "spec": {"content": c}} for n, c in cand.items()], f)
+    n_cand = sum(len(parse_policies(c, n)) for n, c in cand.items())
+    oracle_out = {}
+
+    def oracle():
+        t0 = time.monotonic()
+        oracle_out.update(interpreter_answers(
+            {"live": (f"crd-authorize:{ctx['vfile']}", shadow_sars),
+             "cand": (f"cand-authorize:{cfile}", shadow_sars),
+             "live_adm": (f"crd-admit:{ctx['vfile']}", reviews),
+             "cand_adm": (f"cand-admit:{cfile}", reviews)},
+            args.policies, args.seed, piece=256))
+        oracle_out["seconds"] = time.monotonic() - t0
+
+    oracle_thread = threading.Thread(target=oracle)
+
+    # ---- 1. control refusals (the server has a token)
+    for label, headers, want in (("no token", None, 403), ("wrong token",
+                                 {"Authorization": "Bearer nope"}, 403),
+                                 ("token, idle", bearer, 409)):
+        code, body, _ = post("/rollout/promote", headers=headers)
+        if code != want:
+            problems.append(f"promote with {label}: {code} {body}, want {want}")
+    if status()["state"] != "idle":
+        problems.append(f"rollout state before staging: {status()['state']}")
+    inj0, e0 = injections(srv.mport), engine_state()
+
+    # ---- 2. the first live-cost window: no candidate staged (and the
+    # oracle pool not started: it would take the host's cores)
+    cost_runs = []  # (condition, c=1 drive, c=64 drive, bodies), in order
+
+    def cost_window(condition):
+        k = len(cost_runs) * (ROLLOUT_C1 + ROLLOUT_C64)
+        b1, b64 = probe[k:k + ROLLOUT_C1], probe[k + ROLLOUT_C1:k + ROLLOUT_C1 + ROLLOUT_C64]
+        w1, w64 = drive(srv.port, b1, 1), drive(srv.port, b64, 64)
+        if w1[3] or w64[3]:
+            fail(f"rollout live-cost window: client errors {(w1[3] + w64[3])[:3]}")
+        cost_runs.append((condition, w1, w64, b1 + b64))
+        print(f"rollout live serving, window {len(cost_runs)} {condition} ({card}): misses at "
+              f"c=1 p50 {pct(w1[1], 50) * 1e3:.3f} ms, p99 {pct(w1[1], 99) * 1e3:.3f} ms over "
+              f"{w1[0]:.3f} s; at c=64 {len(b64) / w64[0]:.1f} requests/s over {w64[0]:.3f} s, "
+              f"p99 {pct(w64[1], 99) * 1e3:.3f} ms", flush=True)
+
+    if cost:
+        cost_window(ROLLOUT_COST_WINDOWS[0])
+    oracle_thread.start()
+
+    # ---- 3. stage the CRD candidate
+    for name, content in cand.items():
+        api.apply(name, content, labels=CANDIDATE_LABEL)
+    time.sleep(3.0)  # the store withholds them from live serving
+
+    def stage_candidate(label):
+        code, doc, stage_s = post("/rollout/stage", {"crd": True}, bearer)
+        if code != 200 or doc.get("state") != "staged":
+            fail(f"{label}: {code} {json.dumps(doc)[:600]}")
+        if doc["candidate"]["policies"] != n_cand:
+            fail(f"{label}: {doc['candidate']['policies']} candidate policies, want {n_cand} "
+                 "(the store had not seen every candidate object)")
+        t_ready = time.monotonic()
+        while True:
+            st = status()
+            if st["candidate"]["warm_state"] == "ready":
+                break
+            if st["candidate"]["warm_state"] == "failed" or time.monotonic() - t_ready > 300:
+                fail(f"{label}: candidate warm-up {st['candidate']['warm_state']}")
+            time.sleep(0.1)
+        ready_s = stage_s + time.monotonic() - t_ready
+        warm = st["candidate"]["warm_stats"]
+        print(f"{label} ({card}): {n_cand} candidate policies; POST /rollout/stage "
+              f"{stage_s:.3f} s (the gate and both candidate compiles), stage to ready "
+              f"{ready_s:.3f} s; per engine " + json.dumps(
+                  {e: {"compile_seconds": w["compile_seconds"], "warm_seconds": w["seconds"],
+                       "buckets": w["buckets"], "warmup_launches": w["launches"]}
+                   for e, w in warm.items()}), flush=True)
+        for e, w in warm.items():
+            if not all(w["launches"].values()):
+                problems.append(f"candidate {e} warm-up launched {w['launches']}")
+        return st
+
+    st = stage_candidate("rollout stage")
+    injected = {"error": 0, "deny": 0}
+    pending = []  # windows sent before the oracle finished: checked after
+    ans: dict = {}
+
+    def join_oracle():
+        if ans:
+            return
+        oracle_thread.join(timeout=900)
+        if "live" not in oracle_out:
+            fail("rollout: the oracle pool did not finish")
+        print(f"rollout oracle: {2 * len(shadow_sars) + 2 * len(reviews)} "
+              f"interpreter answers in {oracle_out['seconds']:.1f} s", flush=True)
+        ans.update(
+            live_sar=dict(zip(shadow_sars, oracle_out["live"])),
+            cand_sar=dict(zip(shadow_sars, oracle_out["cand"])),
+            live_adm=[a["response"] for a in oracle_out["live_adm"]],
+            cand_adm=[a["response"] for a in oracle_out["cand_adm"]])
+
+    def check(label, sars, got, want_of, adm=(), got_adm=(), want_adm=()):
+        """Every answer the oracle's (an injected SAR answer apart, counted);
+        the flips are reported into problems."""
+        flips = 0
+        for b, g in zip(sars, got):
+            if g == INJECTED_ERROR:
+                injected["error"] += 1
+            elif g == INJECTED_DENY:
+                injected["deny"] += 1
+            elif canon({"status": g}) != want_of[b]:
+                flips += 1
+                if flips <= 3:
+                    print(f"rollout {label} flip: expected {json.dumps(want_of[b])}, got "
+                          f"{json.dumps(g)}", flush=True)
+        flips += sum(adm_key(g) != adm_key(w) for g, w in zip(got_adm, want_adm))
+        if flips:
+            problems.append(f"{label}: {flips} flips")
+        return flips
+
+    def window(label, sars, revs, want, c_sar=12, c_adm=4):
+        """SARs at c_sar beside reviews at c_adm; checked against the
+        oracle's ``want`` (live_sar / cand_sar, live_adm / cand_adm and
+        the reviews' offset) now, or, before the oracle finished, later."""
+        out = {}
+        th = threading.Thread(target=lambda: out.update(
+            adm=drive(srv.port, revs, c_adm, "/v1/admit")))
+        th.start()
+        wall, lat, got, errors = drive(srv.port, sars, c_sar)
+        th.join(timeout=600)
+        a_wall, a_lat, a_got, a_errors = out["adm"]
+        if errors or a_errors:
+            fail(f"rollout {label}: client errors {(errors + a_errors)[:3]}")
+        print(f"rollout {label} ({card}): {len(sars)} SARs at c={c_sar} {len(sars) / wall:.1f} "
+              f"requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms; "
+              f"{len(revs)} reviews at c={c_adm} p99 {pct(a_lat, 99) * 1e3:.3f} ms", flush=True)
+        pending.append((label, sars, got, want, revs, a_got))
+        if ans:
+            check_pending()
+
+    def check_pending():
+        while pending:
+            label, sars, got, (sar_key, adm_key_, lo), revs, a_got = pending.pop(0)
+            want_adm = ans[adm_key_][lo:lo + len(revs)] if revs else []
+            flips = check(label, sars, got, ans[sar_key], revs, a_got, want_adm)
+            print(f"rollout {label}: flips {flips}", flush=True)
+
+    offered = 0
+
+    def drained(offered_n):
+        deadline = time.monotonic() + 300
+        while True:
+            st = status()
+            d = st["diff"]
+            seen_n = (sum(d["evaluations"].values()) + sum(d["shed"].values())
+                      + sum(d["skipped"].values()))
+            if st["shadow_queue"] == 0 and seen_n == offered_n:
+                return st
+            if time.monotonic() > deadline:
+                fail(f"rollout: the shadow worker did not drain ({seen_n} of {offered_n} "
+                     f"offers accounted for)")
+            time.sleep(0.1)
+
+    # ---- 4. the shadow window: every evaluated body's class the oracle's
+    t_shadow = time.monotonic()
+    for k in range(ROLLOUT_CHUNKS):
+        s_part = shadow_sars[k * ROLLOUT_CHUNK_SARS:(k + 1) * ROLLOUT_CHUNK_SARS]
+        r_part = reviews[k * ROLLOUT_CHUNK_REVIEWS:(k + 1) * ROLLOUT_CHUNK_REVIEWS]
+        window(f"shadow chunk {k}", s_part, r_part,
+               ("live_sar", "live_adm", k * ROLLOUT_CHUNK_REVIEWS))
+        offered += len(s_part) + len(r_part)
+        st = drained(offered)
+    shadow_wall = time.monotonic() - t_shadow
+    join_oracle()
+    check_pending()
+    live_sar, cand_sar = ans["live_sar"], ans["cand_sar"]
+    live_adm, cand_adm = ans["live_adm"], ans["cand_adm"]
+    n_rev = ROLLOUT_CHUNKS * ROLLOUT_CHUNK_REVIEWS
+    want_kinds: dict = {}
+    fp_kind = {}
+    for b in shadow_sars:
+        kind = diff_class(live_sar[b], cand_sar[b], "/v1/authorize")
+        fp_kind[fingerprint_body("authorize", b)] = kind
+        want_kinds[kind] = want_kinds.get(kind, 0) + 1
+    for b, lv, cv in zip(reviews[:n_rev], live_adm, cand_adm):
+        kind = diff_class(lv, cv, "/v1/admit")
+        fp = fingerprint_body("admit", b)
+        if fp is not None:
+            fp_kind[fp] = kind
+        want_kinds[kind] = want_kinds.get(kind, 0) + 1
+    d = st["diff"]
+    got_kinds = {k: n for k, n in d["diffs"].items() if n}
+    n_match = sum(d["matches"].values())
+    if d["matches"]:
+        got_kinds[None] = n_match
+    if d["skipped"]:
+        got_kinds["skipped"] = sum(d["skipped"].values())
+    want_cmp = {k: n for k, n in want_kinds.items() if n}
+    bad_ex = [e for e in d["exemplars"] if fp_kind.get(e["fingerprint"]) != e["kind"]]
+    print(f"rollout shadow window ({card}): {offered} offers in {shadow_wall:.3f} s, "
+          f"evaluations {json.dumps(d['evaluations'])}, diffs {json.dumps(d['diffs'])}, "
+          f"matches {n_match}, skipped {json.dumps(d['skipped'])}, shed "
+          f"{json.dumps(d['shed'])}, candidate errors {d['candidate_errors']}; the oracle's "
+          f"classes {json.dumps({str(k): n for k, n in want_cmp.items()})}; shadow launches "
+          f"{json.dumps(st['shadow_launches'])}", flush=True)
+    if d["shed"]:
+        problems.append(f"shadow window shed {d['shed']}: it is paced not to")
+    if got_kinds != want_cmp:
+        problems.append(f"shadow classes {got_kinds} unlike the oracle's {want_cmp}")
+    if bad_ex or not d["exemplars"]:
+        problems.append(f"{len(bad_ex)} of {len(d['exemplars'])} exemplars unlike the oracle")
+    if d["candidate_errors"]:
+        problems.append(f"{d['candidate_errors']} candidate errors")
+    if not st["shadow_launches"]["match_words_kernel"]:
+        problems.append(f"the candidate engines launched {st['shadow_launches']}")
+
+    # ---- 5. the live cost of the shadow (--only-rollout): two windows
+    # beside it, then every offer accounted for once the worker drained
+    # (at c=64 the queue fills, so offers shed); the candidate discarded
+    # (rollback while staged), the last window alone, and the candidate
+    # staged again for the swaps
+    shadow_launches = {k: 0 for k in st["shadow_launches"]}
+
+    def add_shadow_launches():
+        """Count the current candidate's shadow launches into the phase's."""
+        for k, n in status().get("shadow_launches", {}).items():
+            shadow_launches[k] += n
+
+    if cost:
+        for condition in ROLLOUT_COST_WINDOWS[1:3]:
+            cost_window(condition)
+        offered += sum(len(run[3]) for run in cost_runs[1:3])
+        st = drained(offered)
+        print(f"rollout shadow after the windows beside it: shed {json.dumps(st['diff']['shed'])}, "
+              f"evaluations {json.dumps(st['diff']['evaluations'])}, offered {offered}", flush=True)
+        add_shadow_launches()
+        code, doc, discard_s = post("/rollout/rollback", headers=bearer)
+        if code != 200 or doc.get("state") != "idle" or "candidate" in doc:
+            fail(f"rollout discard: {code} {json.dumps(doc)[:600]}")
+        print(f"rollout discard of the staged candidate ({card}): POST /rollout/rollback "
+              f"{discard_s * 1e3:.3f} ms", flush=True)
+        for condition in ROLLOUT_COST_WINDOWS[3:]:
+            cost_window(condition)
+        stage_candidate("rollout restage")
+    else:
+        print("rollout live cost of the shadow: not measured in this run (chip_smoke.py "
+              "--only-rollout measures it)", flush=True)
+    add_shadow_launches()
+
+    # ---- 6. promote: the candidate serves, warmed, its encoder built
+    e1 = engine_state()
+    code, doc, promote_s = post("/rollout/promote", headers=bearer)
+    if code != 200 or doc.get("state") != "promoted":
+        fail(f"rollout promote: {code} {json.dumps(doc)[:600]}")
+    first = Client(srv.port)
+    g, first_promote = first.post(swap_sars[-1])
+    check("first answer after promote", [swap_sars[-1]], [g], cand_sar)
+    e2 = engine_state()
+    window("after promote", swap_sars, swap_reviews, ("cand_sar", "cand_adm", 0), c_sar=16)
+    e3 = engine_state()
+    for p in e1:
+        if e2[p]["encoder_builds"] != e1[p]["encoder_builds"] + 1:
+            problems.append(f"{p}: promote built {e2[p]['encoder_builds'] - e1[p]['encoder_builds']}"
+                            " native encoders, want 1 (at adoption)")
+        if e3[p]["encoder_builds"] != e2[p]["encoder_builds"]:
+            problems.append(f"{p}: the window after promote built an encoder")
+        if e3[p]["warmup"] != e1[p]["warmup"]:
+            problems.append(f"{p}: warm-up launches after promote {e1[p]['warmup']} -> "
+                            f"{e3[p]['warmup']}")
+        if e2[p]["generation"] != e1[p]["generation"] + 1:
+            problems.append(f"{p}: promote stepped the generation {e1[p]['generation']} -> "
+                            f"{e2[p]['generation']}")
+
+    # ---- 7. roll back: the pre-promotion sets serve again
+    code, doc, rollback_s = post("/rollout/rollback", headers=bearer)
+    if code != 200 or doc.get("state") != "idle":
+        fail(f"rollout rollback: {code} {json.dumps(doc)[:600]}")
+    g, first_rollback = first.post(swap_sars[-2])
+    first.close()
+    check("first answer after rollback", [swap_sars[-2]], [g], live_sar)
+    window("after rollback", swap_sars, swap_reviews, ("live_sar", "live_adm", 0), c_sar=16)
+    e4 = engine_state()
+    for p in e1:
+        if e4[p]["encoder_builds"] != e3[p]["encoder_builds"] or e4[p]["warmup"] != e1[p]["warmup"]:
+            problems.append(f"{p}: rollback built an encoder or warmed: {e3[p]} -> {e4[p]}")
+    print(f"rollout swaps ({card}): POST /rollout/promote {promote_s * 1e3:.3f} ms, first "
+          f"answer after it {first_promote * 1e3:.3f} ms; POST /rollout/rollback "
+          f"{rollback_s * 1e3:.3f} ms, first answer after it {first_rollback * 1e3:.3f} ms; "
+          f"encoder builds {json.dumps({p: e4[p]['encoder_builds'] for p in e4})}", flush=True)
+
+    # ---- 8. the live-cost windows' answers against the oracle (after
+    # every window, so its pool never took the host's cores beside one),
+    # their medians, and the phase's totals
+    if cost:
+        t0 = time.monotonic()
+        ans["probe_sar"] = dict(zip(probe, interpreter_answers(
+            {"probe": (f"crd-authorize:{ctx['vfile']}", probe)},
+            args.policies, args.seed, piece=256)["probe"]))
+        print(f"rollout live-cost oracle: {len(probe)} interpreter answers in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        for i, (condition, w1, w64, bodies) in enumerate(cost_runs):
+            pending.append((f"live-cost window {i + 1} ({condition})", bodies, w1[2] + w64[2],
+                            ("probe_sar", "live_adm", 0), [], []))
+        check_pending()
+        # (condition, "c=1") -> p50 ms, (condition, "c=64") -> requests/s, per window
+        vals: dict = {}
+        for condition, w1, w64, _ in cost_runs:
+            vals.setdefault((condition, "c=1"), []).append(pct(w1[1], 50) * 1e3)
+            vals.setdefault((condition, "c=64"), []).append(len(w64[1]) / w64[0])
+        a1, a64, b1, b64 = (float(np.median(vals[k])) for k in (
+            ("alone", "c=1"), ("alone", "c=64"), ("beside", "c=1"), ("beside", "c=64")))
+        print(f"rollout live cost of the shadow (sample rate 1.0, duty cycle 0.1; {card}): "
+              f"medians over the windows alone -> beside, misses at c=1 p50 {a1:.3f} -> "
+              f"{b1:.3f} ms ({100 * (b1 / a1 - 1):+.1f}%), at c=64 {a64:.1f} -> {b64:.1f} "
+              f"requests/s ({100 * (b64 / a64 - 1):+.1f}%); each condition's range "
+              + json.dumps({f"{m} {c}": [round(min(v), 3), round(max(v), 3)]
+                            for (c, m), v in vals.items()})
+              + "; windows in order " + " ".join(w[0] for w in cost_runs)
+              + f", {ROLLOUT_C1} misses at c=1 and {ROLLOUT_C64} at c=64 each", flush=True)
+    inj1 = injections(srv.mport)
+    d_err = inj1["response_error"] - inj0["response_error"]
+    d_deny = inj1["response_deny"] - inj0["response_deny"]
+    if d_deny != injected["deny"] or not 0 <= d_err - injected["error"] <= injected["deny"]:
+        problems.append(f"{injected} injected answers seen, the injector fired {d_err:g} / "
+                        f"{d_deny:g}")
+    text = http_get(srv.mport, "/metrics")[1].decode()
+    problems += resilience_quiet("rollout", text)
+    if metric_total(text, "cedar_authorizer_fallback_batches_total"):
+        problems.append("fallback batches")
+    served = {k: sum(e4[p]["launches"][k] - e0[p]["launches"][k] for p in e4)
+              for k in e4["authorization"]["launches"]}
+    launches = {k: served[k] + shadow_launches[k] for k in served}
+    if not all(launches.values()):
+        problems.append(f"a kernel did not launch in phase 18: {launches}")
+    # the server's resident set now (the card machine's /proc has no
+    # VmHWM); its peak over phases 15, 17 and 18 is obs_phase's line
+    # after the SIGTERM (wait4's rusage)
+    rss = "not measured"
+    try:
+        with open(f"/proc/{srv.proc.pid}/statm") as f:
+            rss = f"{int(f.read().split()[1]) * os.sysconf('SC_PAGE_SIZE') / 2**20:.1f} MiB"
+    except (OSError, IndexError, ValueError):
+        pass
+    print(f"rollout totals ({card}): launches served {json.dumps(served)} + shadow "
+          f"{json.dumps(shadow_launches)}; injected {json.dumps(injected)}; server RSS at the "
+          f"phase's end {rss}", flush=True)
+    if problems:
+        fail("rollout: " + "; ".join(problems))
+    print(f"rollout phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 # phase 16's flags (both servers), beside phase 12's serving flags; the

@@ -979,3 +979,175 @@ def test_explain_on_card_equals_cpu(cuda):
             sources[got[-1]["source"]] = sources.get(got[-1]["source"], 0) + 1
     assert set(sources) <= {"device", "gate"} and sources["device"] > 300, sources
     assert cuda_match.launch_counts() == before
+
+
+def _rollout_sources(n: int = 400, seed: int = 13, flips: int = 40):
+    """(live source, candidate source): a synth corpus with the admission
+    policies and an interpreter-fallback forbid, and the candidate: the
+    same text without the fallback policy (the strict stage gate refuses
+    a candidate that carries one), its first `flips` permits turned
+    forbids (same length, so every other policy keeps its position) and
+    one added forbid."""
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    from cedar_tpu_torch.corpus.synth import synth_source
+
+    base = synth_source(n, seed=seed) + chip_smoke.ADM_POLICIES
+    live = base + chip_smoke.ADM_FALLBACK_POLICY
+    cand = base.replace("permit (", "forbid (", flips) + (
+        'forbid (principal, action == k8s::Action::"watch", resource is k8s::Resource);\n')
+    return live, cand
+
+
+def _rollout_side(device, live_src):
+    """(engine, admission engine, SAR fast path, admission fast path,
+    rollout controller) over one policy tier, warmed to 128 rows."""
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import AdmissionFastPath, SARFastPath
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.rollout import RolloutController
+    from cedar_tpu_torch.server.admission import (
+        CedarAdmissionHandler,
+        allow_all_admission_policy_store,
+    )
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    stores = TieredPolicyStores([MemoryStore("live", PolicySet.from_source(live_src, "live"))])
+    adm_stores = TieredPolicyStores(list(stores.stores) + [allow_all_admission_policy_store()])
+    engine = TorchPolicyEngine(device=device, incremental=True, name="authorization")
+    engine.load([s.policy_set() for s in stores], max_batch=128)
+    adm = TorchPolicyEngine(device=device, incremental=True, name="admission")
+    adm.load([s.policy_set() for s in adm_stores], max_batch=128)
+    fast = SARFastPath(engine, CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch))
+    fast.prepare()
+    adm_fast = AdmissionFastPath(
+        adm, CedarAdmissionHandler(adm_stores, evaluate_batch=adm.evaluate_batch))
+    adm_fast.prepare()
+    rollout = RolloutController(authz_engine=engine, admission_engine=adm,
+                                queue_depth=4096, duty_cycle=1.0)
+    return engine, adm, fast, adm_fast, rollout
+
+
+@pytest.mark.cuda
+def test_rollout_on_card_equals_cpu(cuda):
+    """Stage, shadow, promote and roll back a candidate on card engines and
+    on CPU engines: the same diff report, and after each swap the card's
+    fast paths answer as the CPU's. The candidate engines' warm-up on the
+    card launches both kernels; their shadow evaluations (a candidate
+    lowers fully: the strict stage gate refuses interpreter-fallback
+    policies) launch the words kernel, and those launches stay out of
+    the served counts."""
+    import json
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.server.sar import sar_response
+
+    live_src, cand_src = _rollout_sources()
+    sars = synth_corpus(400, seed=13).sar_bodies(384, seed=14)
+    reviews = chip_smoke.admission_bodies(128, 15)
+    sides = {d: _rollout_side(d, live_src) for d in ("cuda", "cpu")}
+
+    def answers(side):
+        _, _, fast, adm_fast, _ = side
+        sar = [sar_response(*r) for r in fast.authorize_raw(sars)]
+        adm = [r.to_admission_review() for r in adm_fast.handle_raw(reviews)]
+        return sar, adm
+
+    reports, before = {}, {}
+    for device, side in sides.items():
+        engine, adm, fast, adm_fast, rollout = side
+        rollout.stage(source=cand_src, warm="sync")
+        sar, adm_docs = answers(side)
+        served = cuda_match.launch_counts()
+        for body, r in zip(sars, sar):
+            rollout.offer("authorize", body, (r["status"]["allowed"] and "allow"
+                                              or r["status"]["denied"] and "deny"
+                                              or "no_opinion", r["status"]["reason"]))
+        for body, r in zip(reviews, adm_docs):
+            rollout.offer("admit", body, r)
+        assert rollout.drain(120)
+        if device == "cuda":
+            status = rollout.status()
+            shadow = status["shadow_launches"]
+            assert shadow["match_words_kernel"] > 0 and shadow["match_groups_kernel"] == 0
+            for stats in status["candidate"]["warm_stats"].values():
+                assert stats["buckets"] == [1, 8, 32, 128]
+                assert min(stats["launches"].values()) > 0
+            assert cuda_match.launch_counts() == served  # shadow launches are not served
+        doc = rollout.report.to_dict()
+        doc.pop("started_at")
+        reports[device] = doc
+        before[device] = (sar, adm_docs)
+    assert reports["cuda"] == reports["cpu"]
+    assert reports["cuda"]["diffs"]["allow_to_deny"] > 0
+    assert reports["cuda"]["candidate_errors"] == 0
+    assert before["cuda"] == before["cpu"]
+    for step in ("promote", "rollback"):
+        got = {}
+        for device, side in sides.items():
+            getattr(side[4], step)()
+            got[device] = answers(side)
+        assert json.dumps(got["cuda"]) == json.dumps(got["cpu"]), step
+        if step == "rollback":
+            assert got["cuda"] == before["cuda"]
+        else:
+            assert got["cuda"] != before["cuda"]
+    for side in sides.values():
+        side[4].stop()
+
+
+@pytest.mark.cuda
+def test_adopt_compiled_adds_no_warmup_launch_and_no_encoder_build(cuda, monkeypatch):
+    """A candidate warmed on the card to the live engine's top bucket and
+    adopted: the adoption builds the fast path's native encoder for the
+    set (the live engine's load hook); the first request after it builds no encoder and warms nothing (the live
+    engine's warm-up launches unchanged), launches the words kernel once,
+    and every answer equals a CPU engine's over the candidate."""
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine import fastpath as fastpath_mod
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import SARFastPath
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    live_src, cand_src = _rollout_sources()
+    bodies = synth_corpus(400, seed=13).sar_bodies(300, seed=16)
+    engine, _, fast, _, _ = _rollout_side(None, live_src)
+    cand_tiers = [PolicySet.from_source(cand_src, "live")]
+    cand = TorchPolicyEngine(incremental=True, name="candidate-authorization")
+    cand.load(cand_tiers)
+    cand.warmup(max(engine.warm_buckets))
+    assert cand.warm_buckets == engine.warm_buckets == (1, 8, 32, 128)
+    real_create = fastpath_mod.NativeEncoder.create
+    creates = []
+
+    def counting_create(packed):
+        creates.append(packed)
+        return real_create(packed)
+
+    monkeypatch.setattr(fastpath_mod.NativeEncoder, "create", counting_create)
+    warm0 = dict(engine.warmup_launches)
+    prior, generation = engine.adopt_compiled(cand.compiled_set, donor=cand)
+    assert len(creates) == 1 and creates[0] is cand.compiled_set.packed
+    assert fast.encoder_builds == 2 and generation == engine.load_generation
+    cuda_match.reset_launch_counts()
+    got = fast.authorize_raw(bodies)
+    assert len(creates) == 1 and dict(engine.warmup_launches) == warm0
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 1}
+    cpu = TorchPolicyEngine(device="cpu")
+    cpu.load(cand_tiers)
+    stores = TieredPolicyStores([MemoryStore("live", cand_tiers[0])])
+    want = SARFastPath(cpu, CedarWebhookAuthorizer(stores, evaluate_batch=cpu.evaluate_batch))
+    assert got == want.authorize_raw(bodies)
+    assert engine.staging_stats()["outstanding"] == 0

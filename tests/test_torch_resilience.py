@@ -1072,7 +1072,7 @@ def test_cli_wires_a_breaker_and_recovery_per_engine_and_the_supervisor(tmp_path
         st = srv.supervisor.status()
         assert set(st["device_recovery"]) == {"authorization", "admission"}
         assert set(st["components"]) == {"batcher.authorization", "batcher.admission",
-                                         "store.directory.FilePolicyStore"}
+                                         "store.directory.FilePolicyStore", "shadow.worker"}
         assert (srv.supervisor.interval_s, srv.supervisor.wedge_budget_s) == (1.0, 10.0)
         assert srv.chaos_control_enabled is False
     finally:
@@ -1178,3 +1178,46 @@ def test_an_idle_pipeline_holds_no_retired_set():
     finally:
         gc.enable()
         b.stop()
+
+
+def test_chip_smoke_phase_11_reads_its_own_pauses_and_the_servers_slow_requests():
+    """What phase 11 of chip_smoke.py prints beside its breaker-window
+    check: the smoke's own collections (ClientPauses, every full one
+    recorded with its start and length), its heap frozen before traffic
+    (freeze_client_heap; in a child process, so this one's collector is
+    left as it was), and the authorizations the server itself timed over
+    0.7 s (metric_above on the port's /metrics text)."""
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+
+    root = os.path.dirname(os.path.abspath(chip_smoke.__file__))
+    child = subprocess.run([sys.executable, "-c", """if True:
+        import gc, json, time
+        import chip_smoke
+        pauses = chip_smoke.ClientPauses()
+        pauses.install()
+        keep = [[i] for i in range(100000)]
+        t0 = time.time()
+        gc.collect()
+        took, n = chip_smoke.freeze_client_heap()
+        t1 = time.time()
+        print(json.dumps({"took": took, "n": n, "frozen": gc.get_freeze_count(),
+                          "full": [e for e in pauses.between(t0, t1) if e[2] == 2],
+                          "later": pauses.between(t1 + 1, t1 + 2), "span": t1 - t0}))
+        """], cwd=root, capture_output=True, text=True, timeout=120, check=True)
+    got = json.loads(child.stdout.strip().splitlines()[-1])
+    assert got["took"] > 0 and got["n"] > 100000 and got["frozen"] >= got["n"]
+    assert len(got["full"]) == 2 and all(0 <= e[1] <= got["span"] for e in got["full"])
+    assert got["later"] == []
+    family = "cedar_authorizer_request_duration_seconds"
+    m = WebhookMetrics()
+    before = m.expose()
+    for seconds, decision in ((0.1, "allow"), (0.7, "allow"), (0.71, "deny"), (2.0, "allow")):
+        m.record_request(decision, seconds)
+    after = m.expose()
+    assert chip_smoke.metric_above(before, family, "0.7") == 0
+    assert chip_smoke.metric_above(after, family, "0.7") == 2
+    assert chip_smoke.metric_above(after, family, "0.25") == 3

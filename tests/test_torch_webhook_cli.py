@@ -67,7 +67,7 @@ PORTED_FLAGS = [
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
     ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
-    ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--rollout-candidate-dir", "/tmp"],
+    ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--lifecycle-journal-file", "/tmp/j"],
     ["--fanout-workers", "2"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
