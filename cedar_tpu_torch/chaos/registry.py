@@ -18,11 +18,17 @@ the port's paths fire:
     path, engine/evaluator.py evaluate_batch),
   * ``pipeline.collect`` / ``pipeline.dispatch_q`` / ``pipeline.decode_q``
     (the batchers' worker loops, outside the per-batch containment),
-  * ``response`` (the final (decision, reason, error) of /v1/authorize).
+  * ``response`` (the final (decision, reason, error) of /v1/authorize),
+  * ``load.shed`` (the overload-control gate's verdict, load/admission.py),
+  * ``shadow.offer`` / ``shadow.process`` (the shadow evaluator's offer
+    hook and its worker's batches, rollout/shadow.py),
+  * ``rollout.stage`` / ``rollout.promote`` (rollout/controller.py),
+  * ``lifecycle.gate`` / ``lifecycle.canary`` / ``lifecycle.journal``
+    (each gate's evidence check, the embedded canary router's candidate
+    evaluation and every journal append, lifecycle/).
 
-The others (shadow, rollout, fleet, fanout, the peer cache, load,
-lifecycle) belong to modules the port does not have yet: configuring them
-is valid and injects nothing.
+The others (fleet, fanout, the peer cache) belong to modules the port does
+not have: configuring them is valid and injects nothing.
 
 With the registry disarmed (the production state) a fire is one module
 attribute read and a returned payload: no locks, no clock reads, no

@@ -107,9 +107,23 @@ answers on the candidate engines through a queue of
 the supervisor as ``shadow.worker``; lifecycle steps land in the audit
 log. ``/debug/rollout`` serves its state and diff report.
 
+Declarative lifecycle, with the JAX CLI's flags and defaults:
+``--lifecycle-spec-dir DIR`` loads every PolicyRollout manifest there
+(lifecycle/spec.py) and drives each through verify -> [analyze] -> shadow
+-> promote on the rollout controller (lifecycle/controller.py), ticking
+every ``--lifecycle-interval-seconds``; the analyze gate diffs the
+candidate against the tiers the authorization engine compiles from. It
+needs the rollout plane (the device backend). ``--lifecycle-journal-file``
+is the transitions' write-ahead journal: a restart replays it, unwinds
+what was in flight and restarts it from pending. ``/debug/lifecycle``
+serves the controller's status and ``POST /lifecycle/approve`` gives a
+manual promotion its consent, behind the rollout control gate.
+``--profiling`` serves ``/debug/pprof/profile`` (a one-second sampler of
+every thread) and ``/debug/pprof/*`` (a dump of every thread) on the
+webhook listener.
+
 Flags of the JAX CLI that this port does not serve (fleet, tenancy,
-lifecycle, partition specs, ...) do not exist here, so argparse rejects
-them.
+partition specs, ...) do not exist here, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -609,6 +623,69 @@ def _rollout_controller(args, stores: TieredPolicyStores, engine, admission_engi
     return rollout
 
 
+def _lifecycle_specs(args) -> Optional[list]:
+    """The PolicyRollout specs of --lifecycle-spec-dir (None without it),
+    loaded before anything starts: a bad manifest (SpecError) or a
+    backend without the rollout plane (ValueError) refuses to start."""
+    if not args.lifecycle_spec_dir:
+        return None
+    if args.backend == "interpreter":
+        raise ValueError(
+            "--lifecycle-spec-dir requires the shadow-rollout plane "
+            "(--backend device): the lifecycle controller drives "
+            "stage/promote/rollback on the rollout controller"
+        )
+    from ..lifecycle import load_specs_dir
+
+    return load_specs_dir(args.lifecycle_spec_dir)
+
+
+def _lifecycle_controller(args, specs, rollout, stores: TieredPolicyStores, obs: dict):
+    """The declarative lifecycle over the rollout controller, as the JAX
+    CLI wires it: resume() from the journal first, then apply() every spec
+    the journal does not hold, then the reconcile loop. None without
+    --lifecycle-spec-dir."""
+    if specs is None:
+        if args.lifecycle_journal_file:
+            log.warning("--lifecycle-journal-file without --lifecycle-spec-dir is "
+                        "inert; ignoring")
+        return None
+    from ..lifecycle import LifecycleController, LifecycleJournal, RolloutLifecycleDriver
+
+    def _driver(spec):
+        # a server has no in-process canary router on the live path
+        # (live_eval None): its specs should promote on verify and shadow
+        # evidence, with an empty canary ladder
+        if spec.canary_ladder:
+            log.warning(
+                "lifecycle spec %r has a canary ladder but the webhook server "
+                "has no embedded canary router; the canary quorum will never "
+                "fill and the stage deadline will halt the rollout — use "
+                '"promotion": {"canary_ladder": []} in server deployments', spec.tenant)
+        return RolloutLifecycleDriver(
+            spec.tenant, rollout, slo=obs["slo"], warm="async",
+            sample_rate=args.shadow_sample_rate,
+            # the analyze gate diffs the candidate against what the
+            # authorization engine serves: the tiers the reloader compiles
+            live_tiers=lambda: TorchReloader._tiers_for(stores)[0],
+        )
+
+    journal = LifecycleJournal(args.lifecycle_journal_file or None)
+    lifecycle = LifecycleController(journal=journal, audit_log=obs["audit_log"])
+    by_tenant = {s.tenant: s for s in specs}
+    resumed = lifecycle.resume({t: _driver(s) for t, s in by_tenant.items()}, specs=by_tenant)
+    for spec in specs:
+        if spec.tenant not in resumed:
+            lifecycle.apply(spec, _driver(spec))
+    if len(specs) > 1:
+        log.warning(
+            "%d lifecycle specs share one rollout controller: the shadow plane "
+            "holds ONE candidate at a time, so rollouts serialize (a second "
+            "stage while one is in flight retries under its deadline)", len(specs))
+    lifecycle.start(args.lifecycle_interval_seconds)
+    return lifecycle
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -629,8 +706,10 @@ def build_server(args) -> WebhookServer:
     when the device is unavailable, the native encoder or the kernels
     cannot be built, or strict validation rejects the initial corpus
     (AnalysisRejected), and refuses --adaptive-batching without the SLO
-    tracker and an empty --rollout-control-token-file before anything
-    starts (ValueError)."""
+    tracker, an empty --rollout-control-token-file and
+    --lifecycle-spec-dir on the interpreter backend before anything
+    starts (ValueError; a bad PolicyRollout manifest raises its SpecError
+    there too)."""
     if args.adaptive_batching and args.slo_availability_target <= 0:
         # before any store ticker or worker thread exists: an error here
         # leaks nothing
@@ -640,6 +719,7 @@ def build_server(args) -> WebhookServer:
             "control signal"
         )
     rollout_control_enabled, rollout_control_token = _rollout_control(args)
+    specs = _lifecycle_specs(args)
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
     if args.insecure:
         certfile = keyfile = None
@@ -758,6 +838,7 @@ def build_server(args) -> WebhookServer:
     if rollout is not None and obs["audit_log"] is not None:
         # stage / promote / rollback and refusals land in the audit stream
         rollout.set_audit_sink(obs["audit_log"].record)
+    lifecycle = _lifecycle_controller(args, specs, rollout, stores, obs)
     supervisor = None
     if args.supervisor_interval_seconds > 0:
         from ..server.supervisor import Supervisor
@@ -796,6 +877,8 @@ def build_server(args) -> WebhookServer:
         rollout=rollout,
         rollout_control_enabled=rollout_control_enabled,
         rollout_control_token=rollout_control_token,
+        lifecycle=lifecycle,
+        enable_profiling=args.profiling,
         **obs,
     )
     if args.adaptive_batching:
@@ -1245,6 +1328,30 @@ def make_parser() -> argparse.ArgumentParser:
         help="allow UNAUTHENTICATED rollout lifecycle POSTs on the "
         "metrics listener (trusted-loopback deployments only)",
     )
+    rollout.add_argument(
+        "--lifecycle-spec-dir",
+        default="",
+        help="directory of PolicyRollout manifests (*.json) driven by the "
+        "declarative lifecycle controller: verify -> [analyze] -> shadow -> "
+        "promote with evidence gates, automatic halt + rollback on breach. "
+        "Requires the shadow-rollout plane (--backend device); server specs "
+        'should set "promotion": {"canary_ladder": []} (the canary router is '
+        "embedded only)",
+    )
+    rollout.add_argument(
+        "--lifecycle-journal-file",
+        default="",
+        help="JSONL write-ahead journal for lifecycle transitions; on "
+        "restart the controller replays it, unwinds anything in flight to "
+        "the live-only plane and restarts those rollouts from pending. "
+        "Default: in-memory (no resume across restarts)",
+    )
+    rollout.add_argument(
+        "--lifecycle-interval-seconds",
+        type=float,
+        default=1.0,
+        help="reconcile-loop period of the lifecycle controller",
+    )
 
     cache = parser.add_argument_group("decision cache")
     cache.add_argument(
@@ -1286,6 +1393,10 @@ def make_parser() -> argparse.ArgumentParser:
     )
 
     debug = parser.add_argument_group("debug")
+    debug.add_argument("--profiling", action="store_true",
+                       help="serve /debug/pprof/profile (a one-second sampler of "
+                       "every thread's stack) and /debug/pprof/* (a dump of "
+                       "every thread) on the webhook listener")
     debug.add_argument("-v", "--verbosity", type=int, default=0)
     debug.add_argument("--enable-recording", action="store_true",
                        help="write every POST body to --recording-dir as "

@@ -39,7 +39,18 @@ reference's internal/server/server.go + health.go), for two entry points:
     of both endpoints (the real one, before the injector) is offered to
     the controller's shadow evaluator once the stores are ready: a
     sampling draw and a non-blocking enqueue that never raises into the
-    request.
+    request;
+  * with a declarative lifecycle controller (lifecycle/, ``lifecycle``):
+    ``GET /debug/lifecycle`` (its per-tenant status) and ``POST
+    /lifecycle/approve`` with ``{"tenant": ...}`` (manual-promotion
+    consent), behind the same 403 / bearer gate as ``/rollout/*``; an
+    unknown tenant answers 409. stop() stops its reconcile loop before the
+    rollout controller;
+  * with ``enable_profiling`` (the CLI's ``--profiling``), on the webhook
+    listener: ``GET /debug/pprof/profile`` samples every thread's stack
+    every 10 ms for one second and answers the 50 most frequent stacks;
+    any other ``/debug/pprof/*`` answers a dump of every thread's stack.
+    Without it every GET there answers 404.
 
 Requests reach the device through each path's micro-batcher
 (engine/batcher.py, pipelined when ``pipeline_depth`` > 0) in front of its
@@ -338,8 +349,18 @@ class WebhookServer:
         rollout=None,
         rollout_control_enabled: bool = True,
         rollout_control_token: Optional[str] = None,
+        lifecycle=None,
+        enable_profiling: bool = False,
     ):
         self.authorizer = authorizer
+        # the declarative lifecycle controller (lifecycle/
+        # LifecycleController): the metrics listener serves
+        # /debug/lifecycle and POST /lifecycle/approve (behind the rollout
+        # control gate); stop() stops its reconcile loop first
+        self.lifecycle = lifecycle
+        # GET /debug/pprof/* on the webhook listener (the CLI's
+        # --profiling); 404 without it
+        self.enable_profiling = enable_profiling
         # the shadow-rollout controller (rollout/ RolloutController): live
         # answers are offered to it, the metrics listener serves
         # /debug/rollout and the lifecycle POSTs. The POSTs answer 403
@@ -1209,7 +1230,59 @@ class WebhookServer:
                         server._inflight_cv.notify_all()
 
             def do_GET(self):
-                self.send_error(404)
+                if server.enable_profiling and self.path.startswith("/debug/pprof"):
+                    self._debug(self.path)
+                else:
+                    self.send_error(404)
+
+            def _debug(self, path: str):
+                import io
+                import sys
+                import traceback
+
+                if path.startswith("/debug/pprof/profile"):
+                    # a statistical whole-process sampler: every thread's
+                    # stack every 10 ms for one second (a profiler of this
+                    # thread would see only this handler sleeping).
+                    # walk_stack yields (frame, line) pairs: the names come
+                    # from the frame's code object (the JAX server reads
+                    # FrameSummary fields off the frame and raises)
+                    import collections
+
+                    me = threading.get_ident()
+                    counts: collections.Counter = collections.Counter()
+                    deadline = time.monotonic() + 1.0
+                    samples = 0
+                    while time.monotonic() < deadline:
+                        for tid, frame in sys._current_frames().items():
+                            if tid == me:
+                                continue
+                            stack = tuple(
+                                f"{fr.f_code.co_filename.rsplit('/', 1)[-1]}:{line} "
+                                f"{fr.f_code.co_name}"
+                                for fr, line in traceback.walk_stack(frame)
+                            )[::-1]
+                            counts[stack] += 1
+                        samples += 1
+                        time.sleep(0.01)
+                    buf = io.StringIO()
+                    buf.write(f"# {samples} samples over 1s, 10ms interval\n")
+                    for stack, n in counts.most_common(50):
+                        buf.write(f"\n{n} samples:\n")
+                        for line in stack:
+                            buf.write(f"  {line}\n")
+                    data = buf.getvalue().encode()
+                else:
+                    buf = io.StringIO()
+                    for tid, frame in sys._current_frames().items():
+                        buf.write(f"--- thread {tid}\n")
+                        traceback.print_stack(frame, file=buf)
+                    data = buf.getvalue().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
 
         return Handler
 
@@ -1305,6 +1378,11 @@ class WebhookServer:
                         self.send_error(404)
                         return
                     self._debug("rollout status", server.rollout.status)
+                elif self.path == "/debug/lifecycle":
+                    if server.lifecycle is None:
+                        self.send_error(404)
+                        return
+                    self._debug("lifecycle status", server.lifecycle.status)
                 elif self.path == "/debug/analysis":
                     if server.analysis_provider is None:
                         self.send_error(404)
@@ -1329,7 +1407,7 @@ class WebhookServer:
                 return self.rfile.read(length) if length else b""
 
             def do_POST(self):
-                if self.path.startswith("/rollout/"):
+                if self.path.startswith(("/rollout/", "/lifecycle/")):
                     self._rollout_control()
                 elif self.path.startswith("/chaos/"):
                     self._chaos_control()
@@ -1341,10 +1419,11 @@ class WebhookServer:
                 {"directory": ...}, {"source": ...} or {"crd": true} (and
                 optionally "description", "warm", "sampleRate"),
                 /rollout/promote with an optional {"force": true},
-                /rollout/rollback. Each answers the controller's status; a
+                /rollout/rollback; and POST /lifecycle/approve with
+                {"tenant": ...}. Each answers the controller's status; a
                 refusal answers 409. 403 unless control is enabled, and
                 without the bearer token when one is set."""
-                if server.rollout is None:
+                if server.rollout is None and server.lifecycle is None:
                     self.send_error(404)
                     return
                 if not server.rollout_control_enabled:
@@ -1374,10 +1453,14 @@ class WebhookServer:
                 except (ValueError, TypeError) as e:
                     self._send_json({"error": f"bad JSON body: {e}"}, 400)
                     return
+                from ..lifecycle import LifecycleError
                 from ..rollout import RolloutError
                 from ..rollout.source import CandidateSourceError
 
                 try:
+                    if self.path.startswith("/rollout/") and server.rollout is None:
+                        self.send_error(404)
+                        return
                     if self.path == "/rollout/stage":
                         out = server.rollout.stage(
                             directory=doc.get("directory"),
@@ -1391,10 +1474,17 @@ class WebhookServer:
                         out = server.rollout.promote(force=bool(doc.get("force")))
                     elif self.path == "/rollout/rollback":
                         out = server.rollout.rollback()
+                    elif self.path == "/lifecycle/approve":
+                        # manual-promotion consent for a declarative
+                        # rollout holding for approval
+                        if server.lifecycle is None:
+                            self.send_error(404)
+                            return
+                        out = server.lifecycle.approve(doc.get("tenant") or "")
                     else:
                         self.send_error(404)
                         return
-                except (RolloutError, CandidateSourceError) as e:
+                except (RolloutError, CandidateSourceError, LifecycleError) as e:
                     # a structured refusal (a refused rollback's lineage
                     # breakdown) rides the body
                     body = {"error": str(e)}
@@ -1514,6 +1604,14 @@ class WebhookServer:
             self.reloader.stop()
         self.stop_batchers()
         self.close_stores()
+        if self.lifecycle is not None:
+            try:
+                # the reconcile loop before the rollout controller: a tick
+                # landing mid-teardown would drive stage / promote against
+                # a stack being dismantled
+                self.lifecycle.stop()
+            except Exception:  # noqa: BLE001 — teardown must finish
+                log.exception("lifecycle stop failed")
         if self.rollout is not None:
             try:
                 self.rollout.stop()  # the shadow worker

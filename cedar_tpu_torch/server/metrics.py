@@ -109,6 +109,23 @@ rollout controller:
   * ``cedar_shadow_evaluations_total{path}``,
     ``cedar_shadow_diffs_total{kind}``, ``cedar_shadow_shed_total{path}``
     and ``cedar_rollout_generation``.
+
+And the declarative lifecycle's (lifecycle/) and the device-exact
+analysis' (analysis/space.py, analysis/semdiff.py), recorded by the
+lifecycle controller, its driver's analyze gate and every sweep or
+semantic diff:
+
+  * ``cedar_lifecycle_stage{tenant}``,
+    ``cedar_lifecycle_transitions_total{tenant,from,to}``,
+    ``cedar_lifecycle_gate_breaches_total{tenant,gate}`` and
+    ``cedar_lifecycle_retries_total{tenant,stage}``, the tenant label
+    capped at 64 distinct ids (later ones fold into ``other``, counted by
+    ``cedar_tenant_label_overflow_total``; a deleted rollout frees its
+    slot and its stage row);
+  * ``cedar_analysis_sweep_seconds{mode}``,
+    ``cedar_analysis_universe_requests{mode,exhaustive}``,
+    ``cedar_analysis_oracle_disagreements_total`` and
+    ``cedar_analysis_semdiff_flips_total{tenant,kind}``.
 """
 
 from __future__ import annotations
@@ -171,6 +188,14 @@ class Gauge:
         key = tuple((k, labels.get(k, "")) for k in self.label_names)
         with self._lock:
             self._values[key] = value
+
+    def remove(self, **labels) -> None:
+        """Drop one labeled row from the exposition (a deleted rollout's
+        stage: a frozen last value would report a rollout that no longer
+        exists)."""
+        key = tuple((k, labels.get(k, "")) for k in self.label_names)
+        with self._lock:
+            self._values.pop(key, None)
 
     def collect(self) -> List[str]:
         out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
@@ -576,6 +601,78 @@ class _ProcessFamilies:
             "to correlate policy rollouts with behavior changes.",
             [],
         )
+        # the declarative lifecycle's and the device-exact analysis'
+        # families (lifecycle/, analysis/semdiff.py): the JAX names and help
+        self.tenant_label_overflow_total = Counter(
+            "cedar_tenant_label_overflow_total",
+            "Tenant-labeled observations folded into `other` because the "
+            "bounded tenant label set was full.",
+            [],
+        )
+        self._tenant_labels: set = set()
+        self._tenant_label_lock = threading.Lock()
+        self.lifecycle_stage = Gauge(
+            "cedar_lifecycle_stage",
+            "Current lifecycle stage per tenant rollout, as a code: 0=pending "
+            "1=verifying 2=shadowing 3=canary 4=promoting 5=promoted "
+            "6=halted 7=rolled_back 8=failed 9=analyzing (appended so "
+            "dashboards keyed on 0-8 stay valid). Bounded tenant label (see "
+            "cedar_tenant_requests_total); the row is removed when the "
+            "tenant's rollout spec is deleted.",
+            ["tenant"],
+        )
+        self.lifecycle_transitions_total = Counter(
+            "cedar_lifecycle_transitions_total",
+            "Lifecycle stage transitions per tenant rollout (bounded tenant "
+            "label). `from`/`to` are stage names; alert on any transition "
+            "into `halted`/`failed`.",
+            ["tenant", "from", "to"],
+        )
+        self.lifecycle_gate_breaches_total = Counter(
+            "cedar_lifecycle_gate_breaches_total",
+            "Gate breaches that halted a tenant's rollout, by gate tier "
+            "(`lowerability`, `analyze_oracle`, `semantic_diff`, "
+            "`shadow_diff`, `slo_burn`, `deadline`). Each breach triggers "
+            "automatic halt + rollback.",
+            ["tenant", "gate"],
+        )
+        self.lifecycle_retries_total = Counter(
+            "cedar_lifecycle_retries_total",
+            "Transient stage-failure retries per tenant rollout and stage "
+            "(decorrelated-jitter backoff under the per-stage deadline).",
+            ["tenant", "stage"],
+        )
+        self.analysis_sweep_seconds = Gauge(
+            "cedar_analysis_sweep_seconds",
+            "Wall-clock seconds of the last device-exact policy-space pass, "
+            "by mode (`sweep`/`semdiff`). Scales with universe budget x "
+            "rule count; watch for growth as the policy set grows.",
+            ["mode"],
+        )
+        self.analysis_universe_requests = Gauge(
+            "cedar_analysis_universe_requests",
+            "Typed request-universe size of the last device-exact pass, by "
+            "mode (`sweep`/`semdiff`). `exhaustive` reports whether the "
+            "universe covered every vocab equivalence class (1) or was "
+            "stratified under the budget (0).",
+            ["mode", "exhaustive"],
+        )
+        self.analysis_oracle_disagreements_total = Counter(
+            "cedar_analysis_oracle_disagreements_total",
+            "Device-exact sweep verdicts that disagreed with the interpreter "
+            "oracle on the sampled cross-check slice. Any nonzero value is a "
+            "compiler or encoder bug, not a policy problem — page on it.",
+            [],
+        )
+        self.analysis_semdiff_flips_total = Counter(
+            "cedar_analysis_semdiff_flips_total",
+            "Decision flips found by the lifecycle analyze gate's semantic "
+            "diff (live vs candidate), by flip kind (`allow_to_deny`/"
+            "`deny_to_allow`) under the bounded tenant label. Flips outside "
+            "the spec's allowed intents breach the gate before any live "
+            "traffic sees the candidate.",
+            ["tenant", "kind"],
+        )
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -593,6 +690,11 @@ class _ProcessFamilies:
             self.explain_requests_total, self.explain_compiles_total,
             self.shadow_evaluations_total, self.shadow_diffs_total,
             self.shadow_shed_total, self.rollout_generation,
+            self.tenant_label_overflow_total, self.lifecycle_stage,
+            self.lifecycle_transitions_total, self.lifecycle_gate_breaches_total,
+            self.lifecycle_retries_total, self.analysis_sweep_seconds,
+            self.analysis_universe_requests, self.analysis_oracle_disagreements_total,
+            self.analysis_semdiff_flips_total,
         )
 
     def collect(self) -> List[str]:
@@ -774,6 +876,65 @@ def record_shadow_shed(path: str) -> None:
 
 def set_rollout_generation(generation: int) -> None:
     _PROCESS.rollout_generation.set(generation)
+
+
+_TENANT_LABEL_CAP = 64
+
+
+def _tenant_label_for(tenant: str) -> str:
+    with _PROCESS._tenant_label_lock:
+        labels = _PROCESS._tenant_labels
+        if tenant != "other" and tenant not in labels:
+            if len(labels) >= _TENANT_LABEL_CAP:
+                _PROCESS.tenant_label_overflow_total.inc()
+                return "other"
+            labels.add(tenant)
+    return tenant
+
+
+def set_lifecycle_stage(tenant: str, code: int) -> None:
+    _PROCESS.lifecycle_stage.set(code, tenant=_tenant_label_for(tenant))
+
+
+def record_lifecycle_transition(tenant: str, frm: str, to: str) -> None:
+    # "from" is a keyword, so the label dict is spelled out
+    _PROCESS.lifecycle_transitions_total.inc(
+        **{"tenant": _tenant_label_for(tenant), "from": frm, "to": to}
+    )
+
+
+def record_lifecycle_gate_breach(tenant: str, gate: str) -> None:
+    _PROCESS.lifecycle_gate_breaches_total.inc(tenant=_tenant_label_for(tenant), gate=gate)
+
+
+def record_lifecycle_retry(tenant: str, stage: str) -> None:
+    _PROCESS.lifecycle_retries_total.inc(tenant=_tenant_label_for(tenant), stage=stage)
+
+
+def clear_lifecycle_tenant(tenant: str) -> None:
+    """Drop a deleted rollout spec's stage gauge row and free the tenant's
+    slot in the bounded label set (counters keep their last values)."""
+    with _PROCESS._tenant_label_lock:
+        known = tenant in _PROCESS._tenant_labels
+        _PROCESS._tenant_labels.discard(tenant)
+    if known:
+        _PROCESS.lifecycle_stage.remove(tenant=tenant)
+
+
+def record_analysis_sweep(mode: str, requests: int, exhaustive: bool, seconds: float) -> None:
+    _PROCESS.analysis_sweep_seconds.set(seconds, mode=mode)
+    _PROCESS.analysis_universe_requests.set(
+        requests, mode=mode, exhaustive="1" if exhaustive else "0")
+
+
+def record_analysis_oracle_disagreements(n: int) -> None:
+    if n:
+        _PROCESS.analysis_oracle_disagreements_total.inc(n)
+
+
+def record_semdiff_flips(tenant: str, kind: str, n: int) -> None:
+    if n:
+        _PROCESS.analysis_semdiff_flips_total.inc(n, tenant=_tenant_label_for(tenant), kind=kind)
 
 
 class WebhookMetrics:

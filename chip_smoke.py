@@ -30,7 +30,8 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies and 24578 more (20482 new, then the batch-4096 bodies again);
+     bodies and 24578 more (8194 new, then the batch-4096 bodies four
+     times over);
      launch counts reset before and read after each batch ({words 1,
      groups 0} up to 16384 rows; at 24578 three words launches: a chunk
      of 16384, then the 8194-row tail split in two of 4097); routing
@@ -428,6 +429,50 @@ Phases, each a hard failure with a nonzero exit:
      first answer's latency, the launches (served and the shadow's), the
      server's RSS at the phase's end (its peak over phases 15, 17 and 18
      is phase 15's line after the SIGTERM) and the phase's wall time.
+  19. the declarative lifecycle (this slice's main path), after phase 16:
+     (b) first, while (a)'s server starts: the device-exact sweep of
+     phase 4's engine (analysis/semdiff.py sweep with engine= and the
+     engine's pack, the rule bitsets fetched on the card) equals the
+     host sweep over the same pack (dead, shadowed, overlaps,
+     match_counts; 0 oracle disagreements on either), and its sat matrix
+     _host_sat_matrix's byte for byte; both times printed. (a) a server
+     over phase 12's objects without their two interpreter-fallback
+     policies (one directory store, a file per object; cache off),
+     --rollout-insecure-control, a journal file, the audit log,
+     --profiling and --lifecycle-spec-dir with two specs (empty canary
+     ladders): tenant-breach, a directory candidate holding an
+     interpreter-fallback policy under lowerability_floor_pct 100, must
+     halt at verifying and end rolled_back with nothing staged;
+     tenant-good, the live set plus one permit for a user no traffic
+     sends, with the analyze gate on (that user an allowed intent,
+     flip budget 0), shadow min_samples 256 and diff budget 0, manual
+     promotion. Two clients send a pool of 768 distinct SARs throughout;
+     /debug/lifecycle is polled (analyzing, shadowing and promoted seen
+     in order, each with its evidence); one /debug/pprof/profile is
+     taken while the candidate shadows (its top three stacks printed);
+     once tenant-good awaits approval, POST /lifecycle/approve, then the
+     promotion and 4 s more traffic. Checks: the journal holds every
+     transition of both walks (pending -> verifying -> analyzing ->
+     shadowing -> promoting -> promoted, with one awaiting_approval and
+     one approved record; pending -> verifying -> halted -> rolled_back),
+     /metrics cedar_lifecycle_stage reads 5 and 7, the analyze evidence
+     0 oracle disagreements and 0 out-of-intent flips, the shadow 256
+     samples and 0 diffs, the audit log one rollout stage
+     (lifecycle:tenant-good), and every answer equals the port's
+     interpreter over the set live when it was served (before the
+     approval the live set, after the promotion the candidate, either
+     between; the oracle pool after the server stopped). Prints the
+     analyze gate's seconds and universe, stage to ready, the shadow's
+     samples a second, approve to the first answer of the promoted set,
+     the launches (served, the shadow worker's, the candidate engines'
+     warm-ups: launches_lifecycle) and the phase's wall time. (c) only
+     under --only-lifecycle: the embedded canary router (an in-process
+     RolloutController over phase 4's engine, the 10 / 50 / 100 ladder,
+     a clean candidate promoted then rolled back, then the
+     lifecycle-breach game day halting a second rollout on its canary
+     SLO burn, every served answer the live engine's) and a crash
+     resume (a server killed while its rollout shadows; a new one on the
+     same journal restarts it from pending and walks it to shadowing).
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
@@ -445,8 +490,9 @@ reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-crd`` phases 1, 2 and 12, ``--only-gate`` phases 1, 2 and 13,
 ``--only-cache`` phases 1, 2 and 14, ``--only-obs`` phases 1, 2 and 15,
 ``--only-load`` phases 1, 2 and 16, ``--only-explain`` phases 1, 2, 15
-and 17, and ``--only-rollout`` phases 1, 2, 15 and 18; none prints
-result lines.
+and 17, ``--only-rollout`` phases 1, 2, 15 and 18, and
+``--only-lifecycle`` phases 1, 2 and 19 (with 19 (c), and a 10k engine
+of its own for (b)); none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. In the kernels line each kernel carries
@@ -454,8 +500,10 @@ its launches on every path the run drove as ``launches_<path>``, each
 counted from 0 just before that path and read just after (phase 17's
 explain window launches neither kernel by design: ``launches_explain``
 is 0; ``launches_rollout`` adds the shadow worker's launches on the
-candidate engines to the server's served ones); ``launches`` is their
-sum. Exits nonzero, printing no result, when
+candidate engines to the server's served ones, and
+``launches_lifecycle`` those and the candidate engines' warm-ups);
+``launches`` is their sum. The run's wall time is printed before the
+card line. Exits nonzero, printing no result, when
 CUDA is unavailable or the package is missing.
 """
 
@@ -1224,6 +1272,9 @@ def main() -> None:
     ap.add_argument("--only-rollout", action="store_true",
                     help="run phases 1, 2, 15 and 18 only (the shadow rollout on phase 15's "
                          "server); prints no result lines")
+    ap.add_argument("--only-lifecycle", action="store_true",
+                    help="run phases 1, 2 and 19 only (the declarative lifecycle, with the "
+                         "embedded canary router and a crash resume); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-24578 answer of the fast path "
@@ -1231,6 +1282,7 @@ def main() -> None:
                          "idle share; after phase 8, split a lone request's time over "
                          "the pipeline stages in-process")
     args = ap.parse_args()
+    t_smoke = time.monotonic()
     CLIENT_GC.install()
 
     import torch
@@ -1317,6 +1369,13 @@ def main() -> None:
         corpus = synth_corpus(args.policies, seed=args.seed)
         obs_phase(args, card, gated_bodies(corpus, 4096, seed=args.seed + 6),
                   then=rollout_then(args, card, corpus))
+        return
+    if args.only_lifecycle:
+        corpus = synth_corpus(args.policies, seed=args.seed)
+        tiers = corpus.tiers()
+        engine = TorchPolicyEngine()
+        engine.load(tiers)
+        lifecycle_phase(args, card, corpus, engine, tiers)
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1514,12 +1573,13 @@ def main() -> None:
     fast = SARFastPath(engine, authz)
     # the largest batch: 24578 rows, the fewest past one chunk whose tail
     # splits (65536 until phase 13 needed the time, 32768 until phase 18
-    # did); its last 4096 rows are the batch-4096 bodies again, so the
-    # interpreter answers 20482 new bodies for it (every answer served is
-    # still held against the interpreter; the card test of the fast
-    # path's launches serves 65536)
+    # did); its last 16384 rows are the batch-4096 bodies four times over
+    # (once until phase 19 needed the time), so the interpreter answers
+    # 8194 new bodies for it (every answer served is still held against
+    # the interpreter; the card test of the fast path's launches serves
+    # 65536)
     big_n = 24578
-    big_rows = corpus.sar_bodies(big_n - len(big), seed=args.seed + 5) + big
+    big_rows = corpus.sar_bodies(big_n - 4 * len(big), seed=args.seed + 5) + big * 4
     batches = {"300": bodies, "4096": big, str(big_n): big_rows}
     # one words launch per pipeline chunk: 16384-row chunks, a last one
     # above 8192 rows split in two halves (the JAX package's chunk plan),
@@ -1820,6 +1880,10 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # ---- 16. the overload-control plane under an open-loop flash crowd
     load_launches = load_phase(args, card, g_batch)
 
+    # ---- 19. the declarative lifecycle on its own server, with the
+    # device-exact sweep on phase 4's engine while that server starts
+    lifecycle_launches = lifecycle_phase(args, card, corpus, engine, tiers)
+
     # each kernel's launches on every path this run drove, each counted
     # from 0 just before its path and read just after (a server's in its
     # process; phase 18's adds the shadow worker's launches on the
@@ -1829,6 +1893,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         per_path = {
+            "launches_lifecycle": lifecycle_launches[k],
             "launches_rollout": rollout_launches[k],
             "launches_explain": explain_out["launches"][k],
             "launches_load": load_launches[k],
@@ -1866,6 +1931,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
                   f"float32 matmul {s['library_ms']:.4f}, int8 _int_mm "
                   f"{s['library_int_mm_ms']})", flush=True)
 
+    print(f"smoke wall time ({card}): {time.monotonic() - t_smoke:.1f} s", flush=True)
     card = card_line()
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6265,6 +6331,584 @@ def load_phase(args, card: str, sars: list) -> dict:
             api.shutdown()
     print(f"load phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
     return launches_load
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the declarative policy lifecycle
+
+# the live set of phase 19's server: phase 12's objects without their two
+# interpreter-fallback policies, one file per object; tenant-good's
+# candidate is that set plus LIFECYCLE_ADDED_POLICY, a permit for a user
+# the traffic never sends (the analyze gate's intent); tenant-breach's is
+# a directory holding an interpreter-fallback policy
+LIFECYCLE_NEWCOMER = "lifecycle-newcomer"
+LIFECYCLE_ADDED_POLICY = (f'permit (principal == k8s::User::"{LIFECYCLE_NEWCOMER}", action,\n'
+                          "        resource is k8s::Resource);\n")
+LIFECYCLE_GOOD, LIFECYCLE_BREACH = "tenant-good", "tenant-breach"
+LIFECYCLE_WALK = ["pending", "verifying", "analyzing", "shadowing", "promoting", "promoted"]
+LIFECYCLE_POOL = 768  # distinct SARs the phase's traffic cycles through
+LIFECYCLE_MIN_SAMPLES = 256
+LIFECYCLE_AFTER_S = 4.0  # traffic kept up after the promotion
+
+
+def lifecycle_objects(n_policies: int, seed: int) -> dict:
+    """Phase 19's live set {name: content}: phase 12's objects with the
+    interpreter-fallback policies left out, as phase 18's candidate leaves
+    them out (the strict stage gate refuses a candidate that holds one)."""
+    objs = crd_objects(n_policies, seed)
+    objs["gated"] = NATIVE_OPAQUE_POLICY
+    objs["admission"] = ADM_POLICIES + ADM_DEMO_OWNER_POLICY
+    return objs
+
+
+def _write_policy_dir(path: str, files: dict) -> str:
+    os.makedirs(path, exist_ok=True)
+    for name, content in files.items():
+        with open(os.path.join(path, f"{name}.cedar"), "w") as f:
+            f.write(content)
+    return path
+
+
+def lifecycle_specs(spec_dir: str, good_dir: str, breach_dir: str) -> None:
+    """The two PolicyRollout manifests of phase 19's server, named so that
+    tenant-breach sorts (and so ticks) first: its automatic rollback is a
+    no-op only while nothing is staged."""
+    os.makedirs(spec_dir, exist_ok=True)
+    docs = {
+        f"01-{LIFECYCLE_BREACH}.json": {
+            "kind": "PolicyRollout", "metadata": {"name": LIFECYCLE_BREACH},
+            "spec": {"candidate": {"directory": breach_dir},
+                     "gates": {"lowerability_floor_pct": 100.0},
+                     "promotion": {"mode": "auto", "canary_ladder": []}}},
+        f"02-{LIFECYCLE_GOOD}.json": {
+            "kind": "PolicyRollout", "metadata": {"name": LIFECYCLE_GOOD},
+            "spec": {"candidate": {"directory": good_dir},
+                     "gates": {"analyze": {"flip_budget": 0, "allowed_intents": [
+                         {"kind": "deny_to_allow",
+                          "principal": f"k8s::User::{LIFECYCLE_NEWCOMER}"}]},
+                         "shadow": {"min_samples": LIFECYCLE_MIN_SAMPLES, "diff_budget": 0}},
+                     "promotion": {"mode": "manual", "canary_ladder": []},
+                     "stage_deadline_s": 600}},
+    }
+    for name, doc in docs.items():
+        with open(os.path.join(spec_dir, name), "w") as f:
+            json.dump(doc, f)
+
+
+class LifecycleTraffic:
+    """Phase 19's traffic: ``clients`` keep-alive connections POST the
+    pool's SARs in turn, each pausing ``pause_s`` between requests, until
+    stop(). Every answer is kept as (perf_counter at send, at receipt,
+    pool index, status); nothing is retried."""
+
+    def __init__(self, port: int, pool: list, clients: int = 2, pause_s: float = 0.005):
+        self.port, self.pool, self.clients, self.pause_s = port, pool, clients, pause_s
+        self.records: list = []
+        self.errors: list = []
+        self._next = 0
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run) for _ in range(clients)]
+
+    def _run(self):
+        c = Client(self.port)
+        try:
+            while not self._stop.is_set():
+                with self._lock:
+                    i = self._next % len(self.pool)
+                    self._next += 1
+                t = time.perf_counter()
+                status, _ = c.post(self.pool[i])
+                self.records.append((t, time.perf_counter(), i, status))
+                time.sleep(self.pause_s)
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            self.errors.append(repr(e))
+        finally:
+            c.close()
+
+    def start(self):
+        for th in self._threads:
+            th.start()
+        return self
+
+    def stop(self) -> list:
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=60)
+        return sorted(self.records)
+
+
+def pprof_top(port: int, n: int = 3) -> tuple:
+    """One GET /debug/pprof/profile -> (samples, [(count, innermost frames)])
+    of the n most frequent stacks."""
+    text = http_get(port, "/debug/pprof/profile")[1].decode()
+    lines = text.splitlines()
+    samples = int(lines[0].split()[1])
+    stacks, cur = [], None
+    for line in lines[1:]:
+        if line.endswith(" samples:"):
+            cur = (int(line.split()[0]), [])
+            stacks.append(cur)
+        elif line.startswith("  ") and cur is not None:
+            cur[1].append(line.strip())
+    return samples, [(k, frames[-4:]) for k, frames in stacks[:n]]
+
+
+def lifecycle_sweep(card: str, engine, tiers, problems: list) -> None:
+    """Phase 19 (b): the device-exact sweep of the engine's 10k set, its
+    rule bitsets fetched through the engine on the card, against the host
+    route over the same pack."""
+    import torch
+
+    from cedar_tpu_torch.analysis import semdiff
+
+    packed = engine._compiled.packed
+    t0 = time.perf_counter()
+    dev = semdiff.sweep(tiers, engine=engine, packed=packed)
+    t_dev = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = semdiff.sweep(tiers, packed=packed)
+    t_host = time.perf_counter() - t0
+    for part in ("dead", "shadowed", "overlaps"):
+        if getattr(dev, part) != getattr(host, part):
+            problems.append(f"sweep {part}: the engine route differs from the host route")
+    if dev.match_counts != host.match_counts:
+        problems.append("sweep match_counts: the engine route differs from the host route")
+    for label, res in (("engine", dev), ("host", host)):
+        if res.oracle["disagreements"]:
+            problems.append(f"sweep ({label}): {res.oracle['disagreements']} oracle disagreements")
+    codes, extras = semdiff.encode_universe(packed, dev.universe)
+    t0 = time.perf_counter()
+    on_card = semdiff._engine_sat_matrix(engine, packed, codes, extras)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_host = semdiff._host_sat_matrix(packed, codes, extras)
+    t_hsat = time.perf_counter() - t0
+    if on_card.tobytes() != on_host.tobytes():
+        problems.append("sweep: the engine's sat matrix differs from _host_sat_matrix")
+    print(f"lifecycle sweep ({card}): {dev.n_policies} policies, {dev.n_rules} rules, universe "
+          f"{json.dumps(dev.universe.to_dict())}; sweep through the engine {t_dev:.3f} s, on the "
+          f"host {t_host:.3f} s; dead {len(dev.dead)}, shadowed {len(dev.shadowed)}, overlaps "
+          f"{len(dev.overlaps)}, oracle {dev.oracle['sampled']} sampled / "
+          f"{dev.oracle['disagreements']} disagreements; sat matrix [{on_card.shape[0]}, "
+          f"{on_card.shape[1]}] through the engine {t_card * 1e3:.3f} ms, on the host "
+          f"{t_hsat * 1e3:.3f} ms, byte-equal {on_card.tobytes() == on_host.tobytes()}",
+          flush=True)
+
+
+def lifecycle_phase(args, card: str, corpus, engine, tiers) -> dict:
+    """Phase 19 (module docstring). (a) a server over the lifecycle's live
+    set with two PolicyRollout specs: tenant-breach halts at verifying and
+    rolls back, tenant-good walks verify -> analyze -> shadow, holds for
+    approval, is approved over POST /lifecycle/approve and promoted; every
+    answer held to the interpreter over the set live when it was served;
+    (b) the device-exact sweep on ``engine`` (run while the server starts);
+    (c) under --only-lifecycle only, the embedded canary router and a crash
+    resume. Returns the kernels' launches on the lifecycle path: the
+    server's served ones, the shadow worker's and the candidate engines'
+    warm-ups."""
+    t_phase = time.monotonic()
+    problems = []
+    grace = 5.0
+    pool = cache_working_set(gated_bodies(corpus, 2 * LIFECYCLE_POOL, seed=args.seed + 19),
+                             LIFECYCLE_POOL)
+    live = lifecycle_objects(args.policies, args.seed)
+    with tempfile.TemporaryDirectory(prefix="cedar-lifecycle-") as tmp:
+        live_dir = _write_policy_dir(os.path.join(tmp, "live"), live)
+        good_dir = _write_policy_dir(os.path.join(tmp, "candidate-good"),
+                                     {**live, LIFECYCLE_NEWCOMER: LIFECYCLE_ADDED_POLICY})
+        breach_dir = _write_policy_dir(os.path.join(tmp, "candidate-breach"),
+                                       {"fallback": FALLBACK_POLICY})
+        spec_dir = os.path.join(tmp, "specs")
+        lifecycle_specs(spec_dir, good_dir, breach_dir)
+        journal, audit = os.path.join(tmp, "journal.jsonl"), os.path.join(tmp, "audit.jsonl")
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"spec": {"stores": [{"type": "directory",
+                                            "directoryStore": {"path": live_dir}}]}}, f)
+        flags = ("--request-timeout-ms", "10000", "--rollout-insecure-control",
+                 "--lifecycle-spec-dir", spec_dir, "--lifecycle-journal-file", journal,
+                 "--lifecycle-interval-seconds", "0.5", "--audit-log-file", audit, "--profiling")
+        srv = Webhook(cfg, tmp, "webhook-lifecycle", grace, flags)
+        try:
+            # ---- (b) the device-exact sweep, while the server starts
+            if engine is not None:
+                lifecycle_sweep(card, engine, tiers, problems)
+            srv.wait_ready(card)
+            launches = lifecycle_serve(card, srv, pool, journal, audit, problems)
+            took, rss = srv.terminate()
+            print(f"lifecycle webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+        answers, t_oracle = lifecycle_oracle(args, pool, live_dir, good_dir)
+        lifecycle_flips(card, launches.pop("_records"), launches.pop("_marks"), answers,
+                        t_oracle, problems)
+        if args.only_lifecycle:
+            lifecycle_canary(card, engine, tiers, pool, problems)
+            lifecycle_resume(card, tmp, cfg, good_dir, problems)
+    if problems:
+        fail("lifecycle: " + "; ".join(problems))
+    print(f"lifecycle phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+def _lifecycle_doc(srv) -> dict:
+    return json.loads(http_get(srv.mport, "/debug/lifecycle")[1])
+
+
+def _rollout_doc(srv) -> dict:
+    return json.loads(http_get(srv.mport, "/debug/rollout")[1])
+
+
+def lifecycle_serve(card, srv, pool, journal, audit, problems) -> dict:
+    """Phase 19 (a) on the running server: traffic throughout, the walk
+    polled on /debug/lifecycle, one profile while the candidate shadows,
+    the approval, the promotion; then the journal, the audit log and
+    /metrics. Returns the launches, with the traffic's records and the
+    times that split them (popped by the caller)."""
+    e0 = srv.debug_engine()
+    traffic = LifecycleTraffic(srv.port, pool).start()
+    seen = {LIFECYCLE_GOOD: [], LIFECYCLE_BREACH: []}  # (stage, evidence keys) in order
+    evals = []  # (perf_counter, shadow evaluations) while tenant-good shadows
+    t_ready_unix = profile = staged_at = None
+    deadline = time.monotonic() + 600
+    while True:
+        doc = _lifecycle_doc(srv)
+        for tenant, walk in seen.items():
+            t_doc = doc["tenants"].get(tenant)
+            if t_doc is None:
+                continue
+            entry = (t_doc["stage"], sorted(t_doc["evidence"]))
+            if not walk or walk[-1] != entry:
+                walk.append(entry)
+        good = doc["tenants"][LIFECYCLE_GOOD]
+        if good["stage"] in ("halted", "rolled_back", "failed"):
+            fail(f"lifecycle: {LIFECYCLE_GOOD} ended {good['stage']}: "
+                 f"{json.dumps(good)[:1500]}\n{srv.log()}")
+        if good["stage"] == "shadowing":
+            ro = _rollout_doc(srv)
+            cand = ro.get("candidate") or {}
+            staged_at = cand.get("staged_at", staged_at)
+            if t_ready_unix is None and cand.get("warm_state") == "ready":
+                t_ready_unix = time.time()
+            if ro.get("diff"):
+                evals.append((time.perf_counter(), sum(ro["diff"]["evaluations"].values())))
+            if profile is None:
+                profile = pprof_top(srv.port)
+        if good["awaiting_approval"] and t_ready_unix is not None:
+            break
+        if time.monotonic() > deadline:
+            fail(f"lifecycle: {LIFECYCLE_GOOD} not awaiting approval within 600 s: "
+                 f"{json.dumps(doc)[:1500]}\n{srv.log()}")
+        time.sleep(0.1)
+    ro = _rollout_doc(srv)
+    shadow_launches = dict(ro["shadow_launches"])
+    warm = ro["candidate"]["warm_stats"]
+    warm_launches = {k: sum(w["launches"].get(k, 0) for w in warm.values())
+                     for k in shadow_launches}
+    diff = ro["diff"]
+    # ---- the approval and the promotion
+    t_approve = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{srv.mport}/lifecycle/approve", method="POST",
+                                 data=json.dumps({"tenant": LIFECYCLE_GOOD}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        code, approved = r.status, json.loads(r.read())
+    approve_s = time.perf_counter() - t_approve
+    if code != 200 or approved.get("approved") is not True:
+        fail(f"lifecycle approve: {code} {approved}")
+    while _rollout_doc(srv)["state"] != "promoted":
+        if time.perf_counter() - t_approve > 120:
+            fail(f"lifecycle: not promoted within 120 s of the approval:\n{srv.log()}")
+        time.sleep(0.02)
+    t_promoted = time.perf_counter()
+    while True:
+        doc = _lifecycle_doc(srv)
+        stage = doc["tenants"][LIFECYCLE_GOOD]["stage"]
+        entry = (stage, sorted(doc["tenants"][LIFECYCLE_GOOD]["evidence"]))
+        if seen[LIFECYCLE_GOOD][-1] != entry:
+            seen[LIFECYCLE_GOOD].append(entry)
+        if stage == "promoted":
+            break
+        if time.perf_counter() - t_approve > 120:
+            fail(f"lifecycle: {LIFECYCLE_GOOD} at {stage} 120 s after the approval")
+        time.sleep(0.05)
+    time.sleep(LIFECYCLE_AFTER_S)
+    records = traffic.stop()
+    if traffic.errors:
+        fail(f"lifecycle traffic: client errors {traffic.errors[:3]}")
+    e1 = srv.debug_engine()
+    final = _lifecycle_doc(srv)
+    text = http_get(srv.mport, "/metrics")[1].decode()
+
+    # ---- the walk, the evidence, the journal, the metrics, the audit log
+    g, b = final["tenants"][LIFECYCLE_GOOD], final["tenants"][LIFECYCLE_BREACH]
+    ev = g["evidence"]
+    an = ev.get("analyze", {})
+    with open(journal) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    walk = {t: [(r["from"], r["to"]) for r in recs if r.get("tenant") == t and r.get("to")
+                and r.get("event") == "transition"] for t in seen}
+    events = {t: [r["event"] for r in recs if r.get("tenant") == t] for t in seen}
+    want_good = list(zip(LIFECYCLE_WALK, LIFECYCLE_WALK[1:]))
+    want_breach = [("pending", "verifying"), ("verifying", "halted"), ("halted", "rolled_back")]
+    if walk[LIFECYCLE_GOOD] != want_good:
+        problems.append(f"{LIFECYCLE_GOOD}'s journal walk {walk[LIFECYCLE_GOOD]}")
+    if walk[LIFECYCLE_BREACH] != want_breach:
+        problems.append(f"{LIFECYCLE_BREACH}'s journal walk {walk[LIFECYCLE_BREACH]}")
+    if events[LIFECYCLE_GOOD].count("awaiting_approval") != 1 or \
+            events[LIFECYCLE_GOOD].count("approved") != 1:
+        problems.append(f"{LIFECYCLE_GOOD}'s journal events {events[LIFECYCLE_GOOD]}")
+    polled = [s for s, _ in seen[LIFECYCLE_GOOD]]
+    order = [s for s in LIFECYCLE_WALK if s in polled]
+    if sorted(set(polled), key=LIFECYCLE_WALK.index) != order or \
+            not {"analyzing", "shadowing", "promoted"} <= set(polled):
+        problems.append(f"/debug/lifecycle walk of {LIFECYCLE_GOOD}: {seen[LIFECYCLE_GOOD]}")
+    want_ev = {"analyzing": ["verify"], "shadowing": ["analyze", "shadow", "verify"],
+               "promoting": ["analyze", "shadow", "verify"],
+               "promoted": ["analyze", "shadow", "verify"]}
+    for stage, keys in seen[LIFECYCLE_GOOD]:
+        if stage in want_ev and not set(want_ev[stage]) - {"shadow"} <= set(keys):
+            problems.append(f"/debug/lifecycle at {stage}: evidence {keys}")
+    if g["stage"] != "promoted" or sorted(ev) != ["analyze", "shadow", "verify"]:
+        problems.append(f"{LIFECYCLE_GOOD} final: {g['stage']}, evidence {sorted(ev)}")
+    if b["stage"] != "rolled_back" or b.get("halt", {}).get("gate") != "lowerability" or \
+            b["halt"].get("stage") != "verifying":
+        problems.append(f"{LIFECYCLE_BREACH} final: {json.dumps(b)[:600]}")
+    if an.get("oracle_disagreements") != 0 or an.get("out_of_intent_flips") != 0:
+        problems.append(f"analyze evidence {json.dumps(an)[:600]}")
+    if ev["shadow"]["samples"] < LIFECYCLE_MIN_SAMPLES or ev["shadow"]["diffs"]:
+        problems.append(f"shadow evidence {ev['shadow']}")
+    for tenant, code in ((LIFECYCLE_GOOD, 5), (LIFECYCLE_BREACH, 7)):
+        line = f'cedar_lifecycle_stage{{tenant="{tenant}"}} {code}'
+        if line not in text:
+            problems.append(f"/metrics lacks {line}")
+    with open(audit) as f:
+        arecs = [json.loads(ln) for ln in f if ln.strip()]
+    staged = [r for r in arecs if r.get("kind") == "rollout" and r.get("event") == "staged"]
+    if [r.get("description") for r in staged] != [f"lifecycle:{LIFECYCLE_GOOD}"]:
+        problems.append(f"rollout stages in the audit log: {staged}")
+    ts = {(r.get("tenant"), r.get("to")): r["ts"] for r in arecs
+          if r.get("kind") == "lifecycle" and r.get("event") == "transition"}
+    tick_s = ts[(LIFECYCLE_GOOD, "shadowing")] - ts[(LIFECYCLE_GOOD, "analyzing")]
+    staged_ts = staged[0]["ts"] if staged else float("nan")
+    rate = ((evals[-1][1] - evals[0][1]) / (evals[-1][0] - evals[0][0])
+            if len(evals) > 1 and evals[-1][0] > evals[0][0] else float("nan"))
+
+    # ---- launches: served (both engines), the shadow worker's, the
+    # candidates' warm-ups
+    served = {k: sum(e1[p]["engine"]["launches"][k] - e0[p]["engine"]["launches"][k]
+                     for p in ("authorization", "admission")) for k in shadow_launches}
+    launches = {k: served[k] + shadow_launches[k] + warm_launches[k] for k in served}
+    if not shadow_launches.get("match_words_kernel"):
+        problems.append(f"the candidate engines' shadow launches {shadow_launches}")
+    if not all(launches.values()):
+        problems.append(f"a kernel did not launch in phase 19: {launches}")
+    problems += resilience_quiet("lifecycle", text)
+    print(f"lifecycle walk ({card}): {LIFECYCLE_GOOD} polled "
+          + " -> ".join(f"{s}{k}" for s, k in seen[LIFECYCLE_GOOD])
+          + f"; journal {walk[LIFECYCLE_GOOD]} + events "
+          f"{[e for e in events[LIFECYCLE_GOOD] if e != 'transition']}; {LIFECYCLE_BREACH} "
+          f"{walk[LIFECYCLE_BREACH]}, halt {json.dumps(b.get('halt'))[:300]}", flush=True)
+    print(f"lifecycle analyze gate at {ev['verify']['policies']} candidate policies ({card}, "
+          f"host): {an.get('seconds')} s, universe {an.get('requests')} requests (exhaustive "
+          f"{an.get('exhaustive')}), flips {json.dumps(an.get('flips'))}, out of intent "
+          f"{an.get('out_of_intent_flips')}, oracle {an.get('oracle_sampled')} sampled / "
+          f"{an.get('oracle_disagreements')} disagreements; verify "
+          f"{json.dumps(ev['verify'])}", flush=True)
+    print(f"lifecycle stage ({card}): the analyzing tick (the live tiers' gate, the candidate "
+          f"parsed twice, the diff, the stage) {tick_s:.3f} s; from the parsed candidate, the "
+          f"stage (strict gate, two candidate compiles) {staged_ts - staged_at:.3f} s and stage "
+          f"to ready {t_ready_unix - staged_at:.3f} s (polled every 0.1 s; warm-up per engine "
+          + json.dumps({e: {"compile_seconds": w["compile_seconds"], "warm_seconds": w["seconds"],
+                            "launches": w["launches"]} for e, w in warm.items()})
+          + f"); shadow {sum(diff['evaluations'].values())} evaluations, {rate:.1f} "
+          f"samples a second, shed {json.dumps(diff['shed'])}, diffs "
+          f"{json.dumps(diff['diffs'])}", flush=True)
+    if profile is not None:
+        samples, top = profile
+        print(f"lifecycle profile while shadowing ({card}): {samples} samples; top stacks "
+              + " | ".join(f"{k}x {' < '.join(reversed(frames))}" for k, frames in top),
+              flush=True)
+    print(f"lifecycle approve ({card}): POST /lifecycle/approve {approve_s * 1e3:.3f} ms, "
+          f"promoted {(t_promoted - t_approve) * 1e3:.1f} ms after it (polled every 20 ms); "
+          f"launches served {json.dumps(served)} + shadow {json.dumps(shadow_launches)} + "
+          f"candidate warm-ups {json.dumps(warm_launches)}", flush=True)
+    launches["_records"] = records
+    launches["_marks"] = (t_approve, t_promoted)
+    return launches
+
+
+def lifecycle_oracle(args, pool, live_dir, good_dir):
+    t0 = time.monotonic()
+    out = interpreter_answers({"live": (f"dir-authorize:{live_dir}", pool),
+                               "cand": (f"dir-authorize:{good_dir}", pool)},
+                              args.policies, args.seed, piece=96)
+    return out, time.monotonic() - t0
+
+
+def lifecycle_flips(card, records, marks, answers, t_oracle, problems) -> None:
+    """Every answer of the phase against the interpreter over the set
+    live when it was served: the live set before the approval, the
+    candidate after the promotion was seen, either in between."""
+    t_approve, t_promoted = marks
+    live, cand = answers["live"], answers["cand"]
+    same = sum(a == b for a, b in zip(live, cand))
+    counts = {"before": 0, "during": 0, "after": 0}
+    flips = {k: 0 for k in counts}
+    first_after = None
+    for t_send, t_recv, i, status in records:
+        got = canon({"status": status})
+        if t_recv < t_approve:
+            part, ok = "before", got == live[i]
+        elif t_send > t_promoted:
+            part, ok = "after", got == cand[i]
+            if first_after is None:
+                first_after = t_recv - t_approve
+        else:
+            part, ok = "during", got in (live[i], cand[i])
+        counts[part] += 1
+        if not ok:
+            flips[part] += 1
+            if sum(flips.values()) <= 3:
+                print(f"lifecycle flip ({part}): body {i}, got {json.dumps(got)}, live "
+                      f"{json.dumps(live[i])}, candidate {json.dumps(cand[i])}", flush=True)
+    if sum(flips.values()):
+        problems.append(f"flips vs the interpreter {flips}")
+    if not counts["after"]:
+        problems.append("no answer after the promotion")
+    print(f"lifecycle answers ({card}): {counts} (before the approval / between it and the "
+          f"promotion / after), flips vs the interpreter {flips}; the oracle's "
+          f"{2 * len(live)} answers in {t_oracle:.1f} s ({same} of {len(live)} bodies answer "
+          f"alike on both sets); approve to the first answer of the promoted set "
+          f"{(first_after or float('nan')) * 1e3:.1f} ms", flush=True)
+
+
+def lifecycle_canary(card, engine, tiers, pool, problems) -> None:
+    """Phase 19 (c), the embedded canary router (--only-lifecycle): an
+    in-process RolloutController over ``engine``, a clean candidate (the
+    same tiers) walked up the 10 / 50 / 100 ladder and promoted, then
+    rolled back; then the lifecycle-breach game day halting a second
+    rollout on its canary SLO burn. Every served answer is the live
+    engine's."""
+    from cedar_tpu_torch.chaos import default_registry
+    from cedar_tpu_torch.lifecycle import (
+        TERMINAL_STAGES,
+        LifecycleController,
+        PolicyRolloutSpec,
+        RolloutLifecycleDriver,
+    )
+    from cedar_tpu_torch.obs import SLOTracker
+    from cedar_tpu_torch.ops import cuda_match
+    from cedar_tpu_torch.rollout import RolloutController
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.server.sar import get_authorizer_attributes
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    t0 = time.monotonic()
+    stores = TieredPolicyStores([MemoryStore("synth", tiers[0])])
+    authz = CedarWebhookAuthorizer(stores, evaluate=engine.evaluate,
+                                   evaluate_batch=engine.evaluate_batch)
+    bodies = pool[:384]
+
+    def live_eval(body):
+        return authz.authorize_batch([get_authorizer_attributes(json.loads(body))])[0]
+
+    want = [live_eval(b) for b in bodies]
+    rollout = RolloutController(authz_engine=engine)
+    slo = SLOTracker(availability_target=0.999)
+    ctrl = LifecycleController(backoff_base_s=0.0, backoff_cap_s=0.001,
+                               backoff_uniform=lambda a, b: 0.0)
+    launches0 = cuda_match.launch_counts()
+    try:
+        for tenant, chaos in (("canary-clean", None), ("canary-breach", "lifecycle-breach")):
+            driver = RolloutLifecycleDriver(tenant, rollout, slo=slo, live_eval=live_eval,
+                                            warm="sync")
+            spec = PolicyRolloutSpec(tenant=tenant, candidate={"tiers": tiers},
+                                     shadow_min_samples=0 if chaos else 64,
+                                     canary_min_decisions=24, canary_ladder=(10, 50, 100))
+            if chaos:
+                reg = default_registry()
+                reg.configure(chaos_builtin(chaos))
+                reg.arm()
+            ctrl.apply(spec, driver)
+            served_bad = 0
+            for _ in range(60):
+                stage = ctrl.tick()[tenant]
+                if stage in TERMINAL_STAGES:
+                    break
+                if stage in ("shadowing", "canary"):
+                    got = [driver.serve(b) for b in bodies]
+                    served_bad += sum(g != w for g, w in zip(got, want))
+                    rollout.drain(60)
+            doc = ctrl.status()["tenants"][tenant]
+            default_registry().reset()
+            want_stage = "rolled_back" if chaos else "promoted"
+            if doc["stage"] != want_stage or served_bad:
+                problems.append(f"canary {tenant}: {doc['stage']}, {served_bad} served answers "
+                                f"unlike the live engine's: {json.dumps(doc)[:600]}")
+            if chaos and doc.get("halt", {}).get("gate") != "slo_burn":
+                problems.append(f"canary {tenant} halted on {doc.get('halt')}")
+            print(f"lifecycle canary router {tenant} ({card}): {doc['stage']} at rung "
+                  f"{doc['rung']}, evidence {json.dumps(doc['evidence'])}"
+                  + (f", halt {doc['halt']['gate']}" if doc.get("halt") else ""), flush=True)
+            if not chaos:
+                rollout.rollback()  # the live set serves again for the game day
+    finally:
+        rollout.stop()
+        default_registry().reset()
+    launches = {k: n - launches0.get(k, 0) for k, n in cuda_match.launch_counts().items()}
+    print(f"lifecycle canary router ({card}): {time.monotonic() - t0:.1f} s, launches "
+          f"{json.dumps(launches)}", flush=True)
+
+
+def lifecycle_resume(card, tmp, cfg, good_dir, problems) -> None:
+    """Phase 19 (c), a crash resume (--only-lifecycle): a server over a
+    fresh journal walks tenant-good to shadowing and is killed (SIGKILL);
+    a new server on the same journal resets what the dead one left in
+    flight, restarts the rollout from pending (a ``resumed`` record) and
+    walks it to shadowing again."""
+    rdir = os.path.join(tmp, "resume-specs")
+    os.makedirs(rdir, exist_ok=True)
+    doc = {"kind": "PolicyRollout", "metadata": {"name": LIFECYCLE_GOOD},
+           "spec": {"candidate": {"directory": good_dir},
+                    "gates": {"shadow": {"min_samples": 10**9}},
+                    "promotion": {"mode": "manual", "canary_ladder": []},
+                    "stage_deadline_s": 600}}
+    with open(os.path.join(rdir, "good.json"), "w") as f:
+        json.dump(doc, f)
+    journal = os.path.join(tmp, "resume-journal.jsonl")
+    flags = ("--request-timeout-ms", "10000", "--rollout-insecure-control",
+             "--lifecycle-spec-dir", rdir, "--lifecycle-journal-file", journal,
+             "--lifecycle-interval-seconds", "0.5")
+    t0 = time.monotonic()
+    for run in ("first", "resumed"):
+        srv = Webhook(cfg, tmp, f"webhook-lifecycle-{run}", 5.0, flags)
+        try:
+            srv.wait_ready(card)
+            deadline = time.monotonic() + 300
+            while True:
+                st = _lifecycle_doc(srv)["tenants"][LIFECYCLE_GOOD]
+                if st["stage"] == "shadowing" and _rollout_doc(srv)["state"] == "staged":
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"lifecycle resume ({run}): not shadowing within 300 s: {st}")
+                time.sleep(0.1)
+            if run == "resumed":
+                srv.terminate()
+        finally:
+            srv.kill()  # the first run: a crash while shadowing
+    with open(journal) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    events = [(r["event"], r.get("from"), r.get("to")) for r in recs]
+    want = [("applied", None, None), ("transition", "pending", "verifying"),
+            ("transition", "verifying", "shadowing"), ("resumed", "shadowing", "pending"),
+            ("transition", "pending", "verifying"), ("transition", "verifying", "shadowing")]
+    if events != want:
+        problems.append(f"lifecycle resume journal {events}")
+    print(f"lifecycle crash resume ({card}): journal {events}; two servers in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
 
 
 def chaos_builtin(name: str) -> dict:

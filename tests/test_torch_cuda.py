@@ -1151,3 +1151,96 @@ def test_adopt_compiled_adds_no_warmup_launch_and_no_encoder_build(cuda, monkeyp
     want = SARFastPath(cpu, CedarWebhookAuthorizer(stores, evaluate_batch=cpu.evaluate_batch))
     assert got == want.authorize_raw(bodies)
     assert engine.staging_stats()["outstanding"] == 0
+
+
+@pytest.mark.cuda
+def test_engine_sweep_on_card_equals_host(cuda):
+    """The device-exact sweep through a card engine (its rule bitsets
+    fetched on the card): the same verdicts as the host route over the
+    engine's pack, and the sat matrix _host_sat_matrix's byte for byte."""
+    from cedar_tpu_torch.analysis import semdiff
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+
+    tiers = synth_corpus(400, seed=13).tiers()
+    engine = TorchPolicyEngine(name="sweep")
+    engine.load(tiers, max_batch=1)
+    packed = engine._compiled.packed
+    dev = semdiff.sweep(tiers, budget=2048, engine=engine, packed=packed)
+    host = semdiff.sweep(tiers, budget=2048, packed=packed)
+    for part in ("dead", "shadowed", "overlaps", "match_counts"):
+        assert getattr(dev, part) == getattr(host, part), part
+    assert dev.oracle["disagreements"] == host.oracle["disagreements"] == 0
+    codes, extras = semdiff.encode_universe(packed, dev.universe)
+    on_card = semdiff._engine_sat_matrix(engine, packed, codes, extras)
+    assert on_card.tobytes() == semdiff._host_sat_matrix(packed, codes, extras).tobytes()
+
+
+@pytest.mark.cuda
+def test_lifecycle_driver_on_card_engines_equals_cpu(cuda):
+    """A lifecycle over a RolloutController of card engines and one of
+    CPU engines: verify, stage (candidate engines on the card), shadow,
+    the canary ladder and promotion give the same journal and the same
+    served answers; the candidate engines launch the words kernel; a
+    rollback then serves the live set again."""
+    import json
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus, synth_source
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.lifecycle import (
+        TERMINAL_STAGES,
+        LifecycleController,
+        PolicyRolloutSpec,
+        RolloutLifecycleDriver,
+    )
+    from cedar_tpu_torch.rollout import RolloutController
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.server.sar import get_authorizer_attributes
+    from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
+
+    live_src = synth_source(400, seed=13)
+    # one permit for a user the traffic never sends: no shadow diff
+    cand_src = live_src + (
+        'permit (principal == k8s::User::"newcomer", action, resource is k8s::Resource);\n')
+    sars = synth_corpus(400, seed=13).sar_bodies(192, seed=21)
+    out = {}
+    for device in ("cuda", "cpu"):
+        live = PolicySet.from_source(live_src, "live")
+        engine = TorchPolicyEngine(device=device, name="authorization")
+        engine.load([live], max_batch=128)
+        authz = CedarWebhookAuthorizer(TieredPolicyStores([MemoryStore("live", live)]),
+                                       evaluate_batch=engine.evaluate_batch)
+
+        def live_eval(body, authz=authz):
+            return authz.authorize_batch([get_authorizer_attributes(json.loads(body))])[0]
+
+        rollout = RolloutController(authz_engine=engine, queue_depth=4096, duty_cycle=1.0)
+        driver = RolloutLifecycleDriver("card", rollout, live_eval=live_eval, warm="sync")
+        spec = PolicyRolloutSpec(
+            tenant="card", candidate={"tiers": [PolicySet.from_source(cand_src, "live")]},
+            shadow_min_samples=64, canary_min_decisions=8, canary_ladder=(25, 100),
+            stage_deadline_s=600)
+        ctrl = LifecycleController(backoff_base_s=0.0, backoff_cap_s=0.001,
+                                   backoff_uniform=lambda a, b: 0.0)
+        ctrl.apply(spec, driver)
+        served, launches = [], None
+        for _ in range(40):
+            stage = ctrl.tick()["card"]
+            if stage in TERMINAL_STAGES:
+                break
+            if stage in ("shadowing", "canary"):
+                served.append([driver.serve(b) for b in sars])
+                assert rollout.drain(120)
+                if device == "cuda" and launches is None:
+                    launches = rollout.status()["shadow_launches"]
+        if device == "cuda":
+            assert launches["match_words_kernel"] > 0
+        after = [live_eval(b) for b in sars]
+        rollout.rollback()
+        restored = [live_eval(b) for b in sars]
+        rollout.stop()
+        out[device] = (ctrl.stages(), ctrl.journal.records(), served, after, restored)
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0] == {"card": "promoted"}
+    assert out["cuda"][3] == out["cuda"][4]  # the new permit's user sends nothing

@@ -63,11 +63,13 @@ PORTED_FLAGS = [
     "--audit-log-file", "--audit-max-bytes", "--audit-max-files", "--slo-availability-target",
     "--slo-latency-target", "--slo-latency-budget-ms", "--artificial-error-rate",
     "--artificial-deny-rate", "--enable-recording", "--recording-dir",
+    "--lifecycle-spec-dir", "--lifecycle-journal-file", "--lifecycle-interval-seconds",
+    "--profiling",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
-    ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--lifecycle-spec-dir", "/tmp"],
-    ["--pdp-listen", "127.0.0.1:1"], ["--profiling"], ["--lifecycle-journal-file", "/tmp/j"],
+    ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--partition-spec", "/tmp/p.json"],
+    ["--pdp-listen", "127.0.0.1:1"], ["--pallas", "on"], ["--tenant-header", "x-t"],
     ["--fanout-workers", "2"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
