@@ -35,7 +35,11 @@ an entry for its TTL (up to 300 s for an allow); here it dies, since the
 added policy's action scope (compiler/shard.py policy_actions, kept per
 shard step in the plane's ``shard_added``) admits the request's action.
 A stamp made without an action (``scoped(reason)`` alone) dies at any
-shard change. A full compile or a device rebuild changes the structural
+shard change. On a fused multi-tenant plane (tenancy/) the stamp also
+records the request's tenant: a policy added to another tenant's shard
+(``<tenant>/t<tier>b<bucket>``) carries that tenant's discriminator and
+can never match this request, so such a step leaves the entry alive and
+a one-tenant edit keeps every other tenant's entries warm. A full compile or a device rebuild changes the structural
 id and kills everything, scoped or not. Comparison against plain tuple
 composites returns NotImplemented, which Python resolves to "not equal":
 mixing stamps can only cause a miss, never a stale hit.
@@ -47,6 +51,7 @@ from typing import Mapping, Optional, Tuple
 
 # the one copy of the helper is obs/audit.py's (the audit lines read the
 # same ids); the module keeps its former private name for its callers
+from ..compiler.shard import shard_tenant
 from ..obs.audit import determining_policies as _determining_policies
 
 __all__ = [
@@ -126,6 +131,7 @@ class PlaneGenerations:
             tuple(sorted((sid, self.shards.get(sid)) for sid in shards)),
             action=action,
             seen=self.shards,
+            tenant=tenant,
         )
 
 
@@ -134,20 +140,23 @@ class ShardScopedStamp:
     and its request's action (module docstring). ``seen`` is the plane's
     shard generations the stamp was last found valid against: advanced
     on each successful comparison, so a stamp checks a plane's changes
-    once."""
+    once. ``tenant`` is the request's tenant on a fused plane ("" else):
+    policies added to other tenants' shards are skipped."""
 
-    __slots__ = ("base", "shard_gens", "action", "seen")
+    __slots__ = ("base", "shard_gens", "action", "seen", "tenant")
 
     def __init__(self, base: tuple, shard_gens: Tuple[Tuple[str, int], ...],
-                 action: Optional[str] = None, seen: Optional[Mapping[str, int]] = None):
+                 action: Optional[str] = None, seen: Optional[Mapping[str, int]] = None,
+                 tenant: str = ""):
         self.base = base
         self.shard_gens = shard_gens
         self.action = action
         self.seen = seen
+        self.tenant = tenant
 
     def __repr__(self) -> str:
         return (f"ShardScopedStamp(base={self.base!r}, shards={self.shard_gens!r}, "
-                f"action={self.action!r})")
+                f"action={self.action!r}, tenant={self.tenant!r})")
 
     def __eq__(self, other):
         if isinstance(other, PlaneGenerations):
@@ -163,20 +172,26 @@ class ShardScopedStamp:
             return True
         if isinstance(other, ShardScopedStamp):
             return (self.base == other.base and self.shard_gens == other.shard_gens
-                    and self.action == other.action)
+                    and self.action == other.action and self.tenant == other.tenant)
         return NotImplemented
 
     def _untouched_since(self, plane: PlaneGenerations) -> bool:
         """True when no shard step of ``plane`` after ``seen`` added a
         policy that can apply to this stamp's action. A removed shard
         needs no check: a policy it held that decided this request is
-        named in the reason, and its shard is a determining one."""
+        named in the reason, and its shard is a determining one. Nor does
+        a shard of another tenant than the stamp's: its policies carry
+        that tenant's discriminator."""
         if self.action is None or self.seen is None or plane.added is None:
             return False
         for sid, gen in plane.shards.items():
             before = self.seen.get(sid)
             if before == gen:
                 continue
+            if self.tenant:
+                owner = shard_tenant(sid)
+                if owner is not None and owner != self.tenant:
+                    continue
             history = plane.added.get(sid)
             if not history:
                 return False

@@ -122,8 +122,24 @@ manual promotion its consent, behind the rollout control gate.
 every thread) and ``/debug/pprof/*`` (a dump of every thread) on the
 webhook listener.
 
-Flags of the JAX CLI that this port does not serve (fleet, tenancy,
-partition specs, ...) do not exist here, so argparse rejects them.
+Multi-tenant shared plane, with the JAX CLI's flags and defaults:
+``--tenant NAME=POLICY_DIR`` (repeatable) registers a tenant served from a
+directory store that re-reads its files every ``max(1, --reload-seconds)``
+seconds; the tenants' policies fuse (tenancy/ TenantRegistry: per-tenant
+clones with a tenant guard, each tenant's own validationMode gate on its
+originals) into the one tier stack both engines compile, in place of the
+config's stores, so one pair of card engines and one batcher per path
+serve every tenant. The front end (tenancy/ TenantResolver) resolves each
+request's tenant from the ``/t/<name>/...`` path prefix, the
+``--tenant-header`` header, a ``--tenant-host HOST=NAME`` map or
+``--tenant-default``, trusting only ``--tenant-sources``; an unresolved,
+unknown or conflicting tenant is refused before evaluation.
+``/debug/tenancy`` serves the front end and the registry. ``--tenant``
+refuses to start with the shadow-rollout flags and with
+``--enable-recording``, as the JAX CLI does.
+
+Flags of the JAX CLI that this port does not serve (fleet, PDP, partition
+specs, ...) do not exist here, so argparse rejects them.
 """
 
 from __future__ import annotations
@@ -396,6 +412,9 @@ def _register_supervised(supervisor, server) -> None:
     stacks = [server.authorizer.stores]
     if server.admission_handler is not None:
         stacks.append(server.admission_handler.stores)
+    if server.tenancy is not None:
+        # the fused tier stores wrap the tenants' directory stores
+        stacks.append(server.tenancy.registry.tenant_stores())
     seen = set()
     for stores in stacks:
         for store in stores:
@@ -686,6 +705,85 @@ def _lifecycle_controller(args, specs, rollout, stores: TieredPolicyStores, obs:
     return lifecycle
 
 
+def _refuse_with_tenants(args) -> None:
+    """--tenant with the shadow-rollout flags or --enable-recording refuses
+    to start, with the JAX CLI's messages: a candidate corpus carries no
+    tenant guards (every shadow diff on a fused plane would be vacuous),
+    and a recorded body loses the tenant its TenantBody carried."""
+    if not args.tenant:
+        return
+    if (args.rollout_candidate_dir or args.rollout_control_token_file
+            or args.rollout_insecure_control):
+        raise ValueError(
+            "--tenant cannot combine with shadow-rollout flags "
+            "(--rollout-candidate-dir/--rollout-control-token-file/"
+            "--rollout-insecure-control): the candidate corpus carries "
+            "no tenant guards, so every shadow diff on a fused plane "
+            "would be vacuous (docs/multitenancy.md)"
+        )
+    if args.enable_recording:
+        raise ValueError(
+            "--enable-recording cannot combine with --tenant: recorded "
+            "bodies lose the resolved tenant and cannot replay against "
+            "a fused plane (docs/multitenancy.md)"
+        )
+
+
+def _tenancy(args, config, stores: TieredPolicyStores) -> tuple:
+    """--tenant NAME=POLICY_DIR (repeatable): (the fused tier stores in
+    place of the config's, the TenantResolver) as the JAX CLI builds them;
+    (stores, None) without the flag. Each tenant is a directory store
+    re-read every max(1, --reload-seconds) s, so an edit reaches the fused
+    plane within one reloader tick, behind its own validationMode gate
+    (the registry fuses each tenant's analyzed tiers; the fused stack
+    itself stays ungated, since the tenant guards' context access would
+    distort the analysis). A malformed flag raises ValueError before any
+    store starts."""
+    if not args.tenant:
+        return stores, None
+    from ..stores.directory import DirectoryPolicyStore
+    from ..tenancy import TenantRegistry, TenantResolver, fused_tier_stores
+
+    specs = []
+    for spec in args.tenant:
+        name, sep, tdir = spec.partition("=")
+        if not sep or not name or not tdir:
+            raise ValueError(f"--tenant wants NAME=POLICY_DIR, got {spec!r}")
+        specs.append((name, tdir))
+    hosts = {}
+    for spec in args.tenant_host:
+        host, sep, name = spec.partition("=")
+        if not sep or not host or not name:
+            raise ValueError(f"--tenant-host wants HOST=TENANT, got {spec!r}")
+        hosts[host] = name
+    sources = tuple(s.strip() for s in args.tenant_sources.split(",") if s.strip())
+    validation = (config.validation_mode if config is not None
+                  else args.validation_mode or None)
+    registry = TenantRegistry()
+    resolver = TenantResolver(registry, header=args.tenant_header, hosts=hosts,
+                              default=args.tenant_default or None, sources=sources)
+    try:
+        for name, tdir in specs:
+            registry.add_tenant(name, stores=TieredPolicyStores(
+                [DirectoryPolicyStore(tdir, refresh_interval_s=max(1.0, float(args.reload_seconds)))],
+                validation_mode=validation,
+            ))
+    except Exception:
+        for store in registry.tenant_stores():
+            store.close()
+        raise
+    if len(stores.stores):
+        log.warning("--tenant set: the config's policy stores are replaced by the fused "
+                    "tenant stack")
+        for store in stores:
+            close = getattr(store, "close", None)
+            if close is not None:
+                close()
+    log.info("multi-tenant plane: %d tenant(s) fused (%s)", len(registry),
+             ", ".join(registry.tenants()))
+    return fused_tier_stores(registry), resolver
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -706,10 +804,12 @@ def build_server(args) -> WebhookServer:
     when the device is unavailable, the native encoder or the kernels
     cannot be built, or strict validation rejects the initial corpus
     (AnalysisRejected), and refuses --adaptive-batching without the SLO
-    tracker, an empty --rollout-control-token-file and
-    --lifecycle-spec-dir on the interpreter backend before anything
-    starts (ValueError; a bad PolicyRollout manifest raises its SpecError
-    there too)."""
+    tracker, an empty --rollout-control-token-file,
+    --lifecycle-spec-dir on the interpreter backend, and --tenant with
+    the shadow-rollout flags or --enable-recording before anything starts
+    (ValueError; a bad PolicyRollout manifest raises its SpecError there
+    too, and a malformed --tenant* value its ValueError or TenantError,
+    with every tenant store it started closed)."""
     if args.adaptive_batching and args.slo_availability_target <= 0:
         # before any store ticker or worker thread exists: an error here
         # leaks nothing
@@ -718,6 +818,7 @@ def build_server(args) -> WebhookServer:
             "(--slo-availability-target > 0): the burn rate is the "
             "control signal"
         )
+    _refuse_with_tenants(args)
     rollout_control_enabled, rollout_control_token = _rollout_control(args)
     specs = _lifecycle_specs(args)
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
@@ -734,6 +835,7 @@ def build_server(args) -> WebhookServer:
         # the flag overrides the config file's spec.validationMode
         config.validation_mode = args.validation_mode
     stores = cedar_config_stores(config, kubeconfig_path=args.kubeconfig or None)
+    stores, tenancy = _tenancy(args, config, stores)
     # admission gets the allow-all final tier (main.go:111-116); it shares
     # the authorization stack's validation posture (the allow-all tail is
     # trivially lowerable, so the gate treats both stacks alike)
@@ -879,6 +981,7 @@ def build_server(args) -> WebhookServer:
         rollout_control_token=rollout_control_token,
         lifecycle=lifecycle,
         enable_profiling=args.profiling,
+        tenancy=tenancy,
         **obs,
     )
     if args.adaptive_batching:
@@ -1390,6 +1493,50 @@ def make_parser() -> argparse.ArgumentParser:
         help="opt-in admission decision caching, gated to read-only "
         "idempotent reviews (CONNECT operations and dryRun requests); "
         "mutating reviews always evaluate",
+    )
+
+    tenancy = parser.add_argument_group("multi-tenancy")
+    tenancy.add_argument(
+        "--tenant",
+        action="append",
+        default=[],
+        metavar="NAME=POLICY_DIR",
+        help="register a tenant served from the fused shared plane "
+        "(repeatable): NAME becomes the tenant id (DNS-label-ish), "
+        "POLICY_DIR its *.cedar policy directory. All tenants compile "
+        "into ONE engine with per-rule tenant discriminators; requests "
+        "route by /t/<name>/v1/... path, the tenant header, or a host "
+        "map (docs/multitenancy.md)",
+    )
+    tenancy.add_argument(
+        "--tenant-header",
+        default="x-cedar-tenant",
+        help="HTTP header carrying the tenant id (default %(default)s)",
+    )
+    tenancy.add_argument(
+        "--tenant-host",
+        action="append",
+        default=[],
+        metavar="HOST=TENANT",
+        help="map a Host/SNI hostname to a tenant (repeatable) — the "
+        "shape a TLS-terminating LB hands multi-SNI traffic over in",
+    )
+    tenancy.add_argument(
+        "--tenant-default",
+        default="",
+        help="tenant to assume when no path/header/host resolves one "
+        "(default: refuse such requests)",
+    )
+    tenancy.add_argument(
+        "--tenant-sources",
+        default="path,header,host",
+        metavar="SRC[,SRC...]",
+        help="which resolution sources to trust, comma-separated subset "
+        "of path,header,host (default %(default)s). Path and header are "
+        "CLIENT-supplied: restrict to 'host' when tenants are "
+        "authenticated by per-tenant SNI/LB routes, or a tenant could "
+        "name a neighbor and evaluate under its policy slice. Enabled "
+        "sources that disagree on a request are rejected (conflict)",
     )
 
     debug = parser.add_argument_group("debug")

@@ -64,8 +64,8 @@ import torch
 
 from ..chaos.registry import chaos_fire
 from ..compiler.lower import AUTHZ_SCHEMA_INFO, SchemaInfo, lower_tiers
-from ..compiler.pack import ERROR_IDX, FORBID_IDX, GROUPS_PER_TIER, PERMIT_IDX, pack
-from ..compiler.shard import DEFAULT_SHARD_BUCKETS, ShardCompiler
+from ..compiler.pack import ERROR_IDX, FORBID_IDX, GROUPS_PER_TIER, PERMIT_IDX, TENANT_SLOT, pack
+from ..compiler.shard import DEFAULT_SHARD_BUCKETS, ShardCompiler, shard_tenant
 from ..compiler.table import encode_request_codes
 from ..lang.authorize import ALLOW, DENY, Diagnostics, PolicySet, Reason
 from ..lang.entities import EntityMap
@@ -437,6 +437,20 @@ class _CompiledSet:
         self.rule_group = rule_group
         self.rule_policy = rule_policy
         self.fallback = list(packed.fallback) if packed is not None else []
+        # fused multi-tenant plane (tenancy/): (slot column, {value_key:
+        # feature row}) of the reserved tenant discriminator slot, or None.
+        # The raw fast paths stamp each request's tenant code into this
+        # column after the native encode (the body carries no tenant),
+        # which is all the words kernel needs: the tenant literal then
+        # masks foreign rules like any other EQ test. Derived from the
+        # pack, so every path that builds a set from one (a load, a
+        # rebuild, a candidate adopted by promotion) carries it
+        self.tenant_column = None
+        table = packed.table if packed is not None else None
+        if table is not None:
+            tcol = table.scalar_slot_of.get(TENANT_SLOT)
+            if tcol is not None:
+                self.tenant_column = (tcol, dict(table.scalar_vocab.get(TENANT_SLOT, {})))
         dev = self.device
         self.Wt_dev = torch.from_numpy(Wt).to(dev)
         self.thresh_dev = torch.from_numpy(thresh).to(dev)
@@ -687,7 +701,7 @@ class TorchPolicyEngine:
         if pl is None:
             return {"scope": self.last_adoption_scope, "shards": 0}
         hashes = dict(sorted(pl.shard_hashes.items())[:256])
-        return {
+        doc = {
             "scope": pl.scope,
             "last_adoption_scope": self.last_adoption_scope,
             "shards": len(pl.shard_hashes),
@@ -696,6 +710,22 @@ class TorchPolicyEngine:
             "hashes": {sid: h[:12] for sid, h in hashes.items()},
             "hashes_truncated": len(pl.shard_hashes) > 256,
         }
+        # fused multi-tenant plane: the per-tenant shard and dirty rollup,
+        # the operator's proof that one tenant's edit dirtied only its own
+        # (tenant, tier, bucket) shards (docs/multitenancy.md)
+        tenants: Dict[str, dict] = {}
+        for sid in pl.shard_hashes:
+            t = shard_tenant(sid)
+            if t is not None:
+                tenants.setdefault(t, {"shards": 0, "dirty": 0})
+                tenants[t]["shards"] += 1
+        if tenants:
+            for sid in pl.dirty:
+                t = shard_tenant(sid)
+                if t in tenants:
+                    tenants[t]["dirty"] += 1
+            doc["tenants"] = dict(sorted(tenants.items()))
+        return doc
 
     def plane_generation(self):
         """The decision cache's composite-generation unit for this engine
@@ -1039,10 +1069,12 @@ class TorchPolicyEngine:
                 device_bytes=cs.device_bytes,
             )
         if self.device.type == "cuda":
-            # the process's allocations on the card (every engine's), and
-            # what its caching allocator holds of the card's memory
+            # the process's allocations on the card (every engine's), their
+            # peak since the process started, and what its caching
+            # allocator holds of the card's memory
             out["device_memory"] = {
                 "allocated": torch.cuda.memory_allocated(self.device),
+                "peak_allocated": torch.cuda.max_memory_allocated(self.device),
                 "reserved": torch.cuda.memory_reserved(self.device),
             }
         return out

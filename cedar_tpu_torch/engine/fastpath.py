@@ -34,6 +34,14 @@ success. The caller answers a raised batch with the failure posture.
 A failed batch's staging buffers go back to the pool once no copy can
 still read them (engine/evaluator.py _StagingPool.release_after_device).
 
+On a fused multi-tenant plane (tenancy/) the bodies arrive as TenantBody
+and carry no tenant in their bytes: each chunk's encode writes every
+row's tenant feature code into the set's discriminator column
+(``tenant_column``) after the C++ encode, before the dispatch stage's H2D
+copy; an unknown tenant is code 0 and matches nothing. The Python paths
+(gated rows, per-row fallback, the admission parse) stamp the same
+tenant into the request's ``context.tenantId``.
+
 Chaos seams (chaos/registry.py): ``engine.encode`` at each chunk's
 encode, ``engine.dispatch`` at each chunk's launch, ``engine.decode``
 before each chunk's readback.
@@ -513,6 +521,18 @@ class _RawFastPath:
         except Exception:
             staging.release(*held)
             raise
+        tcol = snap.cs.tenant_column
+        if tcol is not None:
+            # fused multi-tenant plane (tenancy/): the body bytes carry no
+            # tenant, so each row's tenant feature code goes into the
+            # reserved discriminator column here, on the encode worker,
+            # before the dispatch stage's H2D copy reads the buffer. Every
+            # row < n is written (the pooled buffer holds an earlier
+            # batch's codes); an unknown or unstamped tenant is code 0,
+            # which activates nothing, so such a row matches no tenant's
+            # rules
+            col, vocab = tcol
+            codes[:n, col] = [vocab.get(("s", getattr(b, "tenant", "")), 0) for b in bodies]
         if B != n:
             # bucket padding: all-zero codes activate nothing, extras >= L
             # match nothing
@@ -873,6 +893,9 @@ class SARFastPath(_RawFastPath):
         authz = self.authorizer
         try:
             attributes = get_authorizer_attributes(sar)
+            # tenant stamp: the Python path's request context carries the
+            # tenant id the device plane discriminates on
+            attributes.tenant = getattr(body, "tenant", "")
             short = authz._short_circuit(attributes)
             if short is not None:
                 return (*short, None)
@@ -903,7 +926,11 @@ class SARFastPath(_RawFastPath):
                 )
                 continue
             try:
-                entities, request = record_to_cedar_resource(get_authorizer_attributes(sar))
+                attributes = get_authorizer_attributes(sar)
+                # tenant stamp: without it a fused plane's gated row would
+                # match no tenant's rules and answer NoOpinion
+                attributes.tenant = getattr(body, "tenant", "")
+                entities, request = record_to_cedar_resource(attributes)
             except Exception as e:  # noqa: BLE001 — always answer
                 log.exception("fastpath gated entity build failed")
                 results[i] = (DECISION_NO_OPINION, "", f"evaluation error: {e}")
@@ -1042,7 +1069,11 @@ class AdmissionFastPath(_RawFastPath):
         review = None
         try:
             review = json.loads(body)
-            return AdmissionRequest.from_admission_review(review), review, None
+            req = AdmissionRequest.from_admission_review(review)
+            # tenant stamp: the Python admission path's context carries the
+            # tenant the device plane masks by
+            req.tenant = getattr(body, "tenant", "")
+            return req, review, None
         except (ValueError, TypeError, RecursionError) as e:
             if review is None:
                 return None, None, AdmissionResponse(

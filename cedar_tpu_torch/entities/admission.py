@@ -117,9 +117,14 @@ class AdmissionRequest:
     object: Optional[dict] = None
     old_object: Optional[dict] = None
     # AdmissionReview.request.dryRun: true marks a side-effect-free review
-    # (evaluation-identical to the real write); parsed for the admission
-    # decision cache, which this package does not have yet
+    # (evaluation-identical to the real write); the admission decision
+    # cache's read-only gate keys on it (server/admission.py)
     dry_run: bool = False
+    # tenant id the front end resolved for this review (tenancy/, never
+    # part of the wire body): stamped into context.tenantId so the fused
+    # plane's discriminators isolate admission decisions too, and folded
+    # into the canonical fingerprint (cache/fingerprint.py)
+    tenant: str = ""
 
     @classmethod
     def from_admission_review(cls, review: dict) -> "AdmissionRequest":

@@ -176,7 +176,8 @@ class Explainer:
             attributes = get_authorizer_attributes(sar)
             # tenant stamp: on a fused multi-tenant plane the explain
             # answer must evaluate under the same context.tenantId the
-            # serving paths stamp (empty until the port serves tenants)
+            # serving paths stamp (the front end's TenantBody; empty on a
+            # single-tenant server)
             attributes.tenant = getattr(body, "tenant", "")
         except Exception as e:  # noqa: BLE001 — mirror the decode-error answer
             return (

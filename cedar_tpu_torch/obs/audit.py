@@ -1,7 +1,8 @@
 """Decision audit log: one structured JSONL line per answered decision (a
-copy of the JAX package's obs/audit.py; ``audit_entry`` leaves out the
-``tier``, ``tenant`` and ``protocol`` keys, which no server of either
-package sets: the port has no tenancy or PDP front end).
+copy of the JAX package's obs/audit.py; ``audit_entry`` takes the
+``tenant`` a tenant front end resolved, and leaves out the ``tier`` and
+``protocol`` keys, which no server of either package sets: the port has
+no PDP front end yet).
 
 Zero-trust authorization treats a durable, joinable decision trail as a
 core requirement (PAPERS.md, arXiv:2504.14777), and Cedar positions
@@ -156,6 +157,7 @@ def audit_entry(
     breaker_state: str = "",
     fallback: bool = False,
     cached: bool = False,
+    tenant: str = "",
 ) -> dict:
     """One decision's audit line. The determining policy ids come from the
     reason diagnostics already in hand: the audit plane never re-evaluates
@@ -180,6 +182,11 @@ def audit_entry(
     p = _process_pod_id()
     if p is not None:
         entry["pod_process"] = p
+    if tenant:
+        # multi-tenant serving (tenancy/): the tenant the front end
+        # attributed this decision to; joins the per-tenant metric series
+        # and the tenant-scoped fingerprint above
+        entry["tenant"] = tenant
     if error:
         entry["error"] = error[:500]
     return entry

@@ -329,6 +329,12 @@ class CedarAdmissionHandler:
         context = {}
         if old_entity is not None:
             context["oldObject"] = old_entity.attrs
+        if getattr(req, "tenant", ""):
+            # fused multi-tenant plane (tenancy/): the context carries the
+            # tenant id the discriminator literals test
+            from ..compiler.pack import TENANT_CONTEXT_KEY
+
+            context[TENANT_CONTEXT_KEY] = req.tenant
 
         cedar_req = Request(
             principal_uid, action_uid, resource_entity.uid, CedarRecord(context)

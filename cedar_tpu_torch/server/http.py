@@ -134,6 +134,23 @@ an ``explanation`` document. It counts on
 request counter and histogram, the SLO rings or the audit log, never
 traced, never cached and never seen by the error injector.
 
+A tenant front end (tenancy/ TenantResolver, ``tenancy``; the CLI's
+``--tenant`` flags), as in the JAX server: do_POST resolves every POST's
+tenant (path prefix ``/t/<id>/...``, which it strips, the tenant header,
+the host map, the default) before the ingress gate, the recorder and the
+cache, and wraps the body in a TenantBody, so every layer below sees the
+stamp: the fast paths' discriminator column, the interpreter paths'
+``context.tenantId``, the cache keys and stamps, the audit line's
+``tenant`` and the trace root's ``tenant`` attribute. A request it cannot
+attribute (``unknown``, ``missing``, ``conflict``) is refused before any
+evaluation: NoOpinion with the evaluationError "tenant rejected: ..." on
+/v1/authorize, a denied review (code 403) on /v1/admit, counted on
+``cedar_tenant_rejected_total{reason}``. Every answer of a resolved tenant
+counts on ``cedar_tenant_requests_total`` and
+``cedar_tenant_request_duration_seconds``; ``GET /debug/tenancy`` on the
+metrics listener serves the resolver's configuration and the registry's
+per-tenant policy counts (404 without a front end).
+
 The server starts the policy reloader (cli/webhook.py TorchReloader) and
 the supervisor (server/supervisor.py) with its listeners; stop() stops
 the supervisor first, then the reloader, the tuners, the batchers and the
@@ -172,6 +189,7 @@ from ..obs.trace import (
 from ..obs.trace import span as trace_span
 from ..schema.consts import AUTHORIZATION_ACTION_ENTITY_TYPE
 from ..stores.quarantine import quarantine_registry
+from ..tenancy.frontend import TenantBody
 from .admission import AdmissionResponse, CedarAdmissionHandler
 from .authorizer import (
     DECISION_ALLOW,
@@ -351,8 +369,14 @@ class WebhookServer:
         rollout_control_token: Optional[str] = None,
         lifecycle=None,
         enable_profiling: bool = False,
+        tenancy=None,
     ):
         self.authorizer = authorizer
+        # the tenant front end (tenancy/ TenantResolver): every POST
+        # resolves a tenant before the gate and the cache, and the body
+        # rides the stack as a TenantBody; an unattributable request is
+        # refused before evaluation. None keeps the single-tenant path
+        self.tenancy = tenancy
         # the declarative lifecycle controller (lifecycle/
         # LifecycleController): the metrics listener serves
         # /debug/lifecycle and POST /lifecycle/approve (behind the rollout
@@ -710,6 +734,9 @@ class WebhookServer:
             request_id = new_trace_id()
         trace, octx = self._begin_obs(
             "authorization", request_id, parent_span_id, root_span_id, sampled)
+        tenant = getattr(body, "tenant", "")
+        if tenant and trace is not None:
+            trace.root.set_attr("tenant", tenant)
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
             try:
@@ -737,6 +764,8 @@ class WebhookServer:
             label = "<error>" if error else _DECISION_LABEL[decision]
             latency = time.monotonic() - start
             self.metrics.record_request(label, latency)
+            if tenant:
+                self.metrics.record_tenant_request("authorization", tenant, label, latency)
             self._finish_obs("authorization", "authorize", body, request_id, trace, octx,
                              label, reason, error, latency)
             log.info(
@@ -787,9 +816,12 @@ class WebhookServer:
                     # names and to the request's action
                     # (cache/generation.py): an incremental reload then
                     # kills the entries whose shard changed or that a
-                    # policy it added could decide
+                    # policy it added could decide; on a fused plane the
+                    # request's tenant qualifies the policy ids (bare ids
+                    # collide across tenants) and the added-policy check
                     scoped = getattr(gen, "scoped", None)
-                    g = scoped(res[1], action=_sar_action(body)) if scoped is not None else gen
+                    g = gen if scoped is None else scoped(
+                        res[1], tenant=getattr(body, "tenant", ""), action=_sar_action(body))
                     cache.put(key, (res[0], res[1]), res[0], generation=g)
                 except Exception:  # noqa: BLE001 — the answer still serves
                     log.exception("decision cache insert failed")
@@ -880,10 +912,14 @@ class WebhookServer:
                 f"failed parsing request body: {e}",
             )
         try:
+            attributes = get_authorizer_attributes(sar)
+            # tenant stamp: the interpreter walk over a fused stack relies
+            # on the guard conditions reading context.tenantId
+            attributes.tenant = getattr(body, "tenant", "")
             # the authorizer's own cache only when the server has none:
             # the server's already missed on this canonical key
             decision, reason = self.authorizer.authorize(
-                get_authorizer_attributes(sar), use_cache=self.decision_cache is None
+                attributes, use_cache=self.decision_cache is None
             )
         except Exception as e:  # noqa: BLE001 — always answer the apiserver
             log.exception("authorize requestId=%s failed", request_id)
@@ -923,6 +959,9 @@ class WebhookServer:
         start = time.monotonic()
         trace, octx = self._begin_obs(
             "admission", request_id, parent_span_id, root_span_id, sampled)
+        tenant = getattr(body, "tenant", "")
+        if tenant and trace is not None:
+            trace.root.set_attr("tenant", tenant)
         doc = None
         try:
             doc = self._handle_admit(body, start, priority=priority)
@@ -935,6 +974,8 @@ class WebhookServer:
         finally:
             latency = time.monotonic() - start
             label, error = _admit_outcome(doc)
+            if tenant:
+                self.metrics.record_tenant_request("admission", tenant, label, latency)
             status = ((doc or {}).get("response") or {}).get("status") or {}
             reason = status.get("message") or ""
             self._finish_obs("admission", "admit", body, request_id, trace, octx,
@@ -961,6 +1002,7 @@ class WebhookServer:
                 reason=reason, error=error, latency_s=latency,
                 breaker_state=self._breaker_state_label(path),
                 fallback=bool(octx.get("fallback")), cached=bool(octx.get("cached")),
+                tenant=getattr(body, "tenant", ""),
             ))
             record_audit_record(path)
         except Exception:  # noqa: BLE001 — audit must never break serving
@@ -1015,6 +1057,9 @@ class WebhookServer:
             ).to_admission_review()
         try:
             req = AdmissionRequest.from_admission_review(review)
+            # tenant stamp: the interpreter path's context carries the
+            # tenant the device plane masks by
+            req.tenant = getattr(body, "tenant", "")
             if self._admission_batcher is not None:
                 return self._admission_batcher.submit(
                     req, timeout=remaining()
@@ -1091,6 +1136,15 @@ class WebhookServer:
                     "breaker": None if breaker is None else breaker.state,
                     "encoder_builds": fast.encoder_builds,
                 }
+        return doc
+
+    def debug_tenancy(self) -> dict:
+        """The /debug/tenancy document: the resolver's configuration
+        (``resolver``) and the registry's stats (``registry``)."""
+        doc = {"resolver": self.tenancy.describe()}
+        reg = getattr(self.tenancy, "registry", None)
+        if reg is not None:
+            doc["registry"] = reg.stats()
         return doc
 
     def debug_supervisor(self) -> dict:
@@ -1175,6 +1229,20 @@ class WebhookServer:
                         self.send_error(413, "request body too large")
                         return
                     body = self.rfile.read(length) if length else b""
+                    if server.tenancy is not None:
+                        # the tenant front end, before the gate, the
+                        # recorder and the cache: resolve path prefix /
+                        # header / host, dispatch on the stripped path and
+                        # wrap the body, so every layer below sees the
+                        # stamp. An unattributable request is refused, never
+                        # evaluated against a plane with no slice for it
+                        tenant, path, why = server.tenancy.resolve(
+                            path, self.headers, host=self.headers.get("Host"))
+                        if tenant is None:
+                            server.metrics.record_tenant_rejected(why)
+                            self._reject_tenant(path, body, why)
+                            return
+                        body = TenantBody(body, tenant)
                     path_label = (
                         "authorization" if path == "/v1/authorize"
                         else "admission" if path == "/v1/admit"
@@ -1228,6 +1296,29 @@ class WebhookServer:
                     with server._inflight_cv:
                         server._inflight -= 1
                         server._inflight_cv.notify_all()
+
+            def _reject_tenant(self, path: str, body: bytes, why: str):
+                """The refusal of a request the tenant front end could not
+                attribute: NoOpinion + evaluationError on /v1/authorize
+                (the apiserver reads an abstain), a denied review (code
+                403) on /v1/admit: fail-closed, a write must not slip
+                through a misrouted tenant."""
+                msg = {
+                    "unknown": "unknown tenant",
+                    "conflict": "conflicting tenant sources",
+                }.get(why, "no tenant resolved")
+                if path == "/v1/admit":
+                    uid = ""
+                    try:
+                        uid = (json.loads(body).get("request") or {}).get("uid", "")
+                    except Exception:  # noqa: BLE001 — refused regardless
+                        pass
+                    self._write_json(AdmissionResponse(
+                        uid=uid, allowed=False, code=403, message=f"tenant rejected: {msg}",
+                    ).to_admission_review())
+                else:
+                    self._write_json(sar_response(DECISION_NO_OPINION, "",
+                                                  f"tenant rejected: {msg}"))
 
             def do_GET(self):
                 if server.enable_profiling and self.path.startswith("/debug/pprof"):
@@ -1383,6 +1474,14 @@ class WebhookServer:
                         self.send_error(404)
                         return
                     self._debug("lifecycle status", server.lifecycle.status)
+                elif self.path == "/debug/tenancy":
+                    # the front end's configuration and the registry's
+                    # per-tenant policy counts (the serving plane's shard
+                    # rollup is /debug/engine's shards.tenants)
+                    if server.tenancy is None:
+                        self.send_error(404)
+                        return
+                    self._debug("tenancy status", server.debug_tenancy)
                 elif self.path == "/debug/analysis":
                     if server.analysis_provider is None:
                         self.send_error(404)

@@ -32,6 +32,19 @@ internal/server/metrics/metrics.go):
     the shards of each engine's serving plane and those its last load
     re-lowered (0 from an engine without incremental compile).
 
+With a tenant front end (tenancy/, the CLI's ``--tenant``), each server
+also records, with the JAX package's names, labels and buckets:
+
+  * ``cedar_tenant_requests_total{tenant,path,decision}`` and
+    ``cedar_tenant_request_duration_seconds{tenant,path}`` for every
+    answer of a resolved tenant (both endpoints; ``decision`` is the
+    request family's label on /v1/authorize and allowed / denied /
+    ``<error>`` on /v1/admit), the tenant label capped at 64 distinct ids
+    (later ones fold into ``other``, counted by the process-wide
+    ``cedar_tenant_label_overflow_total``);
+  * ``cedar_tenant_rejected_total{reason}``: the front door's refusals
+    (``unknown``, ``missing``, ``conflict``).
+
 The batch, pipeline, deadline, shed, routing and packed-decode families
 carry a ``path`` label: ``authorization`` for /v1/authorize and
 ``admission`` for /v1/admit. The request families stay
@@ -122,6 +135,9 @@ semantic diff:
     capped at 64 distinct ids (later ones fold into ``other``, counted by
     ``cedar_tenant_label_overflow_total``; a deleted rollout frees its
     slot and its stage row);
+  * ``cedar_tenant_policies{tenant}``, each tenant's policies on the
+    fused plane, set by the tenant registry at every fuse (its row and
+    label slot dropped when the tenant is removed);
   * ``cedar_analysis_sweep_seconds{mode}``,
     ``cedar_analysis_universe_requests{mode,exhaustive}``,
     ``cedar_analysis_oracle_disagreements_total`` and
@@ -611,6 +627,11 @@ class _ProcessFamilies:
         )
         self._tenant_labels: set = set()
         self._tenant_label_lock = threading.Lock()
+        self.tenant_policies = Gauge(
+            "cedar_tenant_policies",
+            "Policies contributed to the fused plane per tenant.",
+            ["tenant"],
+        )
         self.lifecycle_stage = Gauge(
             "cedar_lifecycle_stage",
             "Current lifecycle stage per tenant rollout, as a code: 0=pending "
@@ -690,7 +711,7 @@ class _ProcessFamilies:
             self.explain_requests_total, self.explain_compiles_total,
             self.shadow_evaluations_total, self.shadow_diffs_total,
             self.shadow_shed_total, self.rollout_generation,
-            self.tenant_label_overflow_total, self.lifecycle_stage,
+            self.tenant_label_overflow_total, self.tenant_policies, self.lifecycle_stage,
             self.lifecycle_transitions_total, self.lifecycle_gate_breaches_total,
             self.lifecycle_retries_total, self.analysis_sweep_seconds,
             self.analysis_universe_requests, self.analysis_oracle_disagreements_total,
@@ -892,6 +913,22 @@ def _tenant_label_for(tenant: str) -> str:
     return tenant
 
 
+def set_tenant_policies(tenant: str, n: int) -> None:
+    _PROCESS.tenant_policies.set(n, tenant=_tenant_label_for(tenant))
+
+
+def clear_tenant_policies(tenant: str) -> None:
+    """Drop an offboarded tenant's policy-count gauge row and free its
+    slot in the bounded tenant label set, so departed ids never hold the
+    cap (the JAX package's clear_tenant_policies). A tenant folded into
+    ``other`` is left alone: that row aggregates several tenants."""
+    with _PROCESS._tenant_label_lock:
+        known = tenant in _PROCESS._tenant_labels
+        _PROCESS._tenant_labels.discard(tenant)
+    if known:
+        _PROCESS.tenant_policies.remove(tenant=tenant)
+
+
 def set_lifecycle_stage(tenant: str, code: int) -> None:
     _PROCESS.lifecycle_stage.set(code, tenant=_tenant_label_for(tenant))
 
@@ -1039,6 +1076,33 @@ class WebhookMetrics:
             ["engine"],
         ))
 
+        # the tenant front end's families (tenancy/): the JAX names, help
+        # and buckets; recorded only for resolved tenants, so a server
+        # without --tenant renders their headers alone
+        self.tenant_requests_total = reg(Counter(
+            "cedar_tenant_requests_total",
+            "Requests served per tenant, path and decision on a fused "
+            "multi-tenant plane. The tenant label is CAPPED at 64 distinct "
+            "ids; later ids fold into `other` "
+            "(cedar_tenant_label_overflow_total counts the folds).",
+            ["tenant", "path", "decision"],
+        ))
+        self.tenant_request_latency = reg(Histogram(
+            "cedar_tenant_request_duration_seconds",
+            "Per-tenant request latency on a fused multi-tenant plane "
+            "(bounded tenant label, see cedar_tenant_requests_total).",
+            ["tenant", "path"],
+            [0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 1, 5],
+        ))
+        self.tenant_rejected_total = reg(Counter(
+            "cedar_tenant_rejected_total",
+            "Requests the tenant front end refused before evaluation, by "
+            "reason: `unknown` = a tenant id resolved but is not registered, "
+            "`missing` = no tenant id resolved and no default configured, "
+            "`conflict` = enabled resolution sources named different tenants.",
+            ["reason"],
+        ))
+
         reg(_PROCESS)
 
     def add_fastpath(self, path: str, fastpath) -> None:
@@ -1053,6 +1117,18 @@ class WebhookMetrics:
     def record_request(self, decision: str, latency_s: float) -> None:
         self.request_total.inc(decision=decision)
         self.request_latency.observe(latency_s, decision=decision)
+
+    def record_tenant_request(self, path: str, tenant: str, decision: str,
+                              latency_s: float) -> None:
+        """One answer of a resolved tenant, under the bounded label."""
+        if not tenant:
+            return
+        t = _tenant_label_for(tenant)
+        self.tenant_requests_total.inc(tenant=t, path=path, decision=decision)
+        self.tenant_request_latency.observe(latency_s, tenant=t, path=path)
+
+    def record_tenant_rejected(self, reason: str) -> None:
+        self.tenant_rejected_total.inc(reason=reason)
 
     def record_deadline_exceeded(self, path: str) -> None:
         self.deadline_exceeded_total.inc(path=path)

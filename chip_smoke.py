@@ -30,8 +30,8 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies and 24578 more (8194 new, then the batch-4096 bodies four
-     times over);
+     bodies and 24578 more (2 new, then the batch-4096 bodies six times
+     over);
      launch counts reset before and read after each batch ({words 1,
      groups 0} up to 16384 rows; at 24578 three words launches: a chunk
      of 16384, then the 8194-row tail split in two of 4097); routing
@@ -202,9 +202,12 @@ Phases, each a hard failure with a nonzero exit:
      watch answered 410, so the store relists the same content. Checks:
      after each of 1-3 both engines' load_generation steps with
      compile_scope incremental, no more dirty shards than the object has
-     policies (10, 1, 1), and a lower phase below a quarter of the
-     engine's first (full) load's; after 4 and 5 no engine reloads within
-     3 reloader ticks; every answer is that of a version live while the
+     policies (10, 1, 1), and a lower phase below a quarter of a full
+     lower of the same engine's tiers, timed in the smoke's process under
+     the same 32 + 32 clients just after they start (a fresh
+     ShardCompiler over 64 buckets, the collector paused, as the server's
+     first load lowers); after 4 and 5 no engine reloads
+     within 3 reloader ticks; every answer is that of a version live while the
      request was in flight (the oracle: the port's interpreter over a CRD
      store fed the same objects; 0 flips, a deadline expiry counts as a
      flip); both kernels' served launch counts rise after each swap; no
@@ -224,7 +227,8 @@ Phases, each a hard failure with a nonzero exit:
      each pass timed (lower_all, lint_lowerability, find_shadowing,
      find_conflicts, capacity_report) and the whole call, with
      ``truncated`` (the pair budget is spent at 10k policies). Then two
-     CLI servers, each over two tiers, a directory store (a symlink at
+     CLI servers, one after the other (the oracle pool beside the strict
+     one's start-up), each over two tiers, a directory store (a symlink at
      version 0: the corpus and the native-opaque forbid, refreshInterval
      30s) and a CRD store on FakeApiServer with one Policy object, both
      engines incremental, --reload-seconds 1. The directory edit is one
@@ -473,10 +477,48 @@ Phases, each a hard failure with a nonzero exit:
      SLO burn, every served answer the live engine's) and a crash
      resume (a server killed while its rollout shadows; a new one on the
      same journal restarts it from pending and walks it to shadowing).
+  20. the multi-tenant shared plane (this slice's main path), after phase
+     19, at the JAX bench's tenant setting: synth_tenant_corpora(1000,
+     10, seed=17, clusters=2), ten tenants of 1,000 policies, each a
+     directory with one file per policy (tenant-03 also holds the
+     interpreter-fallback policy), behind the CLI with ten --tenant
+     flags, a --tenant-host, the decision cache on and --validation-mode
+     permissive. While the server starts: the interpreter's answers of
+     every body over its tenant's own directory (the oracle pool), the
+     same ten tenants fused into a card engine in this process (the
+     parsed corpora, each policy named and ordered as its directory store
+     serves it) and two tenants' standalone card engines over their
+     directories, and both kernels held against
+     their plain versions on the fused plane's own operands (native codes
+     of every tenant's bodies, each row stamped with its tenant's code).
+     Then: c=1 library calls of the fused and the standalone engines;
+     c=1 over HTTP per tenant (32 fresh SARs each); 960 fresh SARs at
+     c=64, tenants interleaved; from 8 clients, tenants interleaved,
+     each tenant's 128 SARs (tenant-00's first 16 through the
+     x-cedar-tenant header, tenant-09's through Host) and 32 reviews, and
+     a SAR aimed at each tenant's org-wide policies sent to it and to its
+     neighbor; an unknown and a missing tenant on both endpoints. Checks:
+     every answer equals the interpreter's over that tenant's own
+     directory (0 flips); at least 32 org-wide bodies answered
+     differently by their two tenants; the standalone engines' answers
+     equal the served ones (decision and reason set); the refusals answer
+     "tenant rejected: ..." (a denied review, code 403, on /v1/admit),
+     launch nothing and count on cedar_tenant_rejected_total{reason};
+     cedar_tenant_requests_total equals what each tenant was sent. Then
+     one policy of tenant-05 (one that alone decides a body of its
+     traffic) flips effect on disk: both engines reload with 1 dirty
+     shard, under tenant-05's prefix and in the shards.tenants rollup;
+     every other tenant's decided entry answers from the cache; every
+     SAR again, 0 stale (tenant-05's held to the edited directory's
+     interpreter). Both kernels launched by the served traffic. Prints
+     ready seconds, c=1 p50 / p99 per tenant (HTTP) and fused against
+     standalone (library), c=64 requests/s and mean batch, event to
+     swap, the server's card memory (its allocator's peak) and the
+     phase's launches and wall time.
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
-14, 15 and 16. Every server runs at the CLI's observability defaults, as
+14, 15, 16, 19 and 20. Every server runs at the CLI's observability defaults, as
 users deploy it: tracing armed at sample rate 0 (slow, errored and
 posture-answered requests tail-kept) and the SLO tracker on; phase 15
 arms the rest. Every server of phases 8-13 runs with --decision-cache-size 0:
@@ -492,7 +534,8 @@ reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-load`` phases 1, 2 and 16, ``--only-explain`` phases 1, 2, 15
 and 17, ``--only-rollout`` phases 1, 2, 15 and 18, and
 ``--only-lifecycle`` phases 1, 2 and 19 (with 19 (c), and a 10k engine
-of its own for (b)); none prints result lines.
+of its own for (b)), and ``--only-tenancy`` phases 1, 2 and 20; none
+prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. In the kernels line each kernel carries
@@ -501,7 +544,8 @@ counted from 0 just before that path and read just after (phase 17's
 explain window launches neither kernel by design: ``launches_explain``
 is 0; ``launches_rollout`` adds the shadow worker's launches on the
 candidate engines to the server's served ones, and
-``launches_lifecycle`` those and the candidate engines' warm-ups);
+``launches_lifecycle`` those and the candidate engines' warm-ups;
+``launches_tenancy`` phase 20's server's served ones);
 ``launches`` is their sum. The run's wall time is printed before the
 card line. Exits nonzero, printing no result, when
 CUDA is unavailable or the package is missing.
@@ -1275,6 +1319,9 @@ def main() -> None:
     ap.add_argument("--only-lifecycle", action="store_true",
                     help="run phases 1, 2 and 19 only (the declarative lifecycle, with the "
                          "embedded canary router and a crash resume); prints no result lines")
+    ap.add_argument("--only-tenancy", action="store_true",
+                    help="run phases 1, 2 and 20 only (ten tenants fused into one pair of card "
+                         "engines behind the tenant front end); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-24578 answer of the fast path "
@@ -1284,6 +1331,12 @@ def main() -> None:
     args = ap.parse_args()
     t_smoke = time.monotonic()
     CLIENT_GC.install()
+
+    def clock(phase: str) -> None:
+        """Where a phase starts on the run's clock (the phases' shares of
+        the run's wall time)."""
+        print(f"run clock: phase {phase} starts at {time.monotonic() - t_smoke:.1f} s",
+              flush=True)
 
     import torch
 
@@ -1383,6 +1436,7 @@ def main() -> None:
                      then=resilience_then(args, card) if args.only_resilience else None)
         return
 
+    clock("3")
     # ---- 3. kernel parity (launches here are not main-path launches)
     err = {"match_groups_kernel": 0, "match_words_kernel": 0}
 
@@ -1419,6 +1473,10 @@ def main() -> None:
             fail(f"parity case {label} B={B} G={G} did not exercise empty, single "
                  "and multi groups")
 
+    if args.only_tenancy:
+        tenancy_phase(args, card, parity)
+        return
+
     cases = [(B, 1024, 10240, T, gate) for B in (8, 128, 1024, 4096)
              for T, gate in ((1, False), (1, True), (3, False))]
     cases += [(100, 1024, 10000, 1, True), (100, 1000, 10000, 3, False),
@@ -1432,6 +1490,7 @@ def main() -> None:
     print(f"parity: {len(cases)} random cases exact in {time.monotonic() - t0:.1f} s",
           flush=True)
 
+    clock("4")
     # ---- 4. serving path: 10k-policy corpus, SAR bodies -> authorizer
     t0 = time.monotonic()
     corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1558,6 +1617,7 @@ def main() -> None:
     if args.profile:
         profile_answer(torch, lambda: answer(authz, big), "batch 4096")
 
+    clock("4b")
     # ---- 4b. the native fast path: raw SAR bytes -> C++ encoder -> pinned
     # staging -> one words launch per chunk -> one packed D2H
     from cedar_tpu_torch.engine.fastpath import SARFastPath, _chunk_sizes
@@ -1573,13 +1633,13 @@ def main() -> None:
     fast = SARFastPath(engine, authz)
     # the largest batch: 24578 rows, the fewest past one chunk whose tail
     # splits (65536 until phase 13 needed the time, 32768 until phase 18
-    # did); its last 16384 rows are the batch-4096 bodies four times over
-    # (once until phase 19 needed the time), so the interpreter answers
-    # 8194 new bodies for it (every answer served is still held against
-    # the interpreter; the card test of the fast path's launches serves
-    # 65536)
+    # did); its last 24576 rows are the batch-4096 bodies six times over
+    # (once until phase 19 needed the time, four times until phase 20
+    # did), so the interpreter answers 2 new bodies for it (every answer
+    # served is still held against the interpreter; the card test of the
+    # fast path's launches serves 65536)
     big_n = 24578
-    big_rows = corpus.sar_bodies(big_n - 4 * len(big), seed=args.seed + 5) + big * 4
+    big_rows = corpus.sar_bodies(big_n - 6 * len(big), seed=args.seed + 5) + big * 6
     batches = {"300": bodies, "4096": big, str(big_n): big_rows}
     # one words launch per pipeline chunk: 16384-row chunks, a last one
     # above 8192 rows split in two halves (the JAX package's chunk plan),
@@ -1714,6 +1774,7 @@ def main() -> None:
           f"{sum(map(len, oracle_answers.values()))} distinct bodies in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
+    clock("5")
     # ---- 5. want_full path: interpreter-fallback policies
     cov = coverage_corpus(per_family=4, base=64, seed=args.seed)
     fb_engine = TorchPolicyEngine()
@@ -1754,6 +1815,7 @@ def main() -> None:
            fcs.rule_policy_dev, fcs.n_tiers, fcs.has_gate, need_mix=False,
            maps=fcs.plane_maps)
 
+    clock("6")
     # ---- 6. diagnostics: two permits match one request
     src = """
 permit (principal is k8s::User, action == k8s::Action::"get", resource is k8s::Resource)
@@ -1775,6 +1837,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     if diag_key(decision, diag) != want_d or len(diag.reasons) != 2 or d_engine.flagged_rows != 1:
         fail("the two-permit request did not come back through resolve_flagged with both reasons")
 
+    clock("7")
     # ---- 7. timing at the main path's shapes
     # the serving plane's literal matrix for the batch-4096 SARs above
     # (held against the plain versions in phase 4)
@@ -1849,27 +1912,34 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     print(f"rule-tile probe, match_groups_kernel device ms ({card}): "
           + json.dumps(tiles), flush=True)
 
+    clock("8")
     # ---- 8. webhook: the CLI entry point on the card, over HTTP
     webhook_launches, big_expected = webhook_phase(
         args, card, corpus, g_batch, oracle_answers["gated"], big)
 
+    clock("9")
     # ---- 9. admission: /v1/admit on the same CLI, beside /v1/authorize
     admission_launches = admission_phase(args, card, big, big_expected)
 
+    clock("10")
     # ---- 10. live policy reload under traffic on both endpoints, then
     # ---- 11. resilience: chaos windows on the same server
     reload_launches, resilience_launches = reload_phase(
         args, card, g_batch, then=resilience_then(args, card))
 
+    clock("12")
     # ---- 12. the CRD store: Policy object events, incremental reloads
     crd_launches = crd_phase(args, card, g_batch)
 
+    clock("13")
     # ---- 13. the validationMode load gate: its cost, strict and partial
     gate_launches = gate_phase(args, card, corpus, g_batch)
 
+    clock("14")
     # ---- 14. the decision cache ahead of the CRD-served engines
     cache_launches = cache_phase(args, card, g_batch)
 
+    clock("15")
     # ---- 15. the request observability plane around both endpoints, then
     # ---- 17. the explain plane and 18. the shadow rollout on the same server
     obs_launches, (explain_out, rollout_launches) = obs_phase(
@@ -1877,12 +1947,19 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
             explain_then(args, card, engine=engine, split_bodies=bodies),
             rollout_then(args, card, corpus)))
 
+    clock("16")
     # ---- 16. the overload-control plane under an open-loop flash crowd
     load_launches = load_phase(args, card, g_batch)
 
+    clock("19")
     # ---- 19. the declarative lifecycle on its own server, with the
     # device-exact sweep on phase 4's engine while that server starts
     lifecycle_launches = lifecycle_phase(args, card, corpus, engine, tiers)
+
+    clock("20")
+    # ---- 20. ten tenants fused into one pair of card engines behind the
+    # tenant front end, held to each tenant's own interpreter
+    tenancy_launches = tenancy_phase(args, card, parity)
 
     # each kernel's launches on every path this run drove, each counted
     # from 0 just before its path and read just after (a server's in its
@@ -1893,6 +1970,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         per_path = {
+            "launches_tenancy": tenancy_launches[k],
             "launches_lifecycle": lifecycle_launches[k],
             "launches_rollout": rollout_launches[k],
             "launches_explain": explain_out["launches"][k],
@@ -3485,6 +3563,39 @@ def window_stats(records: list, path: str, lo: float, hi: float) -> str:
             f"{max(lat, default=float('nan')) * 1e3:.3f} ms")
 
 
+def crd_full_lowers(vfile: str, buckets: int) -> dict:
+    """Phase 12's yardstick for an event's lower: each engine's tiers at
+    version 0 (the CRD store fed the objects of `vfile`; the admission
+    engine's with the allow-all tier) lowered in full, shard by shard as
+    the server's first load lowers them, in this process with the cyclic
+    collector paused as the server's loads run -> {engine: seconds}."""
+    import gc
+
+    from cedar_tpu_torch.compiler.lower import AUTHZ_SCHEMA_INFO
+    from cedar_tpu_torch.compiler.shard import ShardCompiler
+    from cedar_tpu_torch.server.admission import allow_all_admission_policy_store
+    from cedar_tpu_torch.stores.crd import CRDPolicyStore
+
+    with open(vfile) as f:
+        store = CRDPolicyStore(source=_ListedObjects(json.load(f)))
+    while not store.initial_policy_load_complete():
+        time.sleep(0.01)
+    store.close()
+    ps = store.policy_set()
+    out = {}
+    for p, tiers in (("authorization", [ps]),
+                     ("admission", [ps, allow_all_admission_policy_store().policy_set()])):
+        gc.disable()
+        try:
+            _, info = ShardCompiler(AUTHZ_SCHEMA_INFO, buckets=buckets).compile(tiers)
+        finally:
+            gc.enable()
+        if info["compile_scope"] != "full":
+            fail(f"crd: the yardstick lower of the {p} tiers was {info['compile_scope']}")
+        out[p] = info["phase_seconds"]["lower"]
+    return out
+
+
 def crd_phase(args, card: str, sars: list) -> dict:
     """Phase 12 (module docstring): `sars` are phase 8's gated SAR bodies.
     Returns the server's kernel launch counts over the phase's traffic
@@ -3562,6 +3673,12 @@ def crd_phase(args, card: str, sars: list) -> dict:
 
             traffic = Traffic(srv.port, pools)
             traffic.start()
+            # each engine's full lower, timed here under the same 32 + 32
+            # clients, ahead of the 5 s before event 1: an event's
+            # incremental lower is held to a quarter of it
+            full_lower = crd_full_lowers(vfiles[0], 64)
+            print(f"crd full lower under the clients ({card}), s: {json.dumps(full_lower)}",
+                  flush=True)
             time.sleep(6.0)
             problems = []  # every check's failure, reported together at the end
             events = [("modify", lambda: api.apply(CRD_EDITED, edited[CRD_EDITED]), 10),
@@ -3621,11 +3738,11 @@ def crd_phase(args, card: str, sars: list) -> dict:
                     if last["dirty_shards"] > max_dirty:
                         problems.append(f"event {k} {p}: {last['dirty_shards']} dirty shards, "
                                         f"more than the object's {max_dirty} policies")
-                    if last["compile_seconds"]["lower"] >= first[p]["compile_seconds"]["lower"] / 4:
+                    if last["compile_seconds"]["lower"] >= full_lower[p] / 4:
                         problems.append(
                             f"event {k} {p}: lower {last['compile_seconds']['lower']} s, not "
-                            f"below a quarter of the full load's "
-                            f"{first[p]['compile_seconds']['lower']} s")
+                            f"below a quarter of the full lower under the same clients "
+                            f"({full_lower[p]:.4f} s)")
                 time.sleep(4.0)
                 if k in (1, 3):
                     # read once the batches in flight at the swap, which
@@ -3838,16 +3955,6 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
                 json.dump({"dir": vdirs[name], "objects": objects}, f)
         api.apply(GATE_OBJECT, GATE_OBJECT_POLICY)
         kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
-        t0 = time.monotonic()
-        answers = interpreter_answers({k: (f"gate-authorize:{specs[k]}", sars) for k in specs},
-                                      args.policies, args.seed, piece=n_pool // 2)
-        want = {k: [reason_key(a, {}) for a in answers[k]] for k in specs}
-        changed = sum(a != b for a, b in zip(want["v0"], want["trimmed"]))
-        print(f"gate oracle: {len(specs) * n_pool} interpreter answers in "
-              f"{time.monotonic() - t0:.1f} s; the edit (trimmed) changes {changed} of "
-              f"{n_pool}", flush=True)
-        if not changed:
-            fail("gate: the edit changes no answer of the pool")
 
         def serve(mode: str):
             """A server over the directory (a symlink at v0) and the CRD
@@ -3871,6 +3978,25 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
                 os.replace(link, pol_dir)
 
             return srv, swap_to_v1
+
+        # the strict server starts while the oracle pool answers; the
+        # partial one starts once the strict one is done
+        srv, swap = serve("strict")
+        try:
+            t0 = time.monotonic()
+            answers = interpreter_answers(
+                {k: (f"gate-authorize:{specs[k]}", sars) for k in specs},
+                args.policies, args.seed, piece=n_pool // 2)
+            want = {k: [reason_key(a, {}) for a in answers[k]] for k in specs}
+            changed = sum(a != b for a, b in zip(want["v0"], want["trimmed"]))
+            print(f"gate oracle: {len(specs) * n_pool} interpreter answers in "
+                  f"{time.monotonic() - t0:.1f} s; the edit (trimmed) changes {changed} of "
+                  f"{n_pool}", flush=True)
+            if not changed:
+                fail("gate: the edit changes no answer of the pool")
+        except BaseException:
+            srv.kill()
+            raise
 
         def engines(srv):
             doc = srv.debug_engine()
@@ -3927,7 +4053,6 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
             return got
 
         # ---- strict: the edit rejected, the poisoned object quarantined
-        srv, swap = serve("strict")
         try:
             srv.wait_ready(card)
             eng0 = first_load(srv, "strict")
@@ -6438,9 +6563,14 @@ class LifecycleTraffic:
         return sorted(self.records)
 
 
-def pprof_top(port: int, n: int = 3) -> tuple:
+_IDLE_FRAMES = ("wait", "select", "get", "sleep", "accept", "_worker", "readinto", "poll",
+                "serve_forever", "recv_into")
+
+
+def pprof_top(port: int, n: int = 3, busy: bool = False) -> tuple:
     """One GET /debug/pprof/profile -> (samples, [(count, innermost frames)])
-    of the n most frequent stacks."""
+    of the n most frequent stacks; ``busy`` leaves out the stacks parked
+    in a wait (a lock, a queue, a socket, a sleep)."""
     text = http_get(port, "/debug/pprof/profile")[1].decode()
     lines = text.splitlines()
     samples = int(lines[0].split()[1])
@@ -6451,6 +6581,9 @@ def pprof_top(port: int, n: int = 3) -> tuple:
             stacks.append(cur)
         elif line.startswith("  ") and cur is not None:
             cur[1].append(line.strip())
+    if busy:
+        stacks = [(k, fr) for k, fr in stacks
+                  if fr and fr[-1].rsplit(" ", 1)[-1] not in _IDLE_FRAMES]
     return samples, [(k, frames[-4:]) for k, frames in stacks[:n]]
 
 
@@ -6909,6 +7042,590 @@ def lifecycle_resume(card, tmp, cfg, good_dir, problems) -> None:
         problems.append(f"lifecycle resume journal {events}")
     print(f"lifecycle crash resume ({card}): journal {events}; two servers in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
+
+
+# phase 20: the multi-tenant shared plane. The JAX bench's own setting
+# (bench.py --tenants): synth_tenant_corpora(1000, 10, seed=17,
+# clusters=2), 10 tenants of 1,000 policies fused into 10,000; one
+# directory per tenant, one file per policy (a one-policy edit then
+# re-parses one object)
+TENANCY_N, TENANCY_TENANTS, TENANCY_SEED = 1000, 10, 17
+TENANCY_FALLBACK = "tenant-03"  # also carries the interpreter-fallback policy
+TENANCY_HEADER = "tenant-00"  # a sample routed by the x-cedar-tenant header
+TENANCY_HOST_TENANT, TENANCY_HOST = "tenant-09", "tenant-09.authz.example"  # and by Host
+TENANCY_STANDALONE = ("tenant-00", TENANCY_FALLBACK)  # held to standalone card engines
+TENANCY_EDIT = "tenant-05"  # one policy of it edited
+TENANCY_SARS, TENANCY_REVIEWS, TENANCY_C1, TENANCY_C64 = 128, 32, 32, 96
+TENANCY_SAMPLE = 16  # main bodies of the header and host tenants sent that way
+TENANCY_MIN_CROSS = 32
+
+
+def tenancy_dirs(root: str) -> dict:
+    """Write each tenant's policies, one file per policy (the fallback
+    tenant's also the interpreter-fallback policy); returns the corpora
+    {tenant: SynthCorpus} the traffic is aimed with."""
+    from cedar_tpu_torch.corpus.synth import _synth_sources, synth_tenant_corpora
+
+    corpora = synth_tenant_corpora(TENANCY_N, TENANCY_TENANTS, seed=TENANCY_SEED, clusters=2)
+    for tid, c in corpora.items():
+        files = {f"p{i:04d}": src for i, src in
+                 enumerate(_synth_sources(c.n, c.seed, c.clusters, tid)[0])}
+        if tid == TENANCY_FALLBACK:
+            files["fallback"] = FALLBACK_POLICY
+        _write_policy_dir(os.path.join(root, tid), files)
+    return corpora
+
+
+def org_wide_bodies(corpus) -> list:
+    """A SAR aimed at each org-wide (core-group) policy of a tenant's
+    corpus: the slice that would cross-match between tenants without the
+    plane's discriminators."""
+    out = []
+    for p in corpus.params:
+        if p.cluster != -1:
+            continue
+        ra = {"verb": p.verbs[0] if p.verbs else "get", "group": p.group, "version": "v1",
+              "resource": p.resource or "pods", "namespace": p.ns or "default"}
+        out.append(json.dumps({
+            "apiVersion": "authorization.k8s.io/v1", "kind": "SubjectAccessReview",
+            "spec": {"user": p.user or "org-someone", "uid": "u",
+                     "groups": [p.team] if p.team else [], "resourceAttributes": ra}}).encode())
+    return out
+
+
+def post_many(port: int, items: list, concurrency: int):
+    """POST (path, body, headers) items from `concurrency` client threads,
+    one keep-alive connection each, nothing retried -> (wall s, [latency
+    s], [response document], [client error])."""
+    lat = [0.0] * len(items)
+    got = [None] * len(items)
+    errors = []
+    next_i = [0]
+    lock = threading.Lock()
+
+    def worker():
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            while True:
+                with lock:
+                    i = next_i[0]
+                    next_i[0] += 1
+                if i >= len(items):
+                    return
+                path, body, headers = items[i]
+                t = time.perf_counter()
+                conn.request("POST", path, body=body,
+                             headers={"Content-Type": "application/json", **headers})
+                resp = conn.getresponse()
+                data = resp.read()
+                lat[i] = time.perf_counter() - t
+                if resp.status != 200 or resp.will_close:
+                    raise RuntimeError(f"{path}: HTTP {resp.status} (close {resp.will_close})")
+                got[i] = json.loads(data)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=worker) for _ in range(concurrency)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        errors.append("a client thread did not finish within 600 s")
+    return time.perf_counter() - t0, lat, got, errors
+
+
+def served_key(path: str, doc: dict):
+    """What a served answer is held to: a SAR's status with its reason
+    set, an AdmissionReview response's adm_key."""
+    return adm_key(doc["response"]) if path.endswith("/v1/admit") else canon(doc)
+
+
+def oracle_key(path: str, answer: dict):
+    return adm_key(answer["response"]) if path.endswith("/v1/admit") else answer
+
+
+def tenancy_batches(srv) -> tuple:
+    """(batches, rows) of the authorization batcher so far (/metrics)."""
+    text = http_get(srv.mport, "/metrics")[1].decode()
+    vals = {}
+    for line in text.splitlines():
+        for part in ("_sum", "_count"):
+            if line.startswith(f'cedar_batch_occupancy{part}{{path="authorization"}}'):
+                vals[part] = float(line.rsplit(" ", 1)[1])
+    return vals.get("_count", 0.0), vals.get("_sum", 0.0)
+
+
+def tenancy_phase(args, card: str, parity) -> dict:
+    """Phase 20 (module docstring): ten tenants' directories fused into
+    one pair of card engines behind the CLI's tenant front end. Returns
+    the server's kernel launches over the phase's traffic (served counts:
+    warm-ups apart)."""
+    import copy
+    import shutil
+
+    import torch
+
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import SARFastPath
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.ops import match as plain
+    from cedar_tpu_torch.server.authorizer import CedarWebhookAuthorizer
+    from cedar_tpu_torch.server.sar import sar_response
+    from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+    from cedar_tpu_torch.stores.store import TieredPolicyStores
+    from cedar_tpu_torch.tenancy import TenantBody, TenantRegistry, fused_tier_stores
+
+    t_phase = time.monotonic()
+    problems = []
+    with tempfile.TemporaryDirectory(prefix="cedar-tenancy-") as tmp:
+        root = os.path.join(tmp, "tenants")
+        corpora = tenancy_dirs(root)
+        tenants = list(corpora)
+        tdir = {t: os.path.join(root, t) for t in tenants}
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"spec": {"stores": []}}, f)
+        flags = [x for t in tenants for x in ("--tenant", f"{t}={tdir[t]}")]
+        # the cache on (the default), each tenant's gate permissive; deny
+        # entries outlive the phase (its check reads the neighbors' cached
+        # decisions back after the edit)
+        flags += ["--tenant-host", f"{TENANCY_HOST}={TENANCY_HOST_TENANT}",
+                  "--validation-mode", "permissive",
+                  "--request-timeout-ms", "10000", "--decision-cache-deny-ttl-seconds", "300",
+                  "--profiling"]
+        srv = Webhook(cfg, tmp, "webhook-tenancy", 5.0, flags, cache=True)
+        try:
+            # ---- the traffic: bodies distinct within each tenant (a
+            # repeat would answer from the cache); the same bytes sent to
+            # two tenants are two requests
+            seen = {t: set() for t in tenants}
+
+            def fresh(t, bodies):
+                out = [b for b in dict.fromkeys(bodies) if b not in seen[t]]
+                seen[t].update(out)
+                return out
+
+            main = {t: fresh(t, gated_bodies(corpora[t], TENANCY_SARS, seed=args.seed + 200 + i))
+                    for i, t in enumerate(tenants)}
+            c1 = {t: fresh(t, corpora[t].sar_bodies(TENANCY_C1, seed=args.seed + 300 + i))
+                  for i, t in enumerate(tenants)}
+            c64 = {t: fresh(t, corpora[t].sar_bodies(TENANCY_C64, seed=args.seed + 400 + i))
+                   for i, t in enumerate(tenants)}
+            reviews = {t: admission_bodies(TENANCY_REVIEWS, args.seed + 500 + i)
+                       for i, t in enumerate(tenants)}
+            cross = {t: fresh(t, org_wide_bodies(corpora[t])) for t in tenants}
+            neighbor = {t: tenants[(i + 1) % len(tenants)] for i, t in enumerate(tenants)}
+
+            # ---- the interpreter's answers, over each tenant's own
+            # directory alone, computed while the server starts
+            tasks = {}
+            for t in tenants:
+                sar_set = list(dict.fromkeys(main[t] + c1[t] + c64[t] + cross[t] + [
+                    b for u in tenants if neighbor[u] == t for b in cross[u]]))
+                tasks[(t, "sar")] = (f"dir-authorize:{tdir[t]}", sar_set)
+                tasks[(t, "adm")] = (f"dir-admit:{tdir[t]}", reviews[t])
+            oracle_out: dict = {}
+
+            def run_oracle():
+                t0 = time.monotonic()
+                try:
+                    oracle_out["answers"] = interpreter_answers(
+                        tasks, args.policies, args.seed, piece=128)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    oracle_out["error"] = repr(e)
+                oracle_out["seconds"] = time.monotonic() - t0
+
+            oracle_thread = threading.Thread(target=run_oracle)
+            oracle_thread.start()
+
+            # ---- in this process: the same ten tenants fused into a card
+            # engine (from the corpora already parsed, each policy named
+            # and ordered as its directory store serves it: the server's
+            # plane, its positions aside), and two tenants' standalone card
+            # engines over their directories
+            t0 = time.monotonic()
+
+            def as_served(t) -> list:
+                out = []
+                if t == TENANCY_FALLBACK:
+                    out = [p for p in PolicySet.from_source(
+                        FALLBACK_POLICY, "fallback.cedar").policies()]
+                    out[0].policy_id = "fallback.cedar.policy0"
+                for i, p in enumerate(corpora[t].policies):
+                    q = copy.copy(p)
+                    q.filename, q.policy_id = f"p{i:04d}.cedar", f"p{i:04d}.cedar.policy0"
+                    out.append(q)
+                return out
+
+            reg = TenantRegistry()
+            for t in tenants:
+                reg.add_tenant(t, tiers=[PolicySet(as_served(t))])
+            fused_stores = fused_tier_stores(reg)
+            fused = TorchPolicyEngine(incremental=True, name="tenancy")
+            fused.load(reg.fused_tiers())
+            fast = SARFastPath(fused, CedarWebhookAuthorizer(
+                fused_stores, evaluate_batch=fused.evaluate_batch))
+            solo = {}
+            for t in TENANCY_STANDALONE:
+                st = TieredPolicyStores([DirectoryPolicyStore(tdir[t], start_ticker=False)])
+                e = TorchPolicyEngine(name=f"solo-{t}")
+                e.load([s.policy_set() for s in st])
+                solo[t] = SARFastPath(e, CedarWebhookAuthorizer(
+                    st, evaluate_batch=e.evaluate_batch))
+            cs = fused.compiled_set
+            print(f"tenancy in-process engines ({card}): fused {len(reg)} tenants, "
+                  f"{sum(len(ps.policies()) for ps in reg.fused_tiers())} policies -> "
+                  f"L={cs.L} R={cs.R} G={cs.n_groups} fallback={len(cs.fallback)}, tenant "
+                  f"column {cs.tenant_column[0]}; standalone "
+                  + ", ".join(f"{t} L={s.engine.compiled_set.L} R={s.engine.compiled_set.R}"
+                              for t, s in solo.items())
+                  + f"; {time.monotonic() - t0:.1f} s", flush=True)
+            if not cs.fallback:
+                problems.append("the fused plane carries no interpreter-fallback policy")
+
+            # ---- kernel parity on the fused plane's own operands: native
+            # codes of every tenant's main bodies, each row stamped with
+            # its tenant's discriminator code
+            snap = fast._current_snapshot()
+            rows = [(b, t) for t in tenants for b in main[t]]
+            codes, extras, _n, flags_ = snap.encoder.encode_batch([b for b, _ in rows])
+            col, vocab = cs.tenant_column
+            codes[:, col] = [vocab.get(("s", t), 0) for _, t in rows]
+            ok = flags_ == 0
+            codes, extras = fused._pad_to_bucket(codes[ok], extras[ok], cs.L)
+            lit = plain.lit_matrix_codes(fused._to_device(codes), fused._to_device(extras),
+                                         cs.act_rows_dev)
+            plane = (cs.W_dev, cs.thresh_dev, cs.rule_group_dev, cs.rule_policy_dev,
+                     cs.n_tiers, cs.has_gate)
+            for B in (lit.shape[0], 128, 1):
+                parity("tenancy", lit[:B].contiguous(), *plane, need_mix=False,
+                       maps=cs.plane_maps)
+
+            srv.wait_ready(card)
+            # the first /readyz 200 seen once this process's set-up above
+            # was done (the server took longer than that set-up on the card)
+            ready_s = time.monotonic() - srv.t0
+            # the oracle pool is done before any window is timed
+            oracle_thread.join()
+            # what one tenant store's re-read (each tenant's ticker, every
+            # max(1, --reload-seconds) s) costs on this host
+            probe_store = DirectoryPolicyStore(tdir[tenants[0]], start_ticker=False)
+            t1 = time.perf_counter()
+            for _ in range(5):
+                probe_store.load_policies()
+            reread_ms = (time.perf_counter() - t1) / 5 * 1e3
+            print(f"tenancy store tick ({card}): {reread_ms:.3f} ms for one tenant's "
+                  f"{TENANCY_N} settled files (each of the server's {TENANCY_TENANTS} tenant "
+                  "stores ticks every 5 s, the CLI's --reload-seconds default)", flush=True)
+
+            # ---- c=1, in this process: the fused engine against the
+            # standalone ones, one body at a time (the library call)
+            lib = {}
+            for t, s in solo.items():
+                for label, call in (("fused", lambda b, t=t: fast.authorize_raw(
+                        [TenantBody(b, t)])), ("standalone", lambda b, s=s: s.authorize_raw([b]))):
+                    lat = []
+                    for b in c1[t]:
+                        t1 = time.perf_counter()
+                        call(b)
+                        lat.append(time.perf_counter() - t1)
+                    lib[(t, label)] = (pct(lat, 50) * 1e3, pct(lat, 99) * 1e3)
+            print(f"tenancy c=1 library call, ms p50 / p99 ({card}): " + "; ".join(
+                f"{t} fused {lib[(t, 'fused')][0]:.3f} / {lib[(t, 'fused')][1]:.3f}, standalone "
+                f"{lib[(t, 'standalone')][0]:.3f} / {lib[(t, 'standalone')][1]:.3f}"
+                for t in solo), flush=True)
+
+            e0 = srv.debug_engine()
+            launches0 = {p: dict(e0[p]["engine"]["launches"]) for p in ("authorization", "admission")}
+            # ---- c=1 over HTTP, per tenant, fresh bodies (misses)
+            c1_items = {t: [(f"/t/{t}/v1/authorize", b, {}) for b in c1[t]] for t in tenants}
+            c1_lat, c1_docs = {}, {}
+            for t in tenants:
+                _w, lat, got, errs = post_many(srv.port, c1_items[t], 1)
+                if errs:
+                    fail(f"tenancy c=1 {t}: client errors {errs[:3]}")
+                c1_lat[t], c1_docs[t] = lat, got
+            # ---- mixed c=64, tenants interleaved, fresh bodies
+            mix = [(f"/t/{t}/v1/authorize", c64[t][k], {}) for k in range(TENANCY_C64)
+                   for t in tenants if k < len(c64[t])]
+            b0 = tenancy_batches(srv)
+            wall64, lat64, docs64, errs = post_many(srv.port, mix, 64)
+            b1 = tenancy_batches(srv)
+            if errs:
+                fail(f"tenancy c=64: client errors {errs[:3]}")
+            mean_batch = (b1[1] - b0[1]) / max(b1[0] - b0[0], 1)
+
+            # ---- the main traffic from 8 clients, tenants interleaved:
+            # every tenant's SARs (the header tenant's first ones through
+            # the header, the host tenant's through Host) and reviews, and
+            # the org-wide bodies sent to their own tenant and a neighbor
+            def sar_route(t, k):
+                if t == TENANCY_HEADER and k < TENANCY_SAMPLE:
+                    return "/v1/authorize", {"x-cedar-tenant": t}
+                if t == TENANCY_HOST_TENANT and k < TENANCY_SAMPLE:
+                    return "/v1/authorize", {"Host": TENANCY_HOST}
+                return f"/t/{t}/v1/authorize", {}
+
+            items, meta = [], []  # meta: (tenant, kind, index)
+            depth = max(max(len(v) for v in main.values()), TENANCY_REVIEWS,
+                        max(len(v) for v in cross.values()))
+            for k in range(depth):
+                for t in tenants:
+                    if k < len(main[t]):
+                        path, hdrs = sar_route(t, k)
+                        items.append((path, main[t][k], hdrs))
+                        meta.append((t, "main", k))
+                    if k < TENANCY_REVIEWS:
+                        items.append((f"/t/{t}/v1/admit", reviews[t][k], {}))
+                        meta.append((t, "adm", k))
+                    if k < len(cross[t]):
+                        for u in (t, neighbor[t]):
+                            items.append((f"/t/{u}/v1/authorize", cross[t][k], {}))
+                            meta.append((u, "cross", (t, k)))
+            # one whole-process profile of the server inside the window
+            prof: dict = {}
+            prof_thread = threading.Thread(
+                target=lambda: (time.sleep(2.0), prof.update(top=pprof_top(srv.port, 4, busy=True))))
+            text0 = http_get(srv.mport, "/metrics")[1].decode()
+            prof_thread.start()
+            wall8, lat8, docs8, errs = post_many(srv.port, items, 8)
+            prof_thread.join()
+            text1 = http_get(srv.mport, "/metrics")[1].decode()
+            if errs:
+                fail(f"tenancy main traffic: client errors {errs[:3]}")
+            st0, st1 = stage_totals(text0, "authorization"), stage_totals(text1, "authorization")
+            stage_ms = {k: round((st1[k][0] - st0.get(k, [0, 0])[0]) * 1e3
+                                 / max(st1[k][1] - st0.get(k, [0, 0])[1], 1), 3) for k in st1}
+            samples, top = prof.get("top", (0, []))
+            print(f"tenancy 8 clients ({card}): {len(items) / wall8:.1f} requests/s, p50 "
+                  f"{pct(lat8, 50) * 1e3:.3f} ms, p99 {pct(lat8, 99) * 1e3:.3f} ms; authorization "
+                  f"stage means per batch, ms {json.dumps(stage_ms)}; server profile "
+                  f"{samples} samples, top busy stacks "
+                  + " | ".join(f"{k}x {' < '.join(reversed(fr))}" for k, fr in top), flush=True)
+
+            # ---- refusals: they answer before evaluation, launching nothing
+            e1 = srv.debug_engine()
+            refused = [("/t/nobody/v1/authorize", b"{}", {}, "unknown"),
+                       ("/v1/authorize", main[tenants[1]][0], {}, "missing"),
+                       ("/t/nobody/v1/admit", reviews[tenants[1]][0], {}, "unknown"),
+                       ("/v1/admit", reviews[tenants[1]][0], {}, "missing")]
+            _w, _l, rdocs, errs = post_many(srv.port, [r[:3] for r in refused], 1)
+            e2 = srv.debug_engine()
+            if errs:
+                fail(f"tenancy refusals: client errors {errs[:3]}")
+            for (path, _b, _h, why), doc in zip(refused, rdocs):
+                msg = ("unknown tenant" if why == "unknown" else "no tenant resolved")
+                if path.endswith("/admit"):
+                    r = doc["response"]
+                    good = not r["allowed"] and r["status"]["code"] == 403 and \
+                        r["status"]["message"] == f"tenant rejected: {msg}"
+                else:
+                    good = doc["status"].get("evaluationError") == f"tenant rejected: {msg}"
+                if not good:
+                    problems.append(f"refusal {path}: {json.dumps(doc)[:300]}")
+            for p in ("authorization", "admission"):
+                if e2[p]["engine"]["launches"] != e1[p]["engine"]["launches"]:
+                    problems.append(f"a refusal launched on {p}: {e1[p]['engine']['launches']} "
+                                    f"-> {e2[p]['engine']['launches']}")
+
+            # ---- every answer against the interpreter over its tenant
+            if "error" in oracle_out:
+                fail(f"tenancy oracle: {oracle_out['error']}")
+            ans = oracle_out["answers"]
+            want_sar = {t: dict(zip(tasks[(t, "sar")][1], ans[(t, "sar")])) for t in tenants}
+            want_adm = {t: ans[(t, "adm")] for t in tenants}
+            flips = 0
+
+            def check(label, path, doc, want):
+                nonlocal flips
+                if served_key(path, doc) != oracle_key(path, want):
+                    flips += 1
+                    if flips <= 3:
+                        print(f"tenancy flip {label} {path}: got {json.dumps(doc)[:400]}, want "
+                              f"{json.dumps(want)[:400]}", flush=True)
+
+            for t in tenants:
+                for (path, b, _h), doc in zip(c1_items[t], c1_docs[t]):
+                    check("c1", path, doc, want_sar[t][b])
+            for (path, b, _h), doc in zip(mix, docs64):
+                check("c64", path, doc, want_sar[path.split("/")[2]][b])
+            differ = 0
+            cross_got: dict = {}
+            for (path, b, _h), (t, kind, k), doc in zip(items, meta, docs8):
+                want = want_adm[t][k] if kind == "adm" else want_sar[t][b]
+                check(kind, path, doc, want)
+                if kind == "cross":
+                    cross_got.setdefault(k, []).append(canon(doc))
+            differ = sum(1 for pair in cross_got.values() if len(pair) == 2 and pair[0] != pair[1])
+            n_checked = sum(len(v) for v in c1_docs.values()) + len(docs64) + len(docs8)
+            print(f"tenancy answers ({card}): {n_checked} against the interpreter over each "
+                  f"tenant's own directory ({oracle_out['seconds']:.1f} s in the oracle pool), "
+                  f"flips {flips}; org-wide bodies {len(cross_got)}, answered differently by "
+                  f"their tenant and its neighbor {differ}", flush=True)
+            if flips:
+                problems.append(f"{flips} answers differ from the interpreter's")
+            if differ < TENANCY_MIN_CROSS:
+                problems.append(f"only {differ} org-wide bodies answered differently per tenant "
+                                f"(want at least {TENANCY_MIN_CROSS})")
+
+            # ---- the standalone card engines answer alike
+            for t, s in solo.items():
+                got = [canon(doc) for (tt, kind, _k), doc in zip(meta, docs8)
+                       if tt == t and kind == "main"]
+                bodies_t = [b for (_p, b, _h), (tt, kind, _k) in zip(items, meta)
+                            if tt == t and kind == "main"]
+                alone = [canon(sar_response(*r)) for r in s.authorize_raw(bodies_t)]
+                n_diff = sum(a != b for a, b in zip(got, alone))
+                print(f"tenancy {t}: {len(got)} served answers vs its standalone card engine, "
+                      f"{n_diff} differ; routing {json.dumps(s.routing)}", flush=True)
+                if n_diff:
+                    problems.append(f"{t}: {n_diff} answers differ from its standalone engine")
+
+            # ---- one policy of one tenant edited: a body it decides alone
+            pick = None
+            for b in main[TENANCY_EDIT]:
+                st = want_sar[TENANCY_EDIT][b]
+                if isinstance(st["reason"], list) and len(st["reason"]) == 1:
+                    pol = json.loads(st["reason"][0])["policy"]
+                    if pol.startswith("p") and pol.endswith(".cedar.policy0"):
+                        pick = pol[:-len(".policy0")]
+                        break
+            if pick is None:
+                fail(f"tenancy: no body of {TENANCY_EDIT} decided by one policy")
+            v1 = os.path.join(tmp, "edit-v1", TENANCY_EDIT)
+            shutil.copytree(tdir[TENANCY_EDIT], v1)
+            with open(os.path.join(v1, pick)) as f:
+                src = f.read()
+            flipped = ("forbid " + src[len("permit "):] if src.startswith("permit ")
+                       else "permit " + src[len("forbid "):])
+            with open(os.path.join(v1, pick), "w") as f:
+                f.write(flipped)
+            resend = [(f"/t/{t}/v1/authorize", b, {}) for t in tenants for b in main[t]]
+            edit_bodies = main[TENANCY_EDIT]
+            v1_out = interpreter_answers({"v1": (f"dir-authorize:{v1}", edit_bodies)},
+                                         args.policies, args.seed, piece=32)
+            want_v1 = dict(zip(edit_bodies, v1_out["v1"]))
+            changed = sum(want_v1[b] != want_sar[TENANCY_EDIT][b] for b in edit_bodies)
+            # the neighbors' decided answers, each a cached entry now
+            decided = [it for it in resend if not it[0].startswith(f"/t/{TENANCY_EDIT}/")
+                       and (want_sar[it[0].split("/")[2]][it[1]]["allowed"]
+                            or want_sar[it[0].split("/")[2]][it[1]]["denied"])]
+            gens = {p: e2[p]["engine"]["load_generation"] for p in ("authorization", "admission")}
+            tmpf = os.path.join(tdir[TENANCY_EDIT], ".edit.tmp")
+            with open(tmpf, "w") as f:
+                f.write(flipped)
+            t_event = time.time()
+            os.rename(tmpf, os.path.join(tdir[TENANCY_EDIT], pick))
+            deadline = time.monotonic() + 120
+            while True:
+                e3 = srv.debug_engine()
+                if all(e3[p]["engine"]["load_generation"] > gens[p] for p in gens):
+                    break
+                if time.monotonic() > deadline:
+                    fail(f"tenancy: the edit did not reach both engines in 120 s:\n{srv.log()}")
+                time.sleep(0.05)
+            for p in ("authorization", "admission"):
+                last, sh = e3[p]["engine"]["last_load"], e3[p]["engine"]["shards"]
+                roll = sh.get("tenants", {})
+                print(f"tenancy edit {p} engine ({card}): {pick} of {TENANCY_EDIT} flipped, "
+                      f"event to swap {last['published_unix'] - t_event:.3f} s, "
+                      f"{last['compile_scope']} compile, {last['dirty_shards']} of "
+                      f"{last['shards']} shards dirty {sh['dirty']}, compile seconds "
+                      f"{json.dumps(last['compile_seconds'])}; rollup dirty "
+                      f"{json.dumps({t: r['dirty'] for t, r in roll.items() if r['dirty']})}",
+                      flush=True)
+                if last["dirty_shards"] != 1 or len(sh["dirty"]) != 1 or \
+                        not sh["dirty"][0].startswith(f"{TENANCY_EDIT}/"):
+                    problems.append(f"edit {p}: dirty {sh['dirty']} ({last['dirty_shards']})")
+                if {t: r["dirty"] for t, r in roll.items()} != \
+                        {t: int(t == TENANCY_EDIT) for t in tenants}:
+                    problems.append(f"edit {p}: rollup {json.dumps(roll)}")
+            c0 = json.loads(http_get(srv.mport, "/debug/cache")[1])["authorization"]
+            _w, _l, dgot, errs = post_many(srv.port, decided, 8)
+            c1c = json.loads(http_get(srv.mport, "/debug/cache")[1])["authorization"]
+            # then every other SAR of the main traffic once
+            sent_again = set((p, b) for p, b, _h in decided)
+            resend = [it for it in resend if (it[0], it[1]) not in sent_again]
+            _w, _l, rgot, errs2 = post_many(srv.port, resend, 8)
+            if errs or errs2:
+                fail(f"tenancy after the edit: client errors {(errs + errs2)[:3]}")
+            hits = c1c["hits"] - c0["hits"]
+            stale = 0
+            for (path, b, _h), doc in zip(decided + resend, dgot + rgot):
+                t = path.split("/")[2]
+                want = want_v1[b] if t == TENANCY_EDIT else want_sar[t][b]
+                if canon(doc) != want:
+                    stale += 1
+                    if stale <= 3:
+                        print(f"tenancy stale {path}: got {json.dumps(doc)[:300]}", flush=True)
+            print(f"tenancy after the edit ({card}): {changed} of {len(edit_bodies)} "
+                  f"{TENANCY_EDIT} answers change; the neighbors' {len(decided)} decided "
+                  f"entries: {hits} cache hits; {len(decided) + len(resend)} answers, "
+                  f"{stale} stale", flush=True)
+            if hits != len(decided):
+                problems.append(f"only {hits} of the neighbors' {len(decided)} decided "
+                                "entries survived the edit")
+            if stale:
+                problems.append(f"{stale} stale answers after the edit")
+            if not changed:
+                problems.append("the edit changed no answer of the edited tenant")
+
+            # ---- launches, metrics, memory
+            e4 = srv.debug_engine()
+            launches = {k: sum(e4[p]["engine"]["launches"][k] - launches0[p][k]
+                               for p in launches0) for k in launches0["authorization"]}
+            if not all(launches.values()):
+                problems.append(f"a kernel did not launch in phase 20: {launches}")
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            rejected = {r: metric_total(text, f'cedar_tenant_rejected_total{{reason="{r}"}}')
+                        for r in ("unknown", "missing")}
+            if rejected != {"unknown": 2.0, "missing": 2.0}:
+                problems.append(f"cedar_tenant_rejected_total {rejected}")
+            per_tenant = {t: sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                                 if line.startswith(f'cedar_tenant_requests_total{{tenant="{t}",'))
+                          for t in tenants}
+            sent = {t: 0 for t in tenants}
+            for path, _b, hdrs in [it for t in tenants for it in c1_items[t]] + mix + items \
+                    + decided + resend:
+                t = path.split("/")[2] if path.startswith("/t/") else (
+                    hdrs.get("x-cedar-tenant") or TENANCY_HOST_TENANT)
+                sent[t] += 1
+            if per_tenant != {t: float(n) for t, n in sent.items()}:
+                problems.append(f"cedar_tenant_requests_total {per_tenant}, sent {sent}")
+            problems += resilience_quiet("tenancy", text)
+            dm = e4["authorization"]["engine"].get("device_memory", {})
+            tdoc = json.loads(http_get(srv.mport, "/debug/tenancy")[1])
+            c1_all = [x for v in c1_lat.values() for x in v]
+            print(f"tenancy server ({card}): ready in {ready_s:.1f} s; c=1 p50 / p99 ms per "
+                  "tenant " + ", ".join(f"{t} {pct(c1_lat[t], 50) * 1e3:.3f} / "
+                                        f"{pct(c1_lat[t], 99) * 1e3:.3f}" for t in tenants)
+                  + f" (all {pct(c1_all, 50) * 1e3:.3f} / {pct(c1_all, 99) * 1e3:.3f}); mixed "
+                  f"c=64 {len(mix) / wall64:.1f} requests/s, p99 {pct(lat64, 99) * 1e3:.3f} ms, "
+                  f"mean batch {mean_batch:.2f}; 8 clients {len(items) / wall8:.1f} requests/s "
+                  f"over {len(items)}; launches {json.dumps(launches)}; rejected "
+                  f"{json.dumps(rejected)}; /debug/tenancy {len(tdoc['registry']['per_tenant'])} "
+                  f"tenants, resolver {json.dumps(tdoc['resolver'])[:200]}", flush=True)
+            print(f"tenancy card memory ({card}): fused plane {e4['authorization']['engine']['device_bytes'] / 2**20:.1f} "
+                  f"MiB per engine; the server's allocator allocated "
+                  f"{dm.get('allocated', 0) / 2**20:.1f} MiB, peak "
+                  f"{dm.get('peak_allocated', 0) / 2**20:.1f} MiB, reserved "
+                  f"{dm.get('reserved', 0) / 2**20:.1f} MiB; nvidia-smi "
+                  f"{gpu_memory_mib(srv.proc.pid)} MiB", flush=True)
+            took, rss = srv.terminate()
+            print(f"tenancy webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+        del fast, fused, solo
+        torch.cuda.empty_cache()
+    if problems:
+        fail("tenancy: " + "; ".join(problems))
+    print(f"tenancy phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
 
 
 def chaos_builtin(name: str) -> dict:

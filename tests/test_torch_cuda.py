@@ -1244,3 +1244,53 @@ def test_lifecycle_driver_on_card_engines_equals_cpu(cuda):
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0] == {"card": "promoted"}
     assert out["cuda"][3] == out["cuda"][4]  # the new permit's user sends nothing
+
+
+@pytest.mark.cuda
+def test_fused_tenant_batches_reuse_staging_on_card(cuda):
+    """The fused multi-tenant plane on the card: a batch stamped with one
+    tenant, then one stamped with another in the same pinned staging
+    bucket, then a smaller batch there (its padding rows must be zero,
+    not the last batch's tenant codes), then one mixing all three
+    tenants: every answer equals the CPU fast path's (the plain
+    versions), the interpreter-fallback tenant's gated rows launch
+    match_groups_kernel, and a row of an unknown tenant matches nothing."""
+    from cedar_tpu_torch.corpus.synth import synth_tenant_corpora
+    from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
+    from cedar_tpu_torch.engine.fastpath import SARFastPath
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.server.authorizer import DECISION_NO_OPINION, CedarWebhookAuthorizer
+    from cedar_tpu_torch.tenancy import TenantBody, TenantRegistry, fused_tier_stores
+
+    corpora = synth_tenant_corpora(300, 3, seed=9, clusters=2)
+    fb = PolicySet.from_source(_EXTRA_TIER, "fallback").policies()[-1]
+    reg = TenantRegistry()
+    for i, (t, c) in enumerate(corpora.items()):
+        reg.add_tenant(t, tiers=[PolicySet(list(c.policies) + ([fb] if i == 1 else []))])
+    stores = fused_tier_stores(reg)
+    paths = []
+    for device in (None, "cpu"):
+        engine = TorchPolicyEngine(device=device, incremental=True)
+        engine.load(reg.fused_tiers())
+        authz = CedarWebhookAuthorizer(stores, evaluate_batch=engine.evaluate_batch)
+        paths.append(SARFastPath(engine, authz))
+    gpu, cpu = paths
+    assert gpu.engine.device.type == "cuda" and gpu.engine.compiled_set.tenant_column is not None
+    tenants = list(corpora)
+    bodies = {t: _mixed_bodies(c, 1000, seed=3) for t, c in corpora.items()}
+    batches = [
+        [TenantBody(b, tenants[0]) for b in bodies[tenants[0]]],
+        [TenantBody(b, tenants[1]) for b in bodies[tenants[0]]],
+        [TenantBody(b, tenants[2]) for b in bodies[tenants[1]][:700]],
+        [TenantBody(b, tenants[i % 3]) for i, b in enumerate(bodies[tenants[2]])],
+    ]
+    cuda_match.reset_launch_counts()
+    answers = [gpu.authorize_raw(batch) for batch in batches]
+    launches = cuda_match.launch_counts()
+    for batch, got in zip(batches, answers):
+        assert got == cpu.authorize_raw(batch)
+    assert answers[0] != answers[1]  # the same bytes, another tenant's answers
+    assert launches["match_words_kernel"] == 4 and launches["match_groups_kernel"] >= 1
+    assert gpu.engine.staging_stats()["outstanding"] == 0
+    lost = gpu.authorize_raw([TenantBody(b, "zeta") for b in bodies[tenants[0]][:64]])
+    assert all(a[0] == DECISION_NO_OPINION and not a[1] for a in lost if a[2] is None)

@@ -72,4 +72,5 @@ def test_webhook_help_runs_with_jax_blocked():
         env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "--device" in proc.stdout and "--tenant" not in proc.stdout
+    assert "--device" in proc.stdout and "--tenant" in proc.stdout
+    assert "--fleet-replicas" not in proc.stdout

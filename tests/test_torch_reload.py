@@ -853,13 +853,30 @@ def gate_sequence(request, tmp_path_factory):
             rec["analysis"] = (_json_get(t.bound_metrics_port, "/debug/analysis"),
                                _json_get(j.bound_metrics_port, "/debug/analysis"))
             grew = []
-            for counts in (t_counts, j_counts):
-                before = [counts(name) for name in ("authorization", "admission")]
-                srv = t if counts is t_counts else j
-                _answers(srv.bound_port, "/v1/authorize", list(GATED_BODIES.values()))
-                grew.append([{k: v - b.get(k, 0) for k, v in counts(name).items()
+            for srv, counts, engines in ((t, t_counts, _engines(t)),
+                                         (j, j_counts, [e for e, _ in j_reloader.targets])):
+                # both packages' tallies are process-wide families keyed
+                # by engine name alone (each server's /metrics shows the
+                # same process-wide rows), and any other engine named
+                # "authorization" or "admission" in this process (every
+                # CLI server's names, TorchPolicyEngine's default) that
+                # serves a fallback plane counts into them: for the
+                # window each of this server's engines counts under a
+                # name no other engine carries, restored before anything
+                # else reads it
+                names = [e.name for e in engines]
+                own = [f"{name}@gate-window-{id(srv):x}" for name in names]
+                before = [counts(n) for n in own]
+                for e, n in zip(engines, own):
+                    e.name = n
+                try:
+                    _answers(srv.bound_port, "/v1/authorize", list(GATED_BODIES.values()))
+                finally:
+                    for e, n in zip(engines, names):
+                        e.name = n
+                grew.append([{k: v - b.get(k, 0) for k, v in counts(n).items()
                               if v != b.get(k, 0)}
-                             for name, b in zip(("authorization", "admission"), before)])
+                             for n, b in zip(own, before)])
             rec["served_growth"] = grew
             rec["fallback"] = (_fallback_doc(t.bound_metrics_port),
                                _fallback_doc(j.bound_metrics_port))

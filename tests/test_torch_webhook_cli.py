@@ -64,12 +64,13 @@ PORTED_FLAGS = [
     "--slo-latency-target", "--slo-latency-budget-ms", "--artificial-error-rate",
     "--artificial-deny-rate", "--enable-recording", "--recording-dir",
     "--lifecycle-spec-dir", "--lifecycle-journal-file", "--lifecycle-interval-seconds",
-    "--profiling",
+    "--profiling", "--tenant", "--tenant-header", "--tenant-host", "--tenant-default",
+    "--tenant-sources",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
-    ["--tenant", "a=/tmp"], ["--fleet-replicas", "2"], ["--partition-spec", "/tmp/p.json"],
-    ["--pdp-listen", "127.0.0.1:1"], ["--pallas", "on"], ["--tenant-header", "x-t"],
+    ["--pdp-schema", "/tmp/s.json"], ["--fleet-replicas", "2"], ["--partition-spec", "/tmp/p.json"],
+    ["--pdp-listen", "127.0.0.1:1"], ["--pallas", "on"], ["--hedge-delay-ms", "5"],
     ["--fanout-workers", "2"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
