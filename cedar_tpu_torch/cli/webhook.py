@@ -138,7 +138,16 @@ unknown or conflicting tenant is refused before evaluation.
 refuses to start with the shadow-rollout flags and with
 ``--enable-recording``, as the JAX CLI does.
 
-Flags of the JAX CLI that this port does not serve (fleet, PDP, partition
+The general PDP front end (pdp/), with the JAX CLI's flags:
+``--pdp-listen [ADDR:]PORT`` starts a plain-HTTP listener (ADDR defaults
+to ``--bind-address``) on which ``POST /v1/batch-authorize`` is the
+AVP-style batch API and every other request an Envoy ext_authz check;
+both map into synthetic SARs served by the same engines, batchers, cache
+and admission gate as the webhook. ``--pdp-schema FILE`` is its mapping
+and fail-posture JSON (pdp/config.py; unknown keys refused). Both are
+read before any store starts, so a bad file or address fails the start.
+
+Flags of the JAX CLI that this port does not serve (fleet, partition
 specs, ...) do not exist here, so argparse rejects them.
 """
 
@@ -784,6 +793,25 @@ def _tenancy(args, config, stores: TieredPolicyStores) -> tuple:
     return fused_tier_stores(registry), resolver
 
 
+def _pdp_listener(args):
+    """--pdp-listen [ADDR:]PORT (ADDR defaults to --bind-address) and
+    --pdp-schema FILE -> the PdpListener the server binds and starts, as
+    the JAX CLI builds it; None without --pdp-listen. A malformed address
+    or schema file raises before any store starts."""
+    if not args.pdp_listen:
+        return None
+    from ..pdp import PdpConfig, PdpListener
+
+    config = PdpConfig.load(args.pdp_schema) if args.pdp_schema else PdpConfig()
+    listen = str(args.pdp_listen)
+    if ":" in listen:
+        host, _, port = listen.rpartition(":")
+        address, port = (host or args.bind_address), int(port)
+    else:
+        address, port = args.bind_address, int(listen)
+    return PdpListener(config=config, address=address, port=port)
+
+
 def _wait_for_stores(stores: TieredPolicyStores, poll_s: float = 0.1) -> None:
     """Block until every store's initial load is complete (a CRD store's
     first list, made from its own thread), logging every 10 s while one
@@ -808,8 +836,9 @@ def build_server(args) -> WebhookServer:
     --lifecycle-spec-dir on the interpreter backend, and --tenant with
     the shadow-rollout flags or --enable-recording before anything starts
     (ValueError; a bad PolicyRollout manifest raises its SpecError there
-    too, and a malformed --tenant* value its ValueError or TenantError,
-    with every tenant store it started closed)."""
+    too, a malformed --tenant* value its ValueError or TenantError,
+    with every tenant store it started closed, and a bad --pdp-listen
+    address or --pdp-schema file its ValueError or OSError)."""
     if args.adaptive_batching and args.slo_availability_target <= 0:
         # before any store ticker or worker thread exists: an error here
         # leaks nothing
@@ -819,6 +848,7 @@ def build_server(args) -> WebhookServer:
             "control signal"
         )
     _refuse_with_tenants(args)
+    pdp = _pdp_listener(args)
     rollout_control_enabled, rollout_control_token = _rollout_control(args)
     specs = _lifecycle_specs(args)
     certfile, keyfile = args.tls_cert_file, args.tls_private_key_file
@@ -982,6 +1012,7 @@ def build_server(args) -> WebhookServer:
         lifecycle=lifecycle,
         enable_profiling=args.profiling,
         tenancy=tenancy,
+        pdp=pdp,
         **obs,
     )
     if args.adaptive_batching:
@@ -1537,6 +1568,26 @@ def make_parser() -> argparse.ArgumentParser:
         "authenticated by per-tenant SNI/LB routes, or a tenant could "
         "name a neighbor and evaluate under its policy slice. Enabled "
         "sources that disagree on a request are rejected (conflict)",
+    )
+
+    pdp = parser.add_argument_group("pdp front end")
+    pdp.add_argument(
+        "--pdp-listen",
+        default="",
+        metavar="[ADDR:]PORT",
+        help="start the general PDP front end (pdp/, docs/pdp.md) on this "
+        "address: Envoy ext_authz HTTP-service checks on every path plus "
+        "AVP-style POST /v1/batch-authorize; both map into the same planes, "
+        "batcher ticks, cache and admission gate the webhook serves from "
+        "(ADDR defaults to --bind-address; empty disables)",
+    )
+    pdp.add_argument(
+        "--pdp-schema",
+        default="",
+        metavar="FILE",
+        help="JSON attribute-mapping/fail-posture config for the PDP front "
+        "end (identity/context headers, extauthz_deny_on_unavailable, "
+        "tenant stamp, batch tuple cap); omitted = defaults (see docs/pdp.md)",
     )
 
     debug = parser.add_argument_group("debug")

@@ -148,6 +148,11 @@ class MicroBatcher:
         self._batches_total = 0
         self._rows_total = 0
         self._largest_batch = 0
+        # batches claimed per protocol-mix signature ("sar" for an
+        # unstamped body; a PDP body carries .protocol, pdp/): a
+        # signature naming several protocols shows SAR, ext_authz and
+        # batch-authorize rows that shared one claim, and so one launch
+        self._protocol_mix: dict = {}
         # per-stage liveness beacons (server/supervisor.py)
         self.heartbeats: dict = {}
         # worker generation: revive() bumps it, and every worker loop
@@ -252,6 +257,7 @@ class MicroBatcher:
                 "batches_total": self._batches_total,
                 "rows_total": self._rows_total,
                 "largest_batch": self._largest_batch,
+                "protocol_mix": dict(self._protocol_mix),
             }
 
     def queue_fill(self) -> int:
@@ -448,6 +454,9 @@ class MicroBatcher:
                 self._batches_total += 1
                 self._rows_total += len(batch)
                 self._largest_batch = max(self._largest_batch, len(batch))
+                sig = ",".join(sorted({getattr(item, "protocol", "") or "sar"
+                                       for item, _ in batch}))
+                self._protocol_mix[sig] = self._protocol_mix.get(sig, 0) + 1
                 self._claimed(len(batch), epoch)
             for _, slot in batch:
                 slot.times = times

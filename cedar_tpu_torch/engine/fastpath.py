@@ -31,8 +31,13 @@ encoded; a failed batch feeds it and the device-error observer
 (``on_device_error=``, server/supervisor.py DeviceRecovery.observe) and
 raises; a batch that decodes records its dispatch-to-decode latency as a
 success. The caller answers a raised batch with the failure posture.
-A failed batch's staging buffers go back to the pool once no copy can
-still read them (engine/evaluator.py _StagingPool.release_after_device).
+On the card each dispatched batch leaves a CUDA event behind its
+launches and copies; device_held_s() reads how long the card has held
+the oldest batch it has not finished, so a caller can tell a sick card
+from a starved host (server/http.py feeds the breaker a deadline expiry
+only on the former). A failed batch's staging buffers go back to the
+pool once no copy can still read them (engine/evaluator.py
+_StagingPool.release_after_device).
 
 On a fused multi-tenant plane (tenancy/) the bodies arrive as TenantBody
 and carry no tenant in their bytes: each chunk's encode writes every
@@ -66,6 +71,7 @@ re-runs it elsewhere.
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import threading
@@ -73,6 +79,7 @@ import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..chaos.registry import chaos_fire
 from ..lang.authorize import ALLOW, DENY, Diagnostics, Reason
@@ -225,6 +232,11 @@ class _RawFastPath:
         # native encoders this fast path built (one per compiled set it met:
         # a load's or an adoption's hook, else the set's first batch)
         self.encoder_builds = 0
+        # (dispatch monotonic s, CUDA event behind its launches) of each
+        # dispatched batch the card may not have finished, oldest first
+        # (device_held_s); stays empty on the CPU
+        self._on_card: collections.deque = collections.deque()
+        self._on_card_lock = threading.Lock()
 
     def _current_snapshot(self) -> _Snapshot:
         """The snapshot for the engine's current compiled set. Raises when
@@ -312,6 +324,7 @@ class _RawFastPath:
         flagged rows across all chunks resolve in one deferred pass.
         `last_stage_s` records this call's encode/device/decode split."""
         self.last_stage_s = {"encode": 0.0, "device": 0.0, "decode": 0.0}
+        t0 = time.monotonic()
         pack = _WordPacker()
         pending = []
         lo = 0
@@ -322,6 +335,7 @@ class _RawFastPath:
                 pending.append((chunk, self._prepare_chunk(snap, chunk, word_pack=pack)))
             pack.flush()
             self._note_packed(pack)
+            self._note_on_card(t0)
             ctxs = [self._finish_words(snap, chunk, pre) for chunk, pre in pending]
             self._resolve_deferred(snap, ctxs)
         except BaseException:
@@ -445,6 +459,7 @@ class _RawFastPath:
                 self._device_failed(e)
             raise
         self._note_packed(pack)
+        self._note_on_card(t0)
         return ("run", snap, launched, t0)
 
     def pipeline_decode(self, ctx) -> list:
@@ -467,6 +482,41 @@ class _RawFastPath:
         if self.breaker is not None:
             self.breaker.record_success(time.monotonic() - t0)
         return _concat_results(ctxs)
+
+    def _note_on_card(self, t0: float) -> None:
+        """Record an event behind a dispatched batch's launches and copies
+        on the launching thread's stream, and remember it (nothing on the
+        CPU)."""
+        if self.engine.device.type != "cuda":
+            return
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.engine.device))
+        with self._on_card_lock:
+            self._settle_on_card()
+            self._on_card.append((t0, event))
+
+    def _settle_on_card(self) -> None:
+        """Drop the finished batches from the front (under the lock). An
+        event that cannot be queried (a faulted context) stays: the card
+        is then holding the batch."""
+        q = self._on_card
+        while q:
+            try:
+                if not q[0][1].query():
+                    return
+            except Exception:  # noqa: BLE001 — a faulted card holds its work
+                return
+            q.popleft()
+
+    def device_held_s(self) -> Optional[float]:
+        """How long the card has held the oldest batch dispatched to it
+        that it has not finished: 0.0 when it finished every one, None on
+        a CPU engine (no event tells)."""
+        if self.engine.device.type != "cuda":
+            return None
+        with self._on_card_lock:
+            self._settle_on_card()
+            return time.monotonic() - self._on_card[0][0] if self._on_card else 0.0
 
     def _note_packed(self, pack: _WordPacker) -> None:
         """Count one batch's packed word transfer (the server's

@@ -1,8 +1,8 @@
 """Decision audit log: one structured JSONL line per answered decision (a
 copy of the JAX package's obs/audit.py; ``audit_entry`` takes the
-``tenant`` a tenant front end resolved, and leaves out the ``tier`` and
-``protocol`` keys, which no server of either package sets: the port has
-no PDP front end yet).
+``tenant`` a tenant front end resolved and the ``protocol`` of a request
+the PDP front end mapped (pdp/), and leaves out the ``tier`` key, which
+no server of either package sets).
 
 Zero-trust authorization treats a durable, joinable decision trail as a
 core requirement (PAPERS.md, arXiv:2504.14777), and Cedar positions
@@ -158,6 +158,7 @@ def audit_entry(
     fallback: bool = False,
     cached: bool = False,
     tenant: str = "",
+    protocol: str = "",
 ) -> dict:
     """One decision's audit line. The determining policy ids come from the
     reason diagnostics already in hand: the audit plane never re-evaluates
@@ -187,6 +188,11 @@ def audit_entry(
         # attributed this decision to; joins the per-tenant metric series
         # and the tenant-scoped fingerprint above
         entry["tenant"] = tenant
+    if protocol:
+        # the PDP front end (pdp/): the wire protocol this decision was
+        # served over ("extauthz" / "batch"); absent for the native
+        # webhook, whose lines keep their exact shape
+        entry["protocol"] = protocol
     if error:
         entry["error"] = error[:500]
     return entry

@@ -151,10 +151,22 @@ counts on ``cedar_tenant_requests_total`` and
 metrics listener serves the resolver's configuration and the registry's
 per-tenant policy counts (404 without a front end).
 
-The server starts the policy reloader (cli/webhook.py TorchReloader) and
-the supervisor (server/supervisor.py) with its listeners; stop() stops
-the supervisor first, then the reloader, the tuners, the batchers and the
-stores' reload tickers.
+A PDP front end (pdp/ PdpListener, ``pdp``; the CLI's ``--pdp-listen``),
+as in the JAX server: its plain-HTTP listener maps each Envoy ext_authz
+check and each batch-authorize tuple into a synthetic SAR body stamped
+with its protocol (a PdpBody, and the configured tenant) and hands it to
+``serve_authorize``. PDP bodies therefore bypass do_POST's tenant front end and
+share the ingress gate (never classed high), the decision cache (keys
+split by protocol), the batcher and the card launches with SAR traffic.
+The protocol joins the trace root (``protocol``), the request families'
+bounded ``protocol`` label, the audit line and, on the interpreter
+paths, the attributes.
+
+The server starts the policy reloader (cli/webhook.py TorchReloader), the
+PDP listener and the supervisor (server/supervisor.py) with its
+listeners; stop() stops the supervisor first, then the listeners (the
+PDP's after the webhook's), the reloader, the tuners, the batchers and
+the stores' reload tickers.
 """
 
 from __future__ import annotations
@@ -370,8 +382,15 @@ class WebhookServer:
         lifecycle=None,
         enable_profiling: bool = False,
         tenancy=None,
+        pdp=None,
     ):
         self.authorizer = authorizer
+        # the PDP front end (pdp/ PdpListener): Envoy ext_authz checks and
+        # batch-authorize tuples mapped into serve_authorize; start() and
+        # stop() bring its listener up and down with the webhook's
+        self.pdp = pdp
+        if pdp is not None:
+            pdp.bind(self)
         # the tenant front end (tenancy/ TenantResolver): every POST
         # resolves a tenant before the gate and the cache, and the body
         # rides the stack as a TenantBody; an unattributable request is
@@ -737,6 +756,12 @@ class WebhookServer:
         tenant = getattr(body, "tenant", "")
         if tenant and trace is not None:
             trace.root.set_attr("tenant", tenant)
+        # the wire protocol of a PDP-mapped body (pdp/), empty for a SAR:
+        # the trace root, the request families' bounded label and the
+        # audit line carry it
+        protocol = getattr(body, "protocol", "")
+        if protocol and trace is not None:
+            trace.root.set_attr("protocol", protocol)
         decision, reason, error = DECISION_NO_OPINION, "", None
         try:
             try:
@@ -763,7 +788,7 @@ class WebhookServer:
         finally:
             label = "<error>" if error else _DECISION_LABEL[decision]
             latency = time.monotonic() - start
-            self.metrics.record_request(label, latency)
+            self.metrics.record_request(label, latency, protocol=protocol)
             if tenant:
                 self.metrics.record_tenant_request("authorization", tenant, label, latency)
             self._finish_obs("authorization", "authorize", body, request_id, trace, octx,
@@ -916,6 +941,9 @@ class WebhookServer:
             # tenant stamp: the interpreter walk over a fused stack relies
             # on the guard conditions reading context.tenantId
             attributes.tenant = getattr(body, "tenant", "")
+            # protocol stamp (pdp/): keeps the authorizer's own cache key
+            # split by protocol, as the server's fingerprint is
+            attributes.protocol = getattr(body, "protocol", "")
             # the authorizer's own cache only when the server has none:
             # the server's already missed on this canonical key
             decision, reason = self.authorizer.authorize(
@@ -1003,6 +1031,7 @@ class WebhookServer:
                 breaker_state=self._breaker_state_label(path),
                 fallback=bool(octx.get("fallback")), cached=bool(octx.get("cached")),
                 tenant=getattr(body, "tenant", ""),
+                protocol=getattr(body, "protocol", ""),
             ))
             record_audit_record(path)
         except Exception:  # noqa: BLE001 — audit must never break serving
@@ -1090,16 +1119,25 @@ class WebhookServer:
         _octx_mark("fallback")
         return False
 
-    @staticmethod
-    def _record_breaker_timeout(fastpath) -> None:
+    def _record_breaker_timeout(self, fastpath) -> None:
         """A deadline expiry the device held is a failure signal: a wedged
         evaluator never returns, so the fast path's own accounting never
         feeds the breaker. Consecutive expiries trip it, which stops
         requests queueing behind the stuck batcher (_breaker_admits) until
-        half-open probes find the device answering again."""
+        half-open probes find the device answering again. On the card the
+        card itself says whether it held the request: an expiry while it
+        holds no batch for half the budget or longer
+        (``fastpath.device_held_s``) burned on a starved host, and spares
+        the breaker; its requests answer the deadline, not the posture."""
         breaker = getattr(fastpath, "breaker", None)
-        if breaker is not None:
-            breaker.record_failure()
+        if breaker is None:
+            return
+        held = getattr(fastpath, "device_held_s", None)
+        held = held() if held is not None else None
+        if held is not None and self.request_timeout_s is not None \
+                and held < self.request_timeout_s / 2:
+            return
+        breaker.record_failure()
 
     def _admission_fail_mode(self, review, e) -> dict:
         """The configured fail-open/fail-closed answer for a review whose
@@ -1655,6 +1693,8 @@ class WebhookServer:
         threading.Thread(
             target=self._metrics_httpd.serve_forever, name="metrics-server", daemon=True
         ).start()
+        if self.pdp is not None:
+            self.pdp.start()
         if self.reloader is not None:
             self.reloader.start()
         if self.supervisor is not None:
@@ -1699,6 +1739,15 @@ class WebhookServer:
                 httpd.server_close()
         self._httpd = None
         self._metrics_httpd = None
+        if self.pdp is not None:
+            try:
+                # after the webhook listeners (the drain covered both
+                # fronts: PDP requests enter through serve_authorize and
+                # count in the same in-flight picture), before the
+                # batchers, so no PDP submit races a joining worker
+                self.pdp.stop()
+            except Exception:  # noqa: BLE001 — teardown must finish
+                log.exception("pdp listener stop failed")
         if self.reloader is not None:
             self.reloader.stop()
         self.stop_batchers()

@@ -5,7 +5,12 @@ buckets (its server/metrics.py; request families as the reference's
 internal/server/metrics/metrics.go):
 
   * ``cedar_authorizer_request_total{decision}`` and
-    ``cedar_authorizer_request_duration_seconds{decision}``;
+    ``cedar_authorizer_request_duration_seconds{decision}``; a request
+    the PDP front end mapped (pdp/) appends a ``protocol`` label
+    (``extauthz``, ``batch``), capped at 8 distinct names, later ones
+    folded into ``other`` and counted on
+    ``cedar_protocol_label_overflow_total`` (rendered once a protocol was
+    recorded: a SAR-only exposition is unchanged);
   * ``cedar_authorizer_deadline_exceeded_total{path}``,
     ``cedar_authorizer_requests_shed_total{path}`` (drain) and
     ``cedar_authorizer_fallback_batches_total{path,reason}``: the JAX
@@ -174,8 +179,11 @@ class Counter:
         self._values: Dict[_Key, float] = {}
         self._lock = threading.Lock()
 
-    def inc(self, amount: float = 1.0, **labels) -> None:
-        key = tuple((k, labels.get(k, "")) for k in self.label_names)
+    def inc(self, amount: float = 1.0, extra: Tuple = (), **labels) -> None:
+        # ``extra`` appends optional label pairs to the series key (the
+        # bounded ``protocol`` label of the request families): a caller
+        # that passes none keeps its exposition byte for byte
+        key = tuple((k, labels.get(k, "")) for k in self.label_names) + tuple(extra)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
@@ -238,8 +246,9 @@ class Histogram:
         self._totals: Dict[_Key, int] = {}
         self._lock = threading.Lock()
 
-    def observe(self, value: float, **labels) -> None:
-        key = tuple((k, labels.get(k, "")) for k in self.label_names)
+    def observe(self, value: float, extra: Tuple = (), **labels) -> None:
+        # ``extra``: optional appended label pairs, as on Counter.inc
+        key = tuple((k, labels.get(k, "")) for k in self.label_names) + tuple(extra)
         with self._lock:
             counts = self._counts.setdefault(key, [0] * len(self.buckets))
             for i, b in enumerate(self.buckets):
@@ -694,6 +703,18 @@ class _ProcessFamilies:
             "traffic sees the candidate.",
             ["tenant", "kind"],
         )
+        # the PDP front end's label cap (pdp/): the JAX name and help;
+        # rendered once a protocol-labelled request was recorded in this
+        # process, so a webhook without --pdp-listen exposes what it did
+        # before the front end existed
+        self.protocol_label_overflow_total = Counter(
+            "cedar_protocol_label_overflow_total",
+            "Protocol-labeled observations folded into `other` because the "
+            "bounded protocol label set was full.",
+            [],
+        )
+        self._protocol_labels: set = set()
+        self._protocol_label_lock = threading.Lock()
         self._families = (
             self.breaker_state, self.breaker_transitions_total,
             self.supervisor_restarts_total, self.device_rebuilds_total,
@@ -722,6 +743,10 @@ class _ProcessFamilies:
         out: List[str] = []
         for family in self._families:
             out.extend(family.collect())
+        with self._protocol_label_lock:
+            pdp_seen = bool(self._protocol_labels)
+        if pdp_seen:
+            out.extend(self.protocol_label_overflow_total.collect())
         return out
 
 
@@ -897,6 +922,34 @@ def record_shadow_shed(path: str) -> None:
 
 def set_rollout_generation(generation: int) -> None:
     _PROCESS.rollout_generation.set(generation)
+
+
+_PROTOCOL_LABEL_CAP = 8
+
+
+def _protocol_label_for(protocol: str) -> str:
+    """The bounded label of a wire protocol: the first eight names map to
+    themselves, a later one folds into ``other`` and counts on
+    cedar_protocol_label_overflow_total. The names come from code
+    (``extauthz``, ``batch``); the cap guards against a front end that
+    would stamp request-derived values."""
+    with _PROCESS._protocol_label_lock:
+        labels = _PROCESS._protocol_labels
+        if protocol != "other" and protocol not in labels:
+            if len(labels) >= _PROTOCOL_LABEL_CAP:
+                _PROCESS.protocol_label_overflow_total.inc()
+                return "other"
+            labels.add(protocol)
+    return protocol
+
+
+def _protocol_extra(protocol: str) -> Tuple:
+    """The appended label pairs of the request families: none for an
+    empty protocol (the native SAR webhook), whose series stay byte for
+    byte; a bounded ``protocol`` label for a PDP-mapped request."""
+    if not protocol:
+        return ()
+    return (("protocol", _protocol_label_for(protocol)),)
 
 
 _TENANT_LABEL_CAP = 64
@@ -1114,9 +1167,12 @@ class WebhookMetrics:
 
     # ------------------------------------------------------------ recording
 
-    def record_request(self, decision: str, latency_s: float) -> None:
-        self.request_total.inc(decision=decision)
-        self.request_latency.observe(latency_s, decision=decision)
+    def record_request(self, decision: str, latency_s: float, protocol: str = "") -> None:
+        """One /v1/authorize answer; ``protocol`` the PDP front end's wire
+        protocol of a mapped request (pdp/), empty for a SAR."""
+        extra = _protocol_extra(protocol)
+        self.request_total.inc(decision=decision, extra=extra)
+        self.request_latency.observe(latency_s, decision=decision, extra=extra)
 
     def record_tenant_request(self, path: str, tenant: str, decision: str,
                               latency_s: float) -> None:

@@ -6,7 +6,8 @@
 Phases, each a hard failure with a nonzero exit:
 
   1. card: name and power limit (nvidia-smi).
-  2. build: the match kernels from cedar_tpu_torch/csrc with nvcc (sm_90a);
+  2. build: the match kernels from cedar_tpu_torch/csrc with nvcc (sm_90a),
+     and beside it the native encoder (cedar_tpu_torch/native) with g++;
      prints ptxas's register and spill lines and the count of
      warpgroup-MMA instructions (IGMMA) in the library's SASS, which must
      be above 0 (the kernels run on the tensor cores).
@@ -30,8 +31,8 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies and 24578 more (2 new, then the batch-4096 bodies six times
-     over);
+     bodies (2048 bodies, each twice) and 24578 more (2 new, then the
+     batch-4096 bodies six times over);
      launch counts reset before and read after each batch ({words 1,
      groups 0} up to 16384 rows; at 24578 three words launches: a chunk
      of 16384, then the 8194-row tail split in two of 4097); routing
@@ -45,10 +46,13 @@ Phases, each a hard failure with a nonzero exit:
      (--profile: the device's idle share and top kernels over each). Both kernels held
      against their plain versions on a native-encoded 16384-row chunk.
      Gated sub-phase: the corpus plus an interpreter-fallback and a
-     native-opaque policy, traffic that hits their scopes: gated rows re-run
-     through evaluate_batch (match_groups_kernel), the rest take the words
-     launch; 0 flips; both kernels held against their plain versions on
-     that plane.
+     native-opaque policy, 4096 rows (2048 bodies, each twice) of traffic
+     that hits their scopes: gated rows re-run through evaluate_batch
+     (match_groups_kernel), the rest take the words launch; 0 flips; both
+     kernels held against their plain versions on that plane. The
+     interpreter answers each distinct body of the phase once, in a pool
+     that runs beside phase 8's server start-ups; phase 8 holds the
+     phase's answers against it before its own traffic.
   5. want_full path: a set with interpreter-fallback policies (the
      coverage corpus' blowup family) served through match_groups_kernel
      (counts reset just before, read just after; match_words_kernel never
@@ -59,8 +63,9 @@ Phases, each a hard failure with a nonzero exit:
   7. timing: each kernel at the serving plane's shape (B = 4096, 128 and
      1) and at L = 1024 (B = 4096 and 128), beside its plain version, its
      bound and two library yardsticks (float32 torch.matmul, and
-     torch._int_mm, the same int8 contraction without the epilogue, where
-     its shape rules allow: B > 16). A kernel's "ms" is its wrapper called
+     torch._int_mm, the same int8 contraction without the epilogue; its
+     shape rules want B > 16, so B = 1 is timed padded with zero rows to
+     17). A kernel's "ms" is its wrapper called
      back to back (the host's cost per call included where it is the
      slower side); "device_ms" the same calls replayed from a CUDA graph.
      Then a rule-tile probe: match_groups_kernel's device time at B = 4096
@@ -86,7 +91,8 @@ Phases, each a hard failure with a nonzero exit:
      stage times per batch and the launches; the largest batch; and the
      server's peak RSS (its rusage, reaped after SIGTERM, which must end
      it with code 0 within --shutdown-grace-seconds + 5 s). Then the
-     CLI's two other serving modes, each a new server on the same store:
+     CLI's two other serving modes, each a server on the same store
+     started with the first one and idle until its windows are done:
      --pipeline-depth 0 (serial batch loop; both kernels launched) and
      --no-native (one engine call per request thread), each answering
      the first 300 gated bodies from 16 clients with 0 flips and exiting
@@ -98,15 +104,18 @@ Phases, each a hard failure with a nonzero exit:
      admission policies (the forbid set of the JAX package's native
      admission tests, the repo demo's demo-require-owner-label, and an
      interpreter-fallback forbid whose scope the plane gates) in one
-     directory store, and 4096 seeded AdmissionReview bodies (CREATE 50%,
+     directory store, and 1,024 seeded AdmissionReview bodies, each sent
+     four times (4,096 rows; CREATE 50%,
      UPDATE 30%, DELETE 15%, CONNECT 5%; ConfigMap, Secret, Deployment and
      Pod objects; about 10% in kube-system; every sixteenth in the
      fallback forbid's scope; every 25th matching two forbids; a few
      conversion errors and one uid over 255 bytes). The expected answers
      come from the library AdmissionFastPath over the same stores plus the
      allow-all tier, held against the port's interpreter handler in the
-     oracle pool (0 flips; a deny's reasons compared as a set). Then the webhook CLI, which builds both
-     engines, serves 300 bodies on /v1/admit at concurrency 1, all 4096
+     oracle pool (0 flips; a deny's reasons compared as a set). Then
+     phase 10's server, at its version 0 (these files) and before phase
+     10's traffic (phase 9 had a server of its own until phase 21 needed
+     the time), serves 300 bodies on /v1/admit at concurrency 1, all 4096
      at concurrency 64, and a mixed window: 2048 admission bodies from 32
      clients while 32 others POST 2048 of phase 8's SAR bodies, every
      answer equal to its expected one. Over the admission-only windows
@@ -115,8 +124,7 @@ Phases, each a hard failure with a nonzero exit:
      and encoder_gate, no fallback batch, a mean batch above 1 at
      concurrency 64, and an `admission` entry in /debug/engine. Prints
      requests/s, p50 / p99, mean and largest batch, the mixed window per
-     endpoint, both engines' plane shapes, the server's peak RSS and the
-     phase's wall time; SIGTERM must end the server with code 0.
+     endpoint, both engines' plane shapes and the phase's wall time.
   10. live policy reload: phase 9's files in one
      directory store with refreshInterval 30s (its minimum), served by the
      CLI with --reload-seconds 1, --request-timeout-ms 10000,
@@ -227,10 +235,11 @@ Phases, each a hard failure with a nonzero exit:
      each pass timed (lower_all, lint_lowerability, find_shadowing,
      find_conflicts, capacity_report) and the whole call, with
      ``truncated`` (the pair budget is spent at 10k policies). Then two
-     CLI servers, one after the other (the oracle pool beside the strict
-     one's start-up), each over two tiers, a directory store (a symlink at
-     version 0: the corpus and the native-opaque forbid, refreshInterval
-     30s) and a CRD store on FakeApiServer with one Policy object, both
+     CLI servers, started together beside the oracle pool, the partial
+     one idle while the strict one serves, each over two tiers, a
+     directory store (a symlink at version 0: the corpus and the
+     native-opaque forbid, refreshInterval 30s) and a CRD store on its
+     own FakeApiServer with one Policy object, both
      engines incremental, --reload-seconds 1. The directory edit is one
      file with a forbid on every watch and the interpreter-fallback
      policy (a clause_limit finding, severity error). Strict
@@ -266,7 +275,7 @@ Phases, each a hard failure with a nonzero exit:
      over the tiers live at that moment (canon: decision, reason set
      with positions, error): (a) a warm pass at concurrency 64 (every
      key misses once; both kernels launch); (b) the allow keys again
-     (0 misses, no launch); (c) 8 shuffled passes at concurrency 64
+     (0 misses, no launch); (c) 4 shuffled passes at concurrency 64
      (launches no more than the misses, which NoOpinion's 5 s TTL
      causes); (d) 300 allow hits at concurrency 1 (0 misses, no
      launch); (e) phase 12's event 1 while 16 clients send 512 other
@@ -333,10 +342,16 @@ Phases, each a hard failure with a nonzero exit:
      base; 25% kubelet SARs (system:node:node-<k>, system:nodes), 50%
      controller SARs of the SAR pool's 64 most frequent users (a third
      the first's, the hot user), 25% admission reviews of 64 service
-     accounts; fired at their due times from 4 spawned asyncio processes,
-     each on an idle keep-alive connection of a pool of 64 per process
-     that opens another whenever all are busy, so no arrival waits for
-     an earlier answer; /readyz polled every 100 ms. Checks, each
+     accounts; fired at their due times from 4 spawned asyncio processes
+     (the schedule's clock starts 0.5 s after all four have started and
+     connected), each on an idle keep-alive connection of a pool of 256
+     per process that opens another whenever all are busy, so no arrival
+     waits for an earlier answer (an overloaded server is slow to accept
+     a new connection, so the pool is sized for 1,024 unanswered
+     requests); /readyz polled every 100 ms. A claimed
+     request's expiry feeds the breaker only while the card holds a
+     batch for half the budget or longer (a starved host is not a sick
+     card: its expiries answer the deadline). Checks, each
      failing the run: the driver's fire lag p99 at most 50 ms (past it
      the driver set the offered rate); the server's offered / admitted / shed / eval_shed
      and shed_by on /debug/load equal the clients' counts, offered ==
@@ -354,9 +369,10 @@ Phases, each a hard failure with a nonzero exit:
      by priority and reason, the normal share shed (all, and at the
      5-8 s peak), admitted p50 / p99 per priority and endpoint, the
      /readyz states, the tuners' moves and final knobs, the clients'
-     fire lag, the rate sent at the peak (from the send times), the most
-     requests unanswered at once and the connections opened, launches
-     and the phase's wall time.
+     fire lag (and of the arrivals that opened a connection), the rate
+     sent at the peak (from the send times), the most requests
+     unanswered at once and the connections opened, launches and the
+     phase's wall time.
   17. the explain plane (this slice's main path), on phase 15's server
      once phase 15's checks passed (its cache, tracer at rate 1, audit
      log, recorder and injector all still on): phase 15's first 256
@@ -407,7 +423,8 @@ Phases, each a hard failure with a nonzero exit:
      FakeApiServer (the store withholds them from live serving); POST
      /rollout/stage {"crd": true} compiles both candidate engines and
      they warm up to the live engines' top bucket. The shadow window:
-     768 fresh SARs and 192 reviews in two chunks (SARs at c=12,
+     384 fresh SARs and 96 reviews in two chunks (768 and 192 until
+     phase 21 needed the time; SARs at c=12,
      reviews at c=4), each drained before the next, so nothing sheds:
      the report's counts per class (and its exemplars' classes) equal
      those the port's interpreter gives over the live and candidate
@@ -423,7 +440,7 @@ Phases, each a hard failure with a nonzero exit:
      are held against the interpreter after the last window, and the
      medians of the two windows alone and the two beside are printed (a
      whole run says the cost was not measured). Promote: the next
-     answer and a window of 512 SARs (c=16) and 128 reviews equal the
+     answer and a window of 384 SARs (c=16) and 96 reviews equal the
      candidate oracle's; no warm-up launch on either live engine, one
      native encoder built per path, at the adoption. Roll back: the same
      window equals the live oracle's; nothing built or warmed. Every
@@ -515,6 +532,37 @@ Phases, each a hard failure with a nonzero exit:
      standalone (library), c=64 requests/s and mean batch, event to
      swap, the server's card memory (its allocator's peak) and the
      phase's launches and wall time.
+  21. the PDP front end (this slice's main path), after phase 20: one
+     policy file of MeshCorpus(--policies, seed + 21), the three
+     vocabularies of the JAX bench's mesh scenario (k8s resource permits,
+     http:<method> permits over NonResourceURL paths and avp:<action>
+     permits, 34 / 33 / 33, every policy distinct) plus an
+     interpreter-fallback policy in the http:post vocabulary and one that
+     reads a declared context header; behind the CLI with --pdp-listen on
+     a free port, a --pdp-schema that declares that header (tuple cap
+     64), the decision cache on, --validation-mode permissive and an
+     audit log. While the server starts, the PdpOracle's answer of every
+     distinct body (the oracle pool). Then: the fail postures (an
+     unmappable check 403, an unparseable body and an over-cap body 400,
+     a malformed tuple answered for itself beside answered neighbours);
+     64 fresh ext_authz checks at c=1 (the joiners' POSTs take the gated
+     lane), then 64 fresh SARs at c=1 (none gated); a mixed window of
+     4,096 SARs from 32 webhook clients, 4,096 checks from 32 ext_authz
+     clients and 128 batch bodies of 32 tuples from 4 clients at once,
+     every draw Zipf-skewed over its principal pool; one check and the
+     SAR of the same bytes, each sent twice. Checks: every answer equals
+     the PdpOracle's (0 flips); a formed batch's protocol_mix signature
+     holds all three protocols (/debug/engine); the twin bodies miss
+     twice, then hit their own entries; cedar_authorizer_request_total
+     by protocol and the audit lines by protocol equal what was sent; no
+     PDP body classifies high, while kubelet-named checks would as SARs;
+     the c=1 SARs launch no match_groups_kernel and the c=1 checks do;
+     both kernels launched, gated rows routed; no breaker transition,
+     supervisor restart or device rebuild. Prints ready seconds, c=1 p50
+     / p99 of checks and SARs, the mixed window's requests/s and p50 /
+     p99 per protocol with batch POSTs' tuples/s, the mean batch and the
+     protocol_mix tallies, the server's allocator peak, launches and the
+     phase's wall time.
 
 Phases 8, 9, 10, 12 and 13 also check that /metrics shows no breaker
 transition, no supervisor restart and no device rebuild, and so do
@@ -534,8 +582,8 @@ reload phase), ``--only-resilience`` phases 1, 2, 10 and 11,
 ``--only-load`` phases 1, 2 and 16, ``--only-explain`` phases 1, 2, 15
 and 17, ``--only-rollout`` phases 1, 2, 15 and 18, and
 ``--only-lifecycle`` phases 1, 2 and 19 (with 19 (c), and a 10k engine
-of its own for (b)), and ``--only-tenancy`` phases 1, 2 and 20; none
-prints result lines.
+of its own for (b)), ``--only-tenancy`` phases 1, 2 and 20, and
+``--only-pdp`` phases 1, 2 and 21; none prints result lines.
 
 Prints the card line, then one {"kernels": [...]} line, then, last,
 {"ok": true, "device": {...}}. In the kernels line each kernel carries
@@ -545,7 +593,8 @@ explain window launches neither kernel by design: ``launches_explain``
 is 0; ``launches_rollout`` adds the shadow worker's launches on the
 candidate engines to the server's served ones, and
 ``launches_lifecycle`` those and the candidate engines' warm-ups;
-``launches_tenancy`` phase 20's server's served ones);
+``launches_tenancy`` phase 20's server's served ones, ``launches_pdp``
+phase 21's);
 ``launches`` is their sum. The run's wall time is printed before the
 card line. Exits nonzero, printing no result, when
 CUDA is unavailable or the package is missing.
@@ -987,11 +1036,19 @@ def _oracle(name: str):
     versions: the policy ids are the served ones); "cand-authorize:<file>"
     and "cand-admit:<file>" over the rollout candidate those objects stage
     (rollout/: ids <object>.policy<N>, the admission stack with the
-    allow-all tier)."""
+    allow-all tier); "pdp:<dir>" the PDP front end's PdpOracle over a
+    directory store of <dir> (phase 21), whose bodies come as (protocol,
+    bytes) pairs."""
     if name not in _ORACLES:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
 
-        if name.startswith("gate-authorize:"):
+        if name.startswith("pdp:"):
+            from cedar_tpu_torch.pdp import PdpOracle
+            from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
+
+            _ORACLES[name] = PdpOracle(TieredPolicyStores([
+                DirectoryPolicyStore(name[len("pdp:"):], start_ticker=False)]))
+        elif name.startswith("gate-authorize:"):
             _ORACLES[name] = _tiered_oracle(name[len("gate-authorize:"):])
         elif name.startswith("cand-"):
             from cedar_tpu_torch.apis.v1alpha1 import PolicyObject
@@ -1112,6 +1169,12 @@ def _oracle_answers(task):
     from cedar_tpu_torch.server.sar import get_authorizer_attributes, sar_response
 
     name, bodies = task
+    if name.startswith("pdp:"):
+        from cedar_tpu_torch.pdp import PdpBody
+
+        oracle = _oracle(name)
+        return [canon(sar_response(*oracle.authorize_body(PdpBody(b, proto) if proto else b)))
+                for proto, b in bodies]
     if name == "admission" or name.startswith(("dir-admit:", "crd-admit:", "cand-admit:")):
         return [admission_oracle(_oracle(name), b) for b in bodies]
     attrs = [get_authorizer_attributes(json.loads(b)) for b in bodies]
@@ -1125,19 +1188,36 @@ def interpreter_answers(tasks: dict, n_policies: int, seed: int, adm_dir=None,
     spread in pieces of `piece` bodies over one spawned worker per core
     (it takes milliseconds per request at 10k policies); the pool is torn
     down before returning."""
+    return interpreter_answers_started(tasks, n_policies, seed, adm_dir, piece)()
+
+
+def interpreter_answers_started(tasks: dict, n_policies: int, seed: int, adm_dir=None,
+                                piece: int = 512):
+    """interpreter_answers with its pool started now and read later: ->
+    a function that waits for the answers, tears the pool down and
+    returns them."""
     import multiprocessing as mp
 
     work = [(label, i, name, bodies[i:i + piece])
             for label, (name, bodies) in tasks.items() for i in range(0, len(bodies), piece)]
     n_workers = max(1, min(os.cpu_count() or 1, len(work)))
-    with mp.get_context("spawn").Pool(
-        n_workers, initializer=_oracle_init, initargs=(n_policies, seed, adm_dir)
-    ) as pool:
-        answers = pool.map(_oracle_answers, [(name, b) for _, _, name, b in work], chunksize=1)
-    out = {label: [] for label in tasks}
-    for (label, _, _, _), ans in zip(work, answers):
-        out[label].extend(ans)
-    return out
+    pool = mp.get_context("spawn").Pool(
+        n_workers, initializer=_oracle_init, initargs=(n_policies, seed, adm_dir))
+    pending = pool.map_async(_oracle_answers, [(name, b) for _, _, name, b in work],
+                             chunksize=1)
+
+    def collect() -> dict:
+        try:
+            answers = pending.get()
+        finally:
+            pool.terminate()
+            pool.join()
+        out = {label: [] for label in tasks}
+        for (label, _, _, _), ans in zip(work, answers):
+            out[label].extend(ans)
+        return out
+
+    return collect
 
 
 def profile_answer(torch, fn, label: str) -> None:
@@ -1277,6 +1357,22 @@ def freeze_client_heap() -> tuple:
     return took, gc.get_freeze_count() - frozen
 
 
+def cache_bytecode() -> None:
+    """Cache the bytecode of every Python process the smoke starts from
+    here on (each server, oracle worker and storm client imports torch and
+    the port) under the checkout's build directory. Where the environment
+    sets PYTHONDONTWRITEBYTECODE, as the card machine's does, each of them
+    would otherwise compile those sources anew, some seconds of every
+    server start. Nothing is written outside the checkout; spawned workers
+    inherit -B and only read what the servers wrote."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cedar_tpu_torch",
+                          "_build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+
+
 def diag_key(decision, diag):
     """Decision and reason set: what must agree with the interpreter
     (error message texts differ by design: the device plane reports
@@ -1322,6 +1418,9 @@ def main() -> None:
     ap.add_argument("--only-tenancy", action="store_true",
                     help="run phases 1, 2 and 20 only (ten tenants fused into one pair of card "
                          "engines behind the tenant front end); prints no result lines")
+    ap.add_argument("--only-pdp", action="store_true",
+                    help="run phases 1, 2 and 21 only (the PDP front end: SAR, ext_authz and "
+                         "batch-authorize traffic on one server); prints no result lines")
     ap.add_argument("--profile", action="store_true",
                     help="trace one batch-4096 answer of the authorizer path and "
                          "a batch-1, a batch-4096 and a batch-24578 answer of the fast path "
@@ -1356,6 +1455,7 @@ def main() -> None:
         from cedar_tpu_torch.stores.store import MemoryStore, TieredPolicyStores
     except ImportError as e:
         fail(f"the cedar_tpu_torch package is not importable here: {e}")
+    cache_bytecode()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(args.seed)
@@ -1378,11 +1478,30 @@ def main() -> None:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}", flush=True)
 
-    # ---- 2. build
+    # ---- 2. build: nvcc, and beside it the native encoder's g++ (4b and
+    # every server load it)
+    from cedar_tpu_torch.native import build as native_build
+
     t0 = time.monotonic()
+    native = {"fresh": not native_build.library_path().is_file()}
+
+    def build_native():
+        try:
+            native_build.ensure_built()
+        except Exception as e:  # noqa: BLE001 — raised again below
+            native["error"] = e
+        native["s"] = time.monotonic() - t0
+
+    native_thread = threading.Thread(target=build_native)
+    native_thread.start()
     lib = cuda_match.build()
     print(f"build: {lib.relative_to(cuda_match.BUILD_ROOT.parent.parent)} "
           f"in {time.monotonic() - t0:.2f} s", flush=True)
+    native_thread.join()
+    so = native_build.ensure_built()  # raises the build's error, if any
+    cmd = " ".join(native_build.compile_command(native_build.glue_include(), so.name))
+    print(f"native build (beside nvcc): {cmd} in {native['s']:.2f} s"
+          + ("" if native["fresh"] else " (already built)"), flush=True)
     for line in cuda_match.build_log().splitlines():
         if "ptxas info" in line and ("Compiling entry" in line or "Used" in line) \
                 or "spill" in line:
@@ -1429,6 +1548,9 @@ def main() -> None:
         engine = TorchPolicyEngine()
         engine.load(tiers)
         lifecycle_phase(args, card, corpus, engine, tiers)
+        return
+    if args.only_pdp:
+        pdp_phase(args, card)
         return
     if args.only_reload or args.only_resilience:
         corpus = synth_corpus(args.policies, seed=args.seed)
@@ -1563,7 +1685,9 @@ def main() -> None:
                 for b in bodies]
     _, _, lit300 = engine_lit(engine, cs, items300, pad=True)
     parity("serving", lit300, *serve_plane, need_mix=False, maps=cs.plane_maps)
-    big = corpus.sar_bodies(4096, seed=args.seed + 2)
+    # the batch-4096 traffic: 2048 bodies, each twice (4096 distinct until
+    # phase 21 needed the time: the interpreter answers each body once)
+    big = corpus.sar_bodies(2048, seed=args.seed + 2) * 2
     items4096 = [record_to_cedar_resource(get_authorizer_attributes(json.loads(b)))
                  for b in big]
     codes, extras, serve_lit = engine_lit(engine, cs, items4096, pad=False)
@@ -1621,15 +1745,7 @@ def main() -> None:
     # ---- 4b. the native fast path: raw SAR bytes -> C++ encoder -> pinned
     # staging -> one words launch per chunk -> one packed D2H
     from cedar_tpu_torch.engine.fastpath import SARFastPath, _chunk_sizes
-    from cedar_tpu_torch.native import build as native_build
 
-    so = native_build.library_path()
-    built = not so.is_file()
-    t0 = time.monotonic()
-    native_build.ensure_built()
-    cmd = " ".join(native_build.compile_command(native_build.glue_include(), so.name))
-    print(f"native build: {cmd} in {time.monotonic() - t0:.2f} s"
-          + ("" if built else " (already built)"), flush=True)
     fast = SARFastPath(engine, authz)
     # the largest batch: 24578 rows, the fewest past one chunk whose tail
     # splits (65536 until phase 13 needed the time, 32768 until phase 18
@@ -1727,7 +1843,8 @@ def main() -> None:
     g_authz = CedarWebhookAuthorizer(
         TieredPolicyStores([MemoryStore("gated", g_ps)]), evaluate_batch=g_engine.evaluate_batch)
     g_fast = SARFastPath(g_engine, g_authz)
-    g_batch = gated_bodies(corpus, 4096, seed=args.seed + 6)
+    # 2048 bodies, each twice, as the batch-4096 traffic above
+    g_batch = gated_bodies(corpus, 2048, seed=args.seed + 6) * 2
     cuda_match.reset_launch_counts()
     g_res = g_fast.authorize_raw(g_batch)
     torch.cuda.synchronize()
@@ -1756,23 +1873,33 @@ def main() -> None:
     # every answer of the phase against the port's interpreter, which
     # answers each distinct body once; in pieces of 128 (a piece of 512
     # takes about 20 s at 10k policies, so the last of some 65 left the
-    # other workers idle that long)
-    t0 = time.monotonic()
+    # other workers idle that long). The pool starts with phase 8's
+    # servers (their start-ups overlap it; phases 5-7 time the kernels
+    # on an otherwise idle host), and phase 8 reads it before it holds
+    # its expected answers against the gated ones
     synth = list(dict.fromkeys(b for batch in batches.values() for b in batch))
-    oracle_answers = interpreter_answers(
-        {"synth": ("synth", synth), "gated": ("gated", g_batch)}, args.policies, args.seed,
-        piece=128)
-    by_body = dict(zip(synth, oracle_answers["synth"]))
-    wants = {label: [by_body[b] for b in batch] for label, batch in batches.items()}
-    wants["gated"] = oracle_answers["gated"]
-    for label, mine in list(fast_answers.items()) + [("gated", g_answers)]:
-        flips = sum(a != b for a, b in zip(mine, wants[label]))
-        print(f"fastpath {label}: flips vs the interpreter {flips}", flush=True)
-        if flips or len(mine) != len(wants[label]):
-            fail(f"fast path {label}: {flips} answers differ from the interpreter")
-    print(f"interpreter check: {sum(map(len, wants.values()))} answers of "
-          f"{sum(map(len, oracle_answers.values()))} distinct bodies in "
-          f"{time.monotonic() - t0:.1f} s", flush=True)
+    gated = list(dict.fromkeys(g_batch))
+
+    def check_4b(collect, t0: float, batches=batches, fast_answers=fast_answers,
+                 g_answers=g_answers, g_batch=g_batch, synth=synth, gated=gated) -> list:
+        """The interpreter's answers -> every 4b answer held against
+        them (0 flips); returns the gated batch's. Its inputs are bound
+        here: phase 7 reuses some of these names."""
+        oracle_answers = collect()
+        by_body = dict(zip(synth, oracle_answers["synth"]))
+        wants = {label: [by_body[b] for b in batch] for label, batch in batches.items()}
+        by_gated = dict(zip(gated, oracle_answers["gated"]))
+        wants["gated"] = [by_gated[b] for b in g_batch]
+        for label, mine in list(fast_answers.items()) + [("gated", g_answers)]:
+            flips = sum(a != b for a, b in zip(mine, wants[label]))
+            print(f"fastpath {label}: flips vs the interpreter {flips}", flush=True)
+            if flips or len(mine) != len(wants[label]):
+                fail(f"fast path {label}: {flips} answers differ from the interpreter")
+        print(f"interpreter check (phase 4b, beside phase 8's start-up): "
+              f"{sum(map(len, wants.values()))} answers of "
+              f"{sum(map(len, oracle_answers.values()))} distinct bodies in "
+              f"{time.monotonic() - t0:.1f} s", flush=True)
+        return wants["gated"]
 
     clock("5")
     # ---- 5. want_full path: interpreter-fallback policies
@@ -1862,13 +1989,16 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
             iters = 20 if B == 4096 else 100
             lib_ms = time_ms(torch, lambda: torch.matmul(litf, Wf), iters)
             # the same int8 contraction, without the epilogue; cuBLASLt's
-            # rules: more than 16 rows
+            # rules want more than 16 rows, so a smaller batch is timed
+            # padded with zero rows to the 17 it accepts
+            int_mm_rows = max(B, 17)
+            lit_mm = lit if B == int_mm_rows else torch.cat(
+                [lit, lit.new_zeros((int_mm_rows - B, lit.shape[1]))])
             int_mm_ms = None
-            if B > 16:
-                try:
-                    int_mm_ms = time_ms(torch, lambda: torch._int_mm(lit, W), iters)
-                except RuntimeError as e:
-                    print(f"torch._int_mm refused B={B} L={L} R={R}: {e}", flush=True)
+            try:
+                int_mm_ms = time_ms(torch, lambda: torch._int_mm(lit_mm, W), iters)
+            except RuntimeError as e:
+                print(f"torch._int_mm refused B={int_mm_rows} L={L} R={R}: {e}", flush=True)
             rows = {
                 "match_groups_kernel": (
                     lambda: cuda_match.match_groups(lit, W, th, grp, pol, G, plane_maps=maps),
@@ -1894,6 +2024,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
                     "rule_tile": cuda_match.rule_tile(B, R, n_sm), "ms": ms, "device_ms": device_ms,
                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib_ms, "library_int_mm_ms": int_mm_ms,
+                    "library_int_mm_rows": int_mm_rows,
                 })
     # the rule-tile choice: each tile forced in turn (rule_tile replaced
     # for the probe only; these launches are not main-path launches)
@@ -1913,43 +2044,49 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
           + json.dumps(tiles), flush=True)
 
     clock("8")
-    # ---- 8. webhook: the CLI entry point on the card, over HTTP
+    # ---- 8. webhook: the CLI entry point on the card, over HTTP (4b's
+    # interpreter check beside its servers' start-up)
+    t_4b = time.monotonic()
+    collect_4b = interpreter_answers_started(
+        {"synth": ("synth", synth), "gated": ("gated", gated)}, args.policies, args.seed,
+        piece=128)
     webhook_launches, big_expected = webhook_phase(
-        args, card, corpus, g_batch, oracle_answers["gated"], big)
+        args, card, corpus, g_batch, lambda: check_4b(collect_4b, t_4b), big)
 
     clock("9")
-    # ---- 9. admission: /v1/admit on the same CLI, beside /v1/authorize
-    admission_launches = admission_phase(args, card, big, big_expected)
-
-    clock("10")
+    # ---- 9. admission: /v1/admit, and beside /v1/authorize, then
     # ---- 10. live policy reload under traffic on both endpoints, then
-    # ---- 11. resilience: chaos windows on the same server
-    reload_launches, resilience_launches = reload_phase(
-        args, card, g_batch, then=resilience_then(args, card))
+    # ---- 11. resilience: chaos windows, all on one server (phase 9's
+    # own server until phase 21 needed the time)
+    # the later phases' pool: 4096 distinct gated bodies, as each
+    # --only-* run draws it (phases 4b and 8 serve 2048 of them twice)
+    pool = gated_bodies(corpus, 4096, seed=args.seed + 6)
+    reload_launches, admission_launches, resilience_launches = reload_phase(
+        args, card, pool, then=resilience_then(args, card), first=(big, big_expected))
 
     clock("12")
     # ---- 12. the CRD store: Policy object events, incremental reloads
-    crd_launches = crd_phase(args, card, g_batch)
+    crd_launches = crd_phase(args, card, pool)
 
     clock("13")
     # ---- 13. the validationMode load gate: its cost, strict and partial
-    gate_launches = gate_phase(args, card, corpus, g_batch)
+    gate_launches = gate_phase(args, card, corpus, pool)
 
     clock("14")
     # ---- 14. the decision cache ahead of the CRD-served engines
-    cache_launches = cache_phase(args, card, g_batch)
+    cache_launches = cache_phase(args, card, pool)
 
     clock("15")
     # ---- 15. the request observability plane around both endpoints, then
     # ---- 17. the explain plane and 18. the shadow rollout on the same server
     obs_launches, (explain_out, rollout_launches) = obs_phase(
-        args, card, g_batch, then=then_all(
+        args, card, pool, then=then_all(
             explain_then(args, card, engine=engine, split_bodies=bodies),
             rollout_then(args, card, corpus)))
 
     clock("16")
     # ---- 16. the overload-control plane under an open-loop flash crowd
-    load_launches = load_phase(args, card, g_batch)
+    load_launches = load_phase(args, card, pool)
 
     clock("19")
     # ---- 19. the declarative lifecycle on its own server, with the
@@ -1961,6 +2098,11 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     # tenant front end, held to each tenant's own interpreter
     tenancy_launches = tenancy_phase(args, card, parity)
 
+    clock("21")
+    # ---- 21. the PDP front end: Envoy ext_authz and batch-authorize
+    # traffic beside SARs on one server, held to the PdpOracle
+    pdp_launches = pdp_phase(args, card)
+
     # each kernel's launches on every path this run drove, each counted
     # from 0 just before its path and read just after (a server's in its
     # process; phase 18's adds the shadow worker's launches on the
@@ -1970,6 +2112,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
     for k, meta in kinds.items():
         head = shapes[k][0]  # the serving plane at B = 4096
         per_path = {
+            "launches_pdp": pdp_launches[k],
             "launches_tenancy": tenancy_launches[k],
             "launches_lifecycle": lifecycle_launches[k],
             "launches_rollout": rollout_launches[k],
@@ -2007,7 +2150,7 @@ forbid (principal, action == k8s::Action::"delete", resource is k8s::Resource)
                   f"ms (plain "
                   f"{s['plain_ms']:.4f}, bound {s['bound_ms']:.4f} by {s['bound_by']}, "
                   f"float32 matmul {s['library_ms']:.4f}, int8 _int_mm "
-                  f"{s['library_int_mm_ms']})", flush=True)
+                  f"{s['library_int_mm_ms']} at {s['library_int_mm_rows']} rows)", flush=True)
 
     print(f"smoke wall time ({card}): {time.monotonic() - t_smoke:.1f} s", flush=True)
     card = card_line()
@@ -2228,9 +2371,10 @@ class Webhook:
             self.proc.wait(timeout=60)
 
 
-def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: list) -> dict:
+def webhook_phase(args, card: str, corpus, bodies: list, oracle, clean: list) -> dict:
     """Phase 8 (module docstring): `bodies` are the gated sub-phase's,
-    with the interpreter's answers `oracle`; `clean` more synth bodies
+    with the interpreter's answers from `oracle()` (called once the
+    servers are starting); `clean` more synth bodies
     (no gated scope forced). Returns the server's kernel launch counts
     over the phase's traffic."""
     from cedar_tpu_torch.corpus.synth import synth_source
@@ -2263,6 +2407,15 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
                                             "directoryStore": {"path": pol_dir}}]}}, f)
         srv = Webhook(cfg, tmp, "webhook", grace)
         port, mport = srv.port, srv.mport
+        # the two other serving modes of the CLI, on the card: the serial
+        # batch loop (--pipeline-depth 0), and --no-native (no fast path:
+        # each request thread evaluates its own SAR on the engine). They
+        # start with the main server (a start is one process's compile,
+        # about 20 s) and idle until its windows are done; then each
+        # serves the first 300 gated bodies from 16 clients, 0 flips,
+        # while the other one idles
+        alts = [(flags, Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags))
+                for flags in (("--pipeline-depth", "0"), ("--no-native",))]
         try:
             # the expected answers meanwhile, in this process: the library
             # fast path over a store built from the same directory
@@ -2273,6 +2426,7 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
                 stores, evaluate_batch=x_engine.evaluate_batch))
             expected = [sar_response(*r)["status"] for r in x_fast.authorize_raw(bodies)]
             expected_clean = [sar_response(*r)["status"] for r in x_fast.authorize_raw(clean)]
+            oracle = oracle()
             lib_flips = sum(reason_key(e, rename) != reason_key(o, {})
                             for e, o in zip(expected, oracle))
             print(f"webhook expected answers: library fast path over the directory store, "
@@ -2344,17 +2498,13 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle: list, clean: li
             took, rss = srv.terminate()
             print(f"webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
                   f"({card}): {rss}", flush=True)
+        except BaseException:
+            for _, alt in alts:
+                alt.kill()
+            raise
         finally:
             srv.kill()
 
-        # the two other serving modes of the CLI, on the card: the serial
-        # batch loop (--pipeline-depth 0), and --no-native (no fast path:
-        # each request thread evaluates its own SAR on the engine). The
-        # first 300 gated bodies from 16 clients, 0 flips. Both servers
-        # start at once (a start is one process's compile, about 25 s),
-        # and each serves its window while the other one idles.
-        alts = [(flags, Webhook(cfg, tmp, "webhook" + "".join(flags), grace, flags))
-                for flags in (("--pipeline-depth", "0"), ("--no-native",))]
         try:
             for _, alt in alts:
                 alt.wait_ready(card)
@@ -2419,11 +2569,17 @@ def metric_values(text: str, family: str, label: str, path: str) -> dict:
     return out
 
 
-def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
-    """Phase 9 (module docstring): `sars` and `sar_expected` are phase 8's
-    SAR bodies and expected answers, for the mixed window. Returns the
-    server's kernel launch counts over the admission-only windows."""
-    from cedar_tpu_torch.corpus.synth import synth_source
+# phase 9's review pool: ADMISSION_DISTINCT bodies, each served
+# ADMISSION_REPEAT times (4096 distinct until phase 21 needed the time: the
+# interpreter answers each body once)
+ADMISSION_DISTINCT, ADMISSION_REPEAT = 1024, 4
+
+
+def admission_prep(args, pol_dir: str) -> dict:
+    """Phase 9's reviews and their expected answers: the library
+    AdmissionFastPath over the directory `pol_dir` (phase 10's version 0,
+    phase 9's files) plus the allow-all tier, in this process while the
+    server starts; the distinct bodies go to the oracle pool."""
     from cedar_tpu_torch.engine.evaluator import TorchPolicyEngine
     from cedar_tpu_torch.engine.fastpath import AdmissionFastPath
     from cedar_tpu_torch.server.admission import (
@@ -2433,154 +2589,129 @@ def admission_phase(args, card: str, sars: list, sar_expected: list) -> dict:
     from cedar_tpu_torch.stores.directory import DirectoryPolicyStore
     from cedar_tpu_torch.stores.store import TieredPolicyStores
 
+    distinct = admission_bodies(ADMISSION_DISTINCT, args.seed + 9)
+    bodies = distinct * ADMISSION_REPEAT
+    stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir, start_ticker=False),
+                                 allow_all_admission_policy_store()])
+    x_engine = TorchPolicyEngine()
+    x_engine.load([s.policy_set() for s in stores])
+    x_fast = AdmissionFastPath(x_engine, CedarAdmissionHandler(
+        stores, evaluate_batch=x_engine.evaluate_batch))
+    t0 = time.monotonic()
+    expected = [r.to_admission_review()["response"] for r in x_fast.handle_raw(bodies)]
+    print(f"admission expected answers: library fast path in "
+          f"{time.monotonic() - t0:.2f} s, routing {json.dumps(x_fast.routing)}", flush=True)
+    return {"bodies": bodies, "distinct": distinct, "expected": expected}
+
+
+def admission_phase(args, card: str, srv, prep: dict, oracle: list, sars: list,
+                    sar_expected: list) -> dict:
+    """Phase 9 (module docstring) on phase 10's server at version 0, before
+    phase 10's traffic: `prep` is admission_prep's, `oracle` the
+    interpreter's answers of its distinct bodies; `sars` and
+    `sar_expected` are phase 8's SAR bodies and expected answers, for the
+    mixed window. Returns the server's kernel launch counts over the
+    admission-only windows."""
     t_phase = time.monotonic()
-    grace = 5.0
-    with tempfile.TemporaryDirectory(prefix="cedar-admission-") as tmp:
-        pol_dir = os.path.join(tmp, "policies")
-        os.mkdir(pol_dir)
-        # one store holding both policy kinds, as the reference documents
-        # its deployment: phase 8's files plus the admission policies
-        files = {
-            "synth.cedar": synth_source(args.policies, seed=args.seed),
-            "gated.cedar": FALLBACK_POLICY + NATIVE_OPAQUE_POLICY,
-            "admission.cedar": ADM_POLICIES,
-            "admission-demo.cedar": ADM_DEMO_OWNER_POLICY,
-            "admission-gated.cedar": ADM_FALLBACK_POLICY,
-        }
-        for fname, text in files.items():
-            with open(os.path.join(pol_dir, fname), "w") as f:
-                f.write(text)
-        cfg = os.path.join(tmp, "store-config.json")
-        with open(cfg, "w") as f:
-            json.dump({"apiVersion": "cedar.k8s.aws/v1alpha1", "kind": "StoreConfig",
-                       "spec": {"stores": [{"type": "directory",
-                                            "directoryStore": {"path": pol_dir}}]}}, f)
-        bodies = admission_bodies(4096, args.seed + 9)
-        srv = Webhook(cfg, tmp, "webhook-admission", grace)
-        port, mport = srv.port, srv.mport
-        try:
-            # the expected answers meanwhile, in this process: the library
-            # admission fast path over the same directory plus the allow-all
-            # tier, held against the port's interpreter handler
-            stores = TieredPolicyStores([DirectoryPolicyStore(pol_dir, start_ticker=False),
-                                         allow_all_admission_policy_store()])
-            x_engine = TorchPolicyEngine()
-            x_engine.load([s.policy_set() for s in stores])
-            x_fast = AdmissionFastPath(x_engine, CedarAdmissionHandler(
-                stores, evaluate_batch=x_engine.evaluate_batch))
-            t0 = time.monotonic()
-            expected = [r.to_admission_review()["response"] for r in x_fast.handle_raw(bodies)]
-            print(f"admission expected answers: library fast path in "
-                  f"{time.monotonic() - t0:.2f} s, routing {json.dumps(x_fast.routing)}", flush=True)
-            t0 = time.monotonic()
-            oracle = [d["response"] for d in interpreter_answers(
-                {"admission": ("admission", bodies)}, args.policies, args.seed,
-                adm_dir=pol_dir)["admission"]]
-            lib_flips = sum(adm_key(e) != adm_key(o) for e, o in zip(expected, oracle))
-            print(f"admission interpreter check: {len(oracle)} answers in "
-                  f"{time.monotonic() - t0:.1f} s, flips vs the library fast path "
-                  f"{lib_flips}", flush=True)
-            if lib_flips or len(expected) != len(oracle):
-                fail(f"admission phase: {lib_flips} expected answers differ from the interpreter")
-            del x_fast, x_engine
+    port, mport = srv.port, srv.mport
+    bodies, expected = prep["bodies"], prep["expected"]
+    by_body = {b: d["response"] for b, d in zip(prep["distinct"], oracle)}
+    lib_flips = sum(adm_key(e) != adm_key(by_body[b]) for b, e in zip(bodies, expected))
+    print(f"admission interpreter check: {len(bodies)} answers of {len(by_body)} distinct "
+          f"bodies, flips vs the library fast path {lib_flips}", flush=True)
+    if lib_flips or len(expected) != len(bodies):
+        fail(f"admission phase: {lib_flips} expected answers differ from the interpreter")
 
-            srv.wait_ready(card)
+    def snapshot():
+        return srv.debug_engine(), http_get(mport, "/metrics")[1].decode()
 
-            def snapshot():
-                return srv.debug_engine(), http_get(mport, "/metrics")[1].decode()
+    doc0, text0 = snapshot()
+    if "admission" not in doc0:
+        fail(f"/debug/engine has no admission entry: {sorted(doc0)}")
+    for path in ("authorization", "admission"):
+        eng = doc0[path]["engine"]
+        print(f"admission phase {path} engine plane ({card}): L={eng['L']} R={eng['R']} "
+              f"rules={eng['rules']} fallback={eng['fallback_policies']} "
+              f"warm-up launches {json.dumps(eng['warmup_launches'])}", flush=True)
+    if any(doc0["admission"]["engine"]["launches"].values()):
+        fail(f"admission engine before traffic: {doc0['admission']['engine']}")
+    flips = 0
+    doc, text = doc0, text0
+    for label, n, conc in (("concurrency 1", 300, 1), ("concurrency 64", 4096, 64)):
+        wall, lat, n_flips = run_window(port, bodies[:n], expected[:n], conc, "/v1/admit")
+        flips += n_flips
+        doc2, text2 = snapshot()
+        p1, p2 = doc["admission"]["pipeline"], doc2["admission"]["pipeline"]
+        n_batches = p2["batches_total"] - p1["batches_total"]
+        mean = (p2["rows_total"] - p1["rows_total"]) / max(n_batches, 1)
+        l1, l2 = doc["admission"]["engine"]["launches"], doc2["admission"]["engine"]["launches"]
+        print(f"admission {label} ({card}): {n / wall:.1f} requests/s, "
+              f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms, "
+              f"max {max(lat) * 1e3:.3f} ms, mean batch {mean:.2f} over {n_batches} "
+              f"batches, flips vs expected {n_flips} / {n}; launches "
+              f"{json.dumps({k: l2[k] - l1[k] for k in l2})}", flush=True)
+        if label == "concurrency 64" and not mean > 1:
+            fail(f"admission: mean batch {mean:.2f} under 64 clients, want above 1")
+        doc, text = doc2, text2
+    l0, l1 = doc0["admission"]["engine"]["launches"], doc["admission"]["engine"]["launches"]
+    launches = {k: l1[k] - l0[k] for k in l1}
+    r0, r1 = (metric_values(t, "cedar_authorizer_row_routing_total", "row_class",
+                            "admission") for t in (text0, text))
+    routing = {k: int(r1.get(k, 0) - r0.get(k, 0)) for k in
+               ("clean_native", "gated", "flagged", "encoder_fallback", "encoder_gate")}
+    fallback = sum(v for line in text.splitlines()
+                   if line.startswith("cedar_authorizer_fallback_batches_total{")
+                   for v in [float(line.rsplit(" ", 1)[1])])
+    pipe = doc["admission"]["pipeline"]
+    print(f"admission windows: launches {json.dumps(launches)}, routing "
+          f"{json.dumps(routing)}, fallback batches {fallback:g}", flush=True)
+    print(f"admission batches ({card}): mean "
+          f"{pipe['rows_total'] / max(pipe['batches_total'], 1):.2f}, largest "
+          f"{pipe['largest_batch']}", flush=True)
+    if launches["match_words_kernel"] < 1 or launches["match_groups_kernel"] < 1:
+        fail(f"admission traffic should launch both kernels: {launches}")
+    missing = [k for k in ("gated", "flagged", "encoder_fallback", "encoder_gate")
+               if routing[k] < 1]
+    if missing:
+        fail(f"admission traffic took no row down {missing}: {routing}")
+    if fallback:
+        fail(f"admission: {fallback:g} fallback batches")
+    quiet = resilience_quiet("admission", text)
+    if quiet:
+        fail("; ".join(quiet))
 
-            doc0, text0 = snapshot()
-            if "admission" not in doc0:
-                fail(f"/debug/engine has no admission entry: {sorted(doc0)}")
-            for path in ("authorization", "admission"):
-                eng = doc0[path]["engine"]
-                print(f"admission phase {path} engine plane ({card}): L={eng['L']} R={eng['R']} "
-                      f"rules={eng['rules']} fallback={eng['fallback_policies']} "
-                      f"warm-up launches {json.dumps(eng['warmup_launches'])}", flush=True)
-            if any(doc0["admission"]["engine"]["launches"].values()):
-                fail(f"admission engine before traffic: {doc0['admission']['engine']}")
-            flips = 0
-            doc, text = doc0, text0
-            for label, n, conc in (("concurrency 1", 300, 1), ("concurrency 64", 4096, 64)):
-                wall, lat, n_flips = run_window(port, bodies[:n], expected[:n], conc, "/v1/admit")
-                flips += n_flips
-                doc2, text2 = snapshot()
-                p1, p2 = doc["admission"]["pipeline"], doc2["admission"]["pipeline"]
-                n_batches = p2["batches_total"] - p1["batches_total"]
-                mean = (p2["rows_total"] - p1["rows_total"]) / max(n_batches, 1)
-                l1, l2 = doc["admission"]["engine"]["launches"], doc2["admission"]["engine"]["launches"]
-                print(f"admission {label} ({card}): {n / wall:.1f} requests/s, "
-                      f"p50 {pct(lat, 50) * 1e3:.3f} ms, p99 {pct(lat, 99) * 1e3:.3f} ms, "
-                      f"max {max(lat) * 1e3:.3f} ms, mean batch {mean:.2f} over {n_batches} "
-                      f"batches, flips vs expected {n_flips} / {n}; launches "
-                      f"{json.dumps({k: l2[k] - l1[k] for k in l2})}", flush=True)
-                if label == "concurrency 64" and not mean > 1:
-                    fail(f"admission: mean batch {mean:.2f} under 64 clients, want above 1")
-                doc, text = doc2, text2
-            l0, l1 = doc0["admission"]["engine"]["launches"], doc["admission"]["engine"]["launches"]
-            launches = {k: l1[k] - l0[k] for k in l1}
-            r0, r1 = (metric_values(t, "cedar_authorizer_row_routing_total", "row_class",
-                                    "admission") for t in (text0, text))
-            routing = {k: int(r1.get(k, 0) - r0.get(k, 0)) for k in
-                       ("clean_native", "gated", "flagged", "encoder_fallback", "encoder_gate")}
-            fallback = sum(v for line in text.splitlines()
-                           if line.startswith("cedar_authorizer_fallback_batches_total{")
-                           for v in [float(line.rsplit(" ", 1)[1])])
-            pipe = doc["admission"]["pipeline"]
-            print(f"admission windows: launches {json.dumps(launches)}, routing "
-                  f"{json.dumps(routing)}, fallback batches {fallback:g}", flush=True)
-            print(f"admission batches ({card}): mean "
-                  f"{pipe['rows_total'] / max(pipe['batches_total'], 1):.2f}, largest "
-                  f"{pipe['largest_batch']}", flush=True)
-            if launches["match_words_kernel"] < 1 or launches["match_groups_kernel"] < 1:
-                fail(f"admission traffic should launch both kernels: {launches}")
-            missing = [k for k in ("gated", "flagged", "encoder_fallback", "encoder_gate")
-                       if routing[k] < 1]
-            if missing:
-                fail(f"admission traffic took no row down {missing}: {routing}")
-            if fallback:
-                fail(f"admission: {fallback:g} fallback batches")
-            quiet = resilience_quiet("admission", text)
-            if quiet:
-                fail("; ".join(quiet))
+    # the mixed window: both endpoints at once, from 32 clients each
+    n_mix = 2048
+    out = {}
 
-            # the mixed window: both endpoints at once, from 32 clients each
-            n_mix = 2048
-            out = {}
+    def one(key, path, win):
+        out[key] = drive(port, win, 32, path)
 
-            def one(key, path, win):
-                out[key] = drive(port, win, 32, path)
+    threads = [threading.Thread(target=one, args=("admit", "/v1/admit", bodies[:n_mix])),
+               threading.Thread(target=one, args=("authorize", "/v1/authorize",
+                                                  sars[:n_mix]))]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    mixed_wall = time.perf_counter() - t
+    for key, want in (("admit", expected), ("authorize", sar_expected)):
+        wall, lat, got, errors = out[key]
+        if errors:
+            fail(f"mixed window /v1/{key}: client errors {errors[:3]}")
+        n_flips = count_flips(f"mixed /v1/{key}", got, want[:n_mix], lat)
+        flips += n_flips
+        print(f"admission mixed window /v1/{key}, 32 clients ({card}): "
+              f"{n_mix / wall:.1f} requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, "
+              f"p99 {pct(lat, 99) * 1e3:.3f} ms, flips vs expected {n_flips} / "
+              f"{n_mix}", flush=True)
+    print(f"admission mixed window ({card}): {2 * n_mix} requests in {mixed_wall:.3f} s "
+          f"({2 * n_mix / mixed_wall:.1f} requests/s)", flush=True)
+    print(f"admission flips over the three windows: {flips}", flush=True)
+    if flips:
+        fail(f"admission: {flips} answers differ from the expected ones")
 
-            threads = [threading.Thread(target=one, args=("admit", "/v1/admit", bodies[:n_mix])),
-                       threading.Thread(target=one, args=("authorize", "/v1/authorize",
-                                                          sars[:n_mix]))]
-            t = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join()
-            mixed_wall = time.perf_counter() - t
-            for key, want in (("admit", expected), ("authorize", sar_expected)):
-                wall, lat, got, errors = out[key]
-                if errors:
-                    fail(f"mixed window /v1/{key}: client errors {errors[:3]}")
-                n_flips = count_flips(f"mixed /v1/{key}", got, want[:n_mix], lat)
-                flips += n_flips
-                print(f"admission mixed window /v1/{key}, 32 clients ({card}): "
-                      f"{n_mix / wall:.1f} requests/s, p50 {pct(lat, 50) * 1e3:.3f} ms, "
-                      f"p99 {pct(lat, 99) * 1e3:.3f} ms, flips vs expected {n_flips} / "
-                      f"{n_mix}", flush=True)
-            print(f"admission mixed window ({card}): {2 * n_mix} requests in {mixed_wall:.3f} s "
-                  f"({2 * n_mix / mixed_wall:.1f} requests/s)", flush=True)
-            print(f"admission flips over the three windows: {flips}", flush=True)
-            if flips:
-                fail(f"admission: {flips} answers differ from the expected ones")
-
-            took, rss = srv.terminate()
-            print(f"admission webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
-                  f"({card}): {rss}", flush=True)
-        finally:
-            srv.kill()
     print(f"admission phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
 
@@ -2616,12 +2747,14 @@ def gpu_memory_mib(pid: int):
 PHASE10_COMPILE: list = []
 
 
-def reload_phase(args, card: str, sars: list, then=None):
-    """Phase 10 (module docstring): `sars` are phase 8's gated SAR bodies.
-    Returns the server's kernel launch counts over the phase's traffic
-    (its served counts: they start at 0, warm-ups count apart), and what
-    ``then`` returned: phase 11, run on this server once phase 10's
-    checks have passed."""
+def reload_phase(args, card: str, sars: list, then=None, first=None):
+    """Phase 10 (module docstring): `sars` are the gated SAR pool. With
+    ``first`` (phase 8's SARs and their expected answers), phase 9 runs
+    first on this server, at version 0 (phase 9's files), before phase
+    10's traffic. Returns the server's kernel launch counts over phase 10's
+    traffic (served counts, warm-ups apart), phase 9's (None without
+    ``first``) and what ``then`` returned: phase 11, run on this server
+    once phase 10's checks have passed."""
     from cedar_tpu_torch.corpus.synth import synth_source
 
     t_phase = time.monotonic()
@@ -2684,14 +2817,17 @@ def reload_phase(args, card: str, sars: list, then=None):
         stop = threading.Event()
         threads = []
         try:
-            # the expected answers meanwhile: the interpreter over each
-            # version's directory
+            # the expected answers meanwhile: phase 9's from the library
+            # fast path, and the interpreter over each version's directory
+            adm9 = admission_prep(args, vdirs[0]) if first is not None else None
             t0 = time.monotonic()
             tasks = {}
             for k in range(3):
                 tasks[(k, "/v1/authorize")] = (f"dir-authorize:{vdirs[k]}", sars)
                 tasks[(k, "/v1/admit")] = (f"dir-admit:{vdirs[k]}", adms)
-            # one piece per (version, endpoint): a worker builds one oracle
+            if adm9 is not None:
+                tasks[(9, "/v1/admit")] = (f"dir-admit:{vdirs[0]}", adm9["distinct"])
+            # pieces of n_pool: a worker builds one oracle per piece
             answers = interpreter_answers(tasks, args.policies, args.seed, piece=n_pool)
             keyf = {"/v1/authorize": lambda a: reason_key(a, {}),
                     "/v1/admit": adm_key}
@@ -2700,7 +2836,8 @@ def reload_phase(args, card: str, sars: list, then=None):
             want = {path: [[keyf[path](oracle_of[path](a)) for a in answers[(k, path)]]
                            for k in range(3)]
                     for path in ("/v1/authorize", "/v1/admit")}
-            print(f"reload oracle: {len(tasks) * n_pool} interpreter answers over 3 versions in "
+            print(f"reload oracle: {sum(len(b) for _n, b in tasks.values())} interpreter "
+                  f"answers over 3 versions (phase 9's included) in "
                   f"{time.monotonic() - t0:.1f} s", flush=True)
             for path in want:
                 for k in (1, 2):
@@ -2715,6 +2852,13 @@ def reload_phase(args, card: str, sars: list, then=None):
             eng0 = engines()
             if any(eng0["authorization"]["launches"].values()):
                 fail(f"reload: served launches before traffic: {eng0['authorization']['launches']}")
+            before = None
+            if first is not None:
+                before = admission_phase(args, card, srv, adm9, answers[(9, "/v1/admit")],
+                                         *first)
+                del adm9
+            # phase 10's launches count from here
+            base = engines()["authorization"]["launches"]
 
             # traffic: 32 + 32 clients, without pause, until stopped
             records = {"/v1/authorize": [], "/v1/admit": []}
@@ -2849,7 +2993,7 @@ def reload_phase(args, card: str, sars: list, then=None):
                 if not all(b[n] > a[n] for n in a):
                     problems.append(f"reload {k}: launches did not rise after the swap: "
                                     f"{a} -> {b}")
-            launches = launch_marks[-1]
+            launches = {k: launch_marks[-1][k] - base[k] for k in base}
             text = http_get(mport, "/metrics")[1].decode()
             fallback = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
                            if line.startswith("cedar_authorizer_fallback_batches_total{"))
@@ -2884,7 +3028,7 @@ def reload_phase(args, card: str, sars: list, then=None):
         finally:
             stop.set()
             srv.kill()
-    return launches, after
+    return launches, before, after
 
 
 class Traffic:
@@ -3934,7 +4078,10 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
     base = {"synth.cedar": synth_source(args.policies, seed=args.seed),
             "gated.cedar": NATIVE_OPAQUE_POLICY}
     launches = {"match_groups_kernel": 0, "match_words_kernel": 0}
-    api = FakeApiServer(hold_s=30.0)
+    # one fake apiserver per server: the strict server's CRD events reach
+    # no other server
+    apis = {mode: FakeApiServer(hold_s=30.0) for mode in ("strict", "partial")}
+    api = apis["strict"]
     with tempfile.TemporaryDirectory(prefix="cedar-gate-") as tmp:
         # v0: the base; v1: the base and the edit, as served; trimmed: what
         # partial mode compiles of v1 (the oracle's directory)
@@ -3953,12 +4100,13 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
             specs[name] = os.path.join(tmp, f"oracle-{name}.json")
             with open(specs[name], "w") as f:
                 json.dump({"dir": vdirs[name], "objects": objects}, f)
-        api.apply(GATE_OBJECT, GATE_OBJECT_POLICY)
-        kube = api.kubeconfig(os.path.join(tmp, "kubeconfig.json"))
 
         def serve(mode: str):
             """A server over the directory (a symlink at v0) and the CRD
-            store under --validation-mode `mode`."""
+            store (its own fake apiserver) under --validation-mode
+            `mode`."""
+            apis[mode].apply(GATE_OBJECT, GATE_OBJECT_POLICY)
+            kube = apis[mode].kubeconfig(os.path.join(tmp, f"kubeconfig-{mode}.json"))
             pol_dir = os.path.join(tmp, f"policies-{mode}")
             os.symlink(vdirs["v0"], pol_dir)
             cfg = os.path.join(tmp, f"store-config-{mode}.json")
@@ -3979,9 +4127,11 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
 
             return srv, swap_to_v1
 
-        # the strict server starts while the oracle pool answers; the
-        # partial one starts once the strict one is done
+        # both servers start while the oracle pool answers (a start is
+        # one process's compile); the partial one idles while the strict
+        # one serves
         srv, swap = serve("strict")
+        partial = serve("partial")
         try:
             t0 = time.monotonic()
             answers = interpreter_answers(
@@ -3996,6 +4146,7 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
                 fail("gate: the edit changes no answer of the pool")
         except BaseException:
             srv.kill()
+            partial[0].kill()
             raise
 
         def engines(srv):
@@ -4131,11 +4282,14 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
             took, rss = srv.terminate()
             print(f"gate strict webhook: launches {json.dumps(strict_launches)}; SIGTERM -> "
                   f"exit code 0 in {took:.2f} s; peak RSS ({card}): {rss}", flush=True)
+        except BaseException:
+            partial[0].kill()
+            raise
         finally:
             srv.kill()
 
         # ---- partial: the edit loads without the offending policy
-        srv, swap = serve("partial")
+        srv, swap = partial
         try:
             srv.wait_ready(card)
             eng0 = first_load(srv, "partial")
@@ -4206,7 +4360,8 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
                   f"exit code 0 in {took:.2f} s; peak RSS ({card}): {rss}", flush=True)
         finally:
             srv.kill()
-            api.shutdown()
+            for a in apis.values():
+                a.shutdown()
     print(f"gate launches {json.dumps(launches)}; gate phase wall time ({card}): "
           f"{time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
@@ -4360,9 +4515,10 @@ def cache_phase(args, card: str, sars: list, flags=()) -> dict:
                             [want[0][i] for i in allow], 64)
             if dm["misses"] or any(dl.values()):
                 problems.append(f"allow hits: {dm['misses']:g} misses, launches {dl}: want 0")
-            # 2. repeat window: 8 shuffled passes at c=64, then 300 at c=1
+            # 2. repeat window: 4 shuffled passes at c=64 (8 until phase 21
+            # needed the time), then 300 at c=1
             rng = random.Random(args.seed + 14)
-            order = [i for _ in range(8) for i in rng.sample(range(n_keys), n_keys)]
+            order = [i for _ in range(4) for i in rng.sample(range(n_keys), n_keys)]
             dm, dl = window("repeat c=64", [bodies[i] for i in order],
                             [want[0][i] for i in order], 64)
             if any(dl.values()) and not dm["misses"]:
@@ -5411,8 +5567,8 @@ def explain_split(card: str, engine, bodies: list, reps: int = 50) -> None:
 # --only-rollout, the misses (fresh keys) of each of the four live-cost
 # windows at c=1 and at c=64 (alone, beside the shadow at its default
 # duty cycle, beside it again, alone again)
-ROLLOUT_CHUNKS, ROLLOUT_CHUNK_SARS, ROLLOUT_CHUNK_REVIEWS = 2, 384, 96
-ROLLOUT_SWAP_SARS, ROLLOUT_SWAP_REVIEWS = 512, 128
+ROLLOUT_CHUNKS, ROLLOUT_CHUNK_SARS, ROLLOUT_CHUNK_REVIEWS = 2, 192, 48
+ROLLOUT_SWAP_SARS, ROLLOUT_SWAP_REVIEWS = 384, 96
 ROLLOUT_C1, ROLLOUT_C64 = 400, 2000
 ROLLOUT_COST_WINDOWS = ("alone", "beside", "beside", "alone")
 # the candidate: phase 12's objects as candidate-labelled copies named
@@ -5979,19 +6135,20 @@ def stage_means(text0: str, text1: str, path: str) -> dict:
 STORM_LAG_P99_S = 0.050
 
 
-def _storm_proc(task):
-    """One storm client process: fires each of its arrivals at its due
-    time (monotonic t0 + due) on an idle keep-alive connection of its
-    pool, opening another when none is idle, so no arrival waits for an
-    answer to an earlier one -> ([(index, status, body bytes, Retry-After,
-    fire lag s, latency s, error, send time)], connections opened)."""
+def _storm_proc(port, items, n_conns, ready, go, t0, out_q):
+    """One storm client process: opens its `n_conns` keep-alive
+    connections, says so on `ready`, waits for `go`, then fires each of
+    its arrivals at its due time (monotonic `t0.value` + due) on an idle
+    connection of its pool, opening another when none is idle, so no
+    arrival waits for an answer to an earlier one. Puts ([(index,
+    status, body bytes, Retry-After, fire lag s, latency s, error, send
+    time, opened a connection)], connections opened) on `out_q`."""
     import asyncio
 
-    port, t0, items, n_conns = task
-    return asyncio.run(_storm_async(port, t0, items, n_conns))
+    out_q.put(asyncio.run(_storm_async(port, items, n_conns, ready, go, t0)))
 
 
-async def _storm_async(port: int, t0: float, items: list, n_conns: int):
+async def _storm_async(port: int, items: list, n_conns: int, ready, go, t0_shared):
     import asyncio
 
     idle: list = []
@@ -6028,6 +6185,7 @@ async def _storm_async(port: int, t0: float, items: list, n_conns: int):
     async def fire(j: int):
         k, due, path, body = items[j]
         conn = idle.pop() if idle else None
+        fresh = conn is None
         t_send = time.monotonic()
         try:
             if conn is None:
@@ -6035,17 +6193,20 @@ async def _storm_async(port: int, t0: float, items: list, n_conns: int):
                 t_send = time.monotonic()
             status, data, retry, close = await asyncio.wait_for(exchange(conn, path, body), 60)
             out[j] = (k, status, data, retry, t_send - (t0 + due), time.monotonic() - t_send,
-                      None, t_send)
+                      None, t_send, fresh)
             if close:
                 conn[1].close()
             else:
                 idle.append(conn)
         except Exception as e:  # noqa: BLE001 — reported by the phase
-            out[j] = (k, None, None, None, t_send - (t0 + due), None, repr(e), t_send)
+            out[j] = (k, None, None, None, t_send - (t0 + due), None, repr(e), t_send, fresh)
             if conn is not None:
                 conn[1].close()
 
     idle.extend(await asyncio.gather(*(connect() for _ in range(n_conns))))
+    ready.put(os.getpid())
+    go.wait()  # nothing else runs on this loop yet
+    t0 = t0_shared.value
     tasks = []
     for j, (_k, due, _p, _b) in enumerate(items):
         wait = t0 + due - time.monotonic()
@@ -6058,24 +6219,54 @@ async def _storm_async(port: int, t0: float, items: list, n_conns: int):
     return out, opened[0]
 
 
-def storm(port: int, schedule: list, bodies: dict, n_procs: int = 4, n_conns: int = 64):
+def storm(port: int, schedule: list, bodies: dict, n_procs: int = 4, n_conns: int = 256):
     """Fire `schedule` ([(due s, body key)]) open loop from `n_procs`
     spawned processes (arrival i from process i mod n_procs), each
     starting with `n_conns` keep-alive connections and opening more
-    whenever every one is busy -> (one record per arrival, in order:
+    whenever every one is busy. The schedule's clock starts 0.5 s after
+    every process has started and connected, so a slow start delays
+    the storm, not its arrivals -> (one record per arrival, in order:
     index, status, body, Retry-After, fire lag, latency, error, send
-    time; the connections opened); the processes are gone on return."""
+    time, opened a connection; the connections opened); the processes
+    are gone on return."""
     import multiprocessing as mp
+    import queue
 
     ctx = mp.get_context("spawn")
-    t0 = time.monotonic() + 3.0  # the processes start and connect before
-    tasks = []
+    ready, go, out_q = ctx.Queue(), ctx.Event(), ctx.Queue()
+    t0 = ctx.Value("d", 0.0)
+    procs = []
     for p in range(n_procs):
         items = [(i, due, bodies[key][0], bodies[key][1])
                  for i, (due, key) in enumerate(schedule) if i % n_procs == p]
-        tasks.append((port, t0, items, n_conns))
-    with ctx.Pool(n_procs) as pool:
-        parts = pool.map(_storm_proc, tasks, chunksize=1)
+        procs.append(ctx.Process(target=_storm_proc,
+                                 args=(port, items, n_conns, ready, go, t0, out_q)))
+    t_start = time.monotonic()
+    try:
+        for proc in procs:
+            proc.start()
+        try:
+            for _ in procs:
+                ready.get(timeout=120)
+        except queue.Empty:
+            fail("load storm: a client process did not start and connect within 120 s")
+        t0.value = time.monotonic() + 0.5
+        print(f"load storm: {n_procs} client processes started and connected "
+              f"{n_procs * n_conns} connections in {time.monotonic() - t_start:.2f} s",
+              flush=True)
+        go.set()
+        last_due = max((due for due, _k in schedule), default=0.0)
+        try:
+            parts = [out_q.get(timeout=last_due + 180) for _ in procs]
+        except queue.Empty:
+            fail("load storm: a client process did not report its arrivals")
+        for proc in procs:
+            proc.join(timeout=60)
+    finally:
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
     records = [None] * len(schedule)
     for part, _opened in parts:
         for rec in part:
@@ -6298,7 +6489,7 @@ def load_phase(args, card: str, sars: list) -> dict:
             normal_shed = {"all": 0, "peak": 0}
             for (due, key), rec in zip(schedule, records):
                 path, _body, user, prio = bodies[key]
-                _i, status, data, retry, _lag, dt, _err, _t = rec
+                _i, status, data, retry, _lag, dt, _err, _t, _fresh = rec
                 uid = json.loads(_body)["request"]["uid"] if path == "/v1/admit" else ""
                 try:
                     reason = shed_of(path, status, data, retry, uid)
@@ -6446,6 +6637,15 @@ def load_phase(args, card: str, sars: list) -> dict:
                   f"{outstanding} requests unanswered at once (gate {LOAD_GATE}) over "
                   f"{opened} connections; storm {storm_s:.1f} s; launches "
                   f"{json.dumps(launches_load)}", flush=True)
+            # where a late fire came from: an arrival that found no idle
+            # connection waited for its connect
+            fresh = [r[4] for r in records if r[8]]
+            late = [r for r in records if r[4] > STORM_LAG_P99_S]
+            print(f"load storm fire lag by connection: {len(fresh)} arrivals opened one"
+                  + (f" (lag p99 {pct(fresh, 99) * 1e3:.3f} ms)" if fresh else "")
+                  + f"; {len(late)} arrivals over {STORM_LAG_P99_S * 1e3:g} ms, "
+                  f"{sum(1 for r in late if r[8])} of them opening one; deadlines "
+                  f"{deadlines}", flush=True)
             if problems:
                 fail("load: " + "; ".join(problems))
             took, rss = srv.terminate()
@@ -7093,10 +7293,11 @@ def org_wide_bodies(corpus) -> list:
     return out
 
 
-def post_many(port: int, items: list, concurrency: int):
-    """POST (path, body, headers) items from `concurrency` client threads,
-    one keep-alive connection each, nothing retried -> (wall s, [latency
-    s], [response document], [client error])."""
+def request_many(port: int, items: list, concurrency: int):
+    """Send (method, path, body, headers) items from `concurrency` client
+    threads, one keep-alive connection each, nothing retried -> (wall s,
+    [latency s], [(status, response document)], [client error]). Any
+    status is an answer; a connection the server closes is an error."""
     lat = [0.0] * len(items)
     got = [None] * len(items)
     errors = []
@@ -7112,16 +7313,15 @@ def post_many(port: int, items: list, concurrency: int):
                     next_i[0] += 1
                 if i >= len(items):
                     return
-                path, body, headers = items[i]
+                method, path, body, headers = items[i]
                 t = time.perf_counter()
-                conn.request("POST", path, body=body,
-                             headers={"Content-Type": "application/json", **headers})
+                conn.request(method, path, body=body, headers=headers)
                 resp = conn.getresponse()
                 data = resp.read()
                 lat[i] = time.perf_counter() - t
-                if resp.status != 200 or resp.will_close:
-                    raise RuntimeError(f"{path}: HTTP {resp.status} (close {resp.will_close})")
-                got[i] = json.loads(data)
+                if resp.will_close:
+                    raise RuntimeError(f"{method} {path}: HTTP {resp.status}, connection closed")
+                got[i] = (resp.status, json.loads(data))
         except Exception as e:  # noqa: BLE001 — reported by the caller
             errors.append(repr(e))
         finally:
@@ -7136,6 +7336,20 @@ def post_many(port: int, items: list, concurrency: int):
     if any(th.is_alive() for th in threads):
         errors.append("a client thread did not finish within 600 s")
     return time.perf_counter() - t0, lat, got, errors
+
+
+def post_many(port: int, items: list, concurrency: int):
+    """POST (path, body, headers) items from `concurrency` client threads
+    (request_many) -> (wall s, [latency s], [response document], [client
+    error]); an answer other than 200 is an error."""
+    wall, lat, got, errors = request_many(port, [
+        ("POST", path, body, {"Content-Type": "application/json", **headers})
+        for path, body, headers in items], concurrency)
+    for (path, _b, _h), g in zip(items, got):
+        if g is not None and g[0] != 200:
+            errors.append(f"{path}: HTTP {g[0]}")
+            break
+    return wall, lat, [g[1] if g is not None else None for g in got], errors
 
 
 def served_key(path: str, doc: dict):
@@ -7576,8 +7790,9 @@ def tenancy_phase(args, card: str, parity) -> dict:
 
             # ---- launches, metrics, memory
             e4 = srv.debug_engine()
-            launches = {k: sum(e4[p]["engine"]["launches"][k] - launches0[p][k]
-                               for p in launches0) for k in launches0["authorization"]}
+            # the counts are process-wide: every engine's entry shows them
+            launches = {k: e4["authorization"]["engine"]["launches"][k]
+                        - launches0["authorization"][k] for k in launches0["authorization"]}
             if not all(launches.values()):
                 problems.append(f"a kernel did not launch in phase 20: {launches}")
             text = http_get(srv.mport, "/metrics")[1].decode()
@@ -7625,6 +7840,488 @@ def tenancy_phase(args, card: str, parity) -> dict:
     if problems:
         fail("tenancy: " + "; ".join(problems))
     print(f"tenancy phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# ---- phase 21: the PDP front end. One policy file spanning the three
+# vocabularies of the JAX bench's mesh scenario (bench.py
+# run_mesh_traffic_scenario): k8s resource permits, ext_authz permits
+# (http:<method> over NonResourceURL paths) and AVP-style permits
+# (avp:<action>), in shares 34 / 33 / 33, every policy distinct; plus an
+# interpreter-fallback policy in the http:post vocabulary (its rows take
+# the gated lane and match_groups_kernel) and one that reads a mapped
+# context header (pdp:header:<name> of a declared context_headers entry)
+PDP_K8S_VERBS = ("get", "list", "watch", "create")
+PDP_K8S_RESOURCES = ("pods", "services", "secrets", "configmaps")
+PDP_METHODS = ("get", "post", "put", "delete")
+PDP_AVP_ACTIONS = ("view", "edit", "share", "comment")
+PDP_HEADER = "x-tenant-tier"
+PDP_HEADER_PATH = "/api/tiers/gold"
+PDP_GATED_PATH = "/api/widgets"
+PDP_FALLBACK_POLICY = (
+    'permit (principal in k8s::Group::"joiners", '
+    'action == k8s::Action::"http:post",\n'
+    "        resource is k8s::NonResourceURL)\n"
+    "  when { "
+    + " && ".join(
+        f'(resource.path == "{PDP_GATED_PATH}" || principal.name == "10.0.0.1")'
+        for _ in range(12)
+    )
+    + " };\n"
+)
+PDP_HEADER_POLICY = (
+    'permit (principal, action == k8s::Action::"http:put", resource is k8s::NonResourceURL)\n'
+    f'  when {{ resource.path == "{PDP_HEADER_PATH}" && principal.extra.contains('
+    f'{{"key": "pdp:header:{PDP_HEADER}", "values": ["gold"]}}) }};\n'
+)
+
+
+class MeshCorpus:
+    """The phase's populations and policy source at `n` policies (the 10k
+    north-star size in the smoke, a few hundred in the CPU tests), made
+    from `seed`; draws are Zipf(1.1) over the principal pools, as the JAX
+    bench's mesh scenario draws them, each a pure function of (stream,
+    index)."""
+
+    def __init__(self, n: int, seed: int):
+        import math
+
+        self.seed = seed
+        n_k8s, n_http = round(0.34 * n), round(0.33 * n)
+        n_avp = n - n_k8s - n_http
+        # pools large enough that the sampled combinations are distinct
+        # and about four in five of them are policies
+        self.k8s_users = [f"controller-{i}" for i in range(
+            max(2, math.ceil(n_k8s * 1.25 / (len(PDP_K8S_VERBS) * len(PDP_K8S_RESOURCES)))))]
+        side = max(4, math.ceil(math.sqrt(n_http * 1.25 / len(PDP_METHODS))))
+        self.mesh_users = [f"user-{i}" for i in range(side)]
+        self.mesh_paths = [f"/api/items/{i}" for i in range(side)]
+        side = max(4, math.ceil(math.sqrt(n_avp * 1.25 / len(PDP_AVP_ACTIONS))))
+        self.app_users = [f"App::User::u{i}" for i in range(side)]
+        self.docs = [f"docs/d{i}" for i in range(side)]
+        rng = np.random.default_rng(seed)
+        pols = []
+
+        def sample(dims, k):
+            total = int(np.prod([len(d) for d in dims]))
+            for flat in rng.choice(total, size=k, replace=False):
+                out = []
+                for d in reversed(dims):
+                    flat, j = divmod(int(flat), len(d))
+                    out.append(d[j])
+                yield tuple(reversed(out))
+
+        for user, verb, res in sample((self.k8s_users, PDP_K8S_VERBS, PDP_K8S_RESOURCES), n_k8s):
+            pols.append(f'permit (principal, action == k8s::Action::"{verb}", resource is '
+                        f'k8s::Resource) when {{ principal.name == "{user}" && '
+                        f'resource.resource == "{res}" }};')
+        for user, method, path in sample((self.mesh_users, PDP_METHODS, self.mesh_paths), n_http):
+            pols.append(f'permit (principal, action == k8s::Action::"http:{method}", resource is '
+                        f'k8s::NonResourceURL) when {{ principal.name == "{user}" && '
+                        f'resource.path == "{path}" }};')
+        for user, action, doc in sample((self.app_users, PDP_AVP_ACTIONS, self.docs), n_avp):
+            pols.append(f'permit (principal, action == k8s::Action::"avp:{action}", resource is '
+                        f'k8s::NonResourceURL) when {{ principal.name == "{user}" && '
+                        f'resource.path == "/{doc}" }};')
+        self.n = len(pols) + 2
+        self.source = "\n".join(pols) + "\n" + PDP_FALLBACK_POLICY + PDP_HEADER_POLICY
+        self._cum = {}
+
+    def _zipf(self, pool: list, stream: str, i: int):
+        from bisect import bisect_left
+
+        cum = self._cum.get(id(pool))
+        if cum is None:
+            cum = list(np.cumsum([1.0 / (r + 1) ** 1.1 for r in range(len(pool))]))
+            self._cum[id(pool)] = cum
+        x = random.Random(f"mesh:{self.seed}:{stream}:{i}").random() * cum[-1]
+        return pool[min(len(pool) - 1, bisect_left(cum, x))]
+
+    def sar(self, i: int, stream: str = "sar") -> bytes:
+        """A kubelet- or controller-style SAR of the k8s vocabulary; one in
+        32 from a kubelet (system:node:..., the ingress gate's high
+        class)."""
+        r = random.Random(f"mesh:{self.seed}:{stream}:{i}")
+        user = (f"system:node:node-{i % 7}" if i % 32 == 5
+                else self._zipf(self.k8s_users, stream + "-u", i))
+        return json.dumps({
+            "apiVersion": "authorization.k8s.io/v1", "kind": "SubjectAccessReview",
+            "spec": {"user": user, "uid": "u", "groups": [],
+                     "resourceAttributes": {"verb": r.choice(PDP_K8S_VERBS), "version": "v1",
+                                            "resource": r.choice(PDP_K8S_RESOURCES),
+                                            "namespace": "default"}}}).encode()
+
+    def check(self, i: int, stream: str = "ext") -> tuple:
+        """One ext_authz check (method, path, headers): mostly a mesh
+        user's request; one in 16 a joiners' POST (the gated lane), one in
+        16 a PUT of the header policy's path with its header, one in 32
+        from a principal named like a kubelet."""
+        r = random.Random(f"mesh:{self.seed}:{stream}:{i}")
+        user = self._zipf(self.mesh_users, stream + "-u", i)
+        headers = {"x-forwarded-user": user, "host": "mesh.local"}
+        method, path = r.choice(PDP_METHODS).upper(), r.choice(self.mesh_paths)
+        if i % 16 == 3:
+            method, path = "POST", r.choice([PDP_GATED_PATH, path])
+            headers.update({"x-forwarded-user": f"jo-{i % 5}", "x-forwarded-groups": "joiners"})
+        elif i % 16 == 11:
+            method, path = "PUT", PDP_HEADER_PATH
+            headers[PDP_HEADER] = r.choice(["gold", "silver"])
+        elif i % 32 == 7:
+            headers["x-forwarded-user"] = f"system:node:node-{i % 7}"
+        return method, path, headers
+
+    def tuples(self, i: int, k: int, stream: str = "batch") -> list:
+        """k AVP-style tuples of one batch body, each with a context value
+        of its own (as the JAX scenario's)."""
+        r = random.Random(f"mesh:{self.seed}:{stream}:{i}")
+        return [{"principal": self._zipf(self.app_users, f"{stream}-u:{i}", j),
+                 "action": r.choice(PDP_AVP_ACTIONS), "resource": r.choice(self.docs),
+                 "context": {"request": f"{stream}{i}-{j}"}} for j in range(k)]
+
+
+PDP_C1 = 64  # fresh ext_authz checks, then fresh SARs, at c=1
+PDP_MIX = 4096  # SARs and checks of the mixed window, each
+PDP_MIX_CLIENTS = 32  # webhook clients and ext_authz clients, each
+PDP_BATCHES, PDP_TUPLES, PDP_BATCH_CLIENTS = 128, 32, 4
+PDP_CAP = 64  # the schema's batch_max_tuples
+PDP_SCHEMA = {"context_headers": [PDP_HEADER], "batch_max_tuples": PDP_CAP}
+JSON_HEADERS = {"Content-Type": "application/json"}
+
+
+def _reason_key(reason: str):
+    """A rendered reason with its reason list as a set (canon's form)."""
+    if reason.startswith("{"):
+        return sorted(json.dumps(r, sort_keys=True) for r in json.loads(reason).get("reasons", []))
+    return reason
+
+
+def check_key(status: int, doc: dict) -> tuple:
+    """What a served ext_authz answer is held to."""
+    return status, doc["decision"], _reason_key(doc.get("reason") or ""), doc.get("error")
+
+
+def oracle_check_key(st: dict) -> tuple:
+    """The ext_authz answer the fail-posture matrix gives the oracle's
+    canon SAR status (the oracle never errs)."""
+    return (200, "allow", st["reason"], None) if st["allowed"] else (403, "deny", st["reason"], None)
+
+
+def item_key(item: dict) -> tuple:
+    """What a served batch item is held to."""
+    return (item["decision"], sorted(p["policyId"] for p in item.get("determiningPolicies", [])),
+            _reason_key(item.get("reason") or ""), item.get("errors"))
+
+
+def oracle_item_key(st: dict) -> tuple:
+    decision = "ALLOW" if st["allowed"] else "DENY" if st.get("denied") else "NO_OPINION"
+    policies = sorted(json.loads(r)["policy"] for r in st["reason"]) if st["reason"] else []
+    return decision, policies, st["reason"], None
+
+
+def pdp_phase(args, card: str) -> dict:
+    """Phase 21 (module docstring): the PDP front end on the CLI's server,
+    SAR, ext_authz and batch-authorize traffic on one pair of card
+    engines. Returns the server's kernel launches over the phase's traffic
+    (served counts: warm-ups apart)."""
+    from cedar_tpu_torch.load.admission import PRIORITY_HIGH, classify
+    from cedar_tpu_torch.pdp import PdpBody, PdpConfig
+    from cedar_tpu_torch.pdp.extauthz import check_body
+    from cedar_tpu_torch.pdp.mapper import PROTOCOL_BATCH, batch_tuple_to_sar, encode_pdp_body
+
+    t_phase = time.monotonic()
+    problems = []
+    pcfg = PdpConfig.from_dict(PDP_SCHEMA)
+    mesh = MeshCorpus(args.policies, seed=args.seed + 21)
+    with tempfile.TemporaryDirectory(prefix="cedar-pdp-") as tmp:
+        pdir = _write_policy_dir(os.path.join(tmp, "policies"), {"mesh": mesh.source})
+        schema = os.path.join(tmp, "pdp-schema.json")
+        with open(schema, "w") as f:
+            json.dump(PDP_SCHEMA, f)
+        cfg = os.path.join(tmp, "store-config.json")
+        with open(cfg, "w") as f:
+            json.dump({"spec": {"stores": [{"type": "directory",
+                                            "directoryStore": {"path": pdir}}]}}, f)
+        audit = os.path.join(tmp, "audit.jsonl")
+        pdp_port = free_port()
+        srv = Webhook(cfg, tmp, "webhook-pdp", 5.0, [
+            "--validation-mode", "permissive", "--request-timeout-ms", "10000",
+            "--pdp-listen", f"127.0.0.1:{pdp_port}", "--pdp-schema", schema,
+            "--audit-log-file", audit], cache=True)
+        try:
+            # ---- the traffic, made while the server starts
+            def fresh(make, n, stream, key=lambda x: x):
+                out, seen = [], set()
+                i = 0
+                while len(out) < n:
+                    x = make(i, stream)
+                    i += 1
+                    if key(x) not in seen:
+                        seen.add(key(x))
+                        out.append(x)
+                return out
+
+            def mapped(check):
+                return check_body(*check, pcfg)
+
+            c1_checks = fresh(mesh.check, PDP_C1, "c1-ext", lambda c: bytes(mapped(c)))
+            c1_sars = fresh(mesh.sar, PDP_C1, "c1-sar")
+            mix_sars = [mesh.sar(i, "mix-sar") for i in range(PDP_MIX)]
+            mix_checks = [mesh.check(i, "mix-ext") for i in range(PDP_MIX)]
+            mix_batches = [mesh.tuples(i, PDP_TUPLES, "mix-batch") for i in range(PDP_BATCHES)]
+            posture_tuples = mesh.tuples(0, 8, "posture")
+            posture_tuples[3] = {"principal": "", "action": "view", "resource": "docs/d0"}
+            sent_checks = set(bytes(mapped(c)) for c in c1_checks + mix_checks)
+            twin = next(c for c in (mesh.check(i, "twin") for i in range(10**6))
+                        if bytes(mapped(c)) not in sent_checks)
+            twin_sar = bytes(mapped(twin))
+
+            # ---- the interpreter's answer of every distinct body, in the
+            # oracle pool beside the server's start-up
+            ext_bodies = {bytes(mapped(c)): mapped(c) for c in c1_checks + mix_checks + [twin]}
+            tup_bodies = {}
+            for tuples in mix_batches + [posture_tuples]:
+                for t in tuples:
+                    if t["principal"]:
+                        b = encode_pdp_body(batch_tuple_to_sar(t, pcfg), PROTOCOL_BATCH, pcfg)
+                        tup_bodies[bytes(b)] = b
+            sar_set = list(dict.fromkeys(c1_sars + mix_sars + [twin_sar]))
+            tasks = {"sar": (f"pdp:{pdir}", [("", b) for b in sar_set]),
+                     "extauthz": (f"pdp:{pdir}", [("extauthz", b) for b in ext_bodies]),
+                     "batch": (f"pdp:{pdir}", [("batch", b) for b in tup_bodies])}
+            oracle_out: dict = {}
+
+            def run_oracle():
+                t0 = time.monotonic()
+                try:
+                    oracle_out["answers"] = interpreter_answers(
+                        tasks, args.policies, args.seed, piece=256)
+                except Exception as e:  # noqa: BLE001 — reported below
+                    oracle_out["error"] = repr(e)
+                oracle_out["seconds"] = time.monotonic() - t0
+
+            oracle_thread = threading.Thread(target=run_oracle)
+            oracle_thread.start()
+            srv.wait_ready(card)
+            ready_s = time.monotonic() - srv.t0
+            oracle_thread.join()
+            if "error" in oracle_out:
+                fail(f"pdp oracle: {oracle_out['error']}")
+            want = {}
+            for label, (_name, items) in tasks.items():
+                want.update(zip((b for _p, b in items), oracle_out["answers"][label]))
+            flips = 0
+            n_checked = 0
+
+            def held(label, got, expect):
+                nonlocal flips, n_checked
+                n_checked += 1
+                if got != expect:
+                    flips += 1
+                    if flips <= 3:
+                        print(f"pdp flip {label}: got {json.dumps(got)[:400]}, want "
+                              f"{json.dumps(expect)[:400]}", flush=True)
+
+            def hold_checks(label, checks, answers):
+                for c, (status, doc) in zip(checks, answers):
+                    held(label, check_key(status, doc), oracle_check_key(want[bytes(mapped(c))]))
+
+            def hold_batches(label, batches, answers):
+                for tuples, (status, doc) in zip(batches, answers):
+                    if status != 200 or len(doc["responses"]) != len(tuples):
+                        problems.append(f"{label}: HTTP {status} {json.dumps(doc)[:200]}")
+                        continue
+                    for t, item in zip(tuples, doc["responses"]):
+                        if not t["principal"]:
+                            ok = item["decision"] == "DENY" and item["errors"][0].startswith(
+                                "unmappable tuple:")
+                            held(label + " malformed tuple", ok, True)
+                            continue
+                        b = encode_pdp_body(batch_tuple_to_sar(t, pcfg), PROTOCOL_BATCH, pcfg)
+                        held(label, item_key(item), oracle_item_key(want[bytes(b)]))
+
+            def hold_sars(label, bodies, answers):
+                for b, (status, doc) in zip(bodies, answers):
+                    held(label, (status, canon(doc)), (200, want[b]))
+
+            def launches_now():
+                # process-wide counts: every engine's entry shows the same
+                return dict(srv.debug_engine()["authorization"]["engine"]["launches"])
+
+            def delta(a, b):
+                return {k: b[k] - a[k] for k in a}
+
+            l0 = launches_now()
+            text0 = http_get(srv.mport, "/metrics")[1].decode()
+            # ---- 1. the fail postures
+            batch_path = "/v1/batch-authorize"
+            over_cap = json.dumps({"requests": mesh.tuples(1, PDP_CAP + 1, "posture")}).encode()
+            _w, _l, pgot, errs = request_many(pdp_port, [
+                ("OPTIONS", "*", None, {"x-forwarded-user": mesh.mesh_users[0]}),
+                ("POST", batch_path, b"{nope", JSON_HEADERS),
+                ("POST", batch_path, over_cap, JSON_HEADERS),
+                ("POST", batch_path, json.dumps({"requests": posture_tuples}).encode(),
+                 JSON_HEADERS),
+            ], 1)
+            if errs:
+                fail(f"pdp fail postures: client errors {errs[:3]}")
+            posture = [(st, doc.get("decision") or doc.get("error")) for st, doc in pgot[:3]]
+            if posture != [(403, "deny"), (400, pgot[1][1].get("error")),
+                           (400, f"{PDP_CAP + 1} tuples exceeds the cap of {PDP_CAP}")] or \
+                    not pgot[0][1]["reason"].startswith("unmappable request:") or \
+                    not pgot[1][1]["error"].startswith("body is not valid JSON"):
+                problems.append(f"fail postures: {json.dumps(pgot[:3])[:400]}")
+            hold_batches("posture", [posture_tuples], pgot[3:])
+
+            # ---- 2. c=1: fresh checks (the joiners' POSTs gated), then
+            # fresh SARs (none gated)
+            la = launches_now()
+            _w, lat_c1_ext, got, errs = request_many(
+                pdp_port, [(m, p, None, h) for m, p, h in c1_checks], 1)
+            lb = launches_now()
+            if errs:
+                fail(f"pdp c=1 checks: client errors {errs[:3]}")
+            hold_checks("c1 check", c1_checks, got)
+            _w, lat_c1_sar, got, errs = request_many(
+                srv.port, [("POST", "/v1/authorize", b, JSON_HEADERS) for b in c1_sars], 1)
+            lc = launches_now()
+            if errs:
+                fail(f"pdp c=1 SARs: client errors {errs[:3]}")
+            hold_sars("c1 SAR", c1_sars, got)
+            ext_c1_launches, sar_c1_launches = delta(la, lb), delta(lb, lc)
+            if not ext_c1_launches["match_groups_kernel"] or sar_c1_launches["match_groups_kernel"]:
+                problems.append(f"groups launches: c=1 checks {ext_c1_launches}, c=1 SARs "
+                                f"{sar_c1_launches} (want the gated checks' only)")
+
+            # ---- 3. the mixed window: the three protocols at once
+            b0 = tenancy_batches(srv)
+            groups = {
+                "sar": (srv.port, [("POST", "/v1/authorize", b, JSON_HEADERS) for b in mix_sars],
+                        PDP_MIX_CLIENTS),
+                "extauthz": (pdp_port, [(m, p, None, h) for m, p, h in mix_checks],
+                             PDP_MIX_CLIENTS),
+                "batch": (pdp_port, [("POST", batch_path, json.dumps({"requests": t}).encode(),
+                                      JSON_HEADERS) for t in mix_batches], PDP_BATCH_CLIENTS),
+            }
+            mixed = {}
+            threads = [threading.Thread(target=lambda k=k, g=g: mixed.update(
+                {k: request_many(*g)})) for k, g in groups.items()]
+            t_mix = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall_mix = time.perf_counter() - t_mix
+            b1 = tenancy_batches(srv)
+            for k, (_w, _l, _g, errs) in mixed.items():
+                if errs:
+                    fail(f"pdp mixed window {k}: client errors {errs[:3]}")
+            hold_sars("mixed SAR", mix_sars, mixed["sar"][2])
+            hold_checks("mixed check", mix_checks, mixed["extauthz"][2])
+            hold_batches("mixed batch", mix_batches, mixed["batch"][2])
+            mean_batch = (b1[1] - b0[1]) / max(b1[0] - b0[0], 1)
+
+            # ---- 4. one body, two protocols: the check and its
+            # byte-identical SAR take independent cache entries
+            def cache_counts():
+                c = json.loads(http_get(srv.mport, "/debug/cache")[1])["authorization"]
+                return c["hits"], c["misses"]
+
+            k0 = cache_counts()
+            twin_items = [(pdp_port, twin[0], twin[1], None, twin[2]),
+                          (srv.port, "POST", "/v1/authorize", twin_sar, JSON_HEADERS)]
+            twin_got = []
+            for port, *item in twin_items:
+                twin_got += request_many(port, [tuple(item)], 1)[2]
+            k1 = cache_counts()
+            for port, *item in twin_items:
+                twin_got += request_many(port, [tuple(item)], 1)[2]
+            k2 = cache_counts()
+            hold_checks("twin check", [twin, twin], [twin_got[0], twin_got[2]])
+            hold_sars("twin SAR", [twin_sar, twin_sar], [twin_got[1], twin_got[3]])
+            if (k1[0] - k0[0], k1[1] - k0[1], k2[0] - k1[0], k2[1] - k1[1]) != (0, 2, 2, 0):
+                problems.append(f"twin cache: hits/misses {k0} -> {k1} -> {k2} (want 2 misses, "
+                                "then 2 hits on their own entries)")
+
+            # ---- the checks of the whole phase
+            e1 = srv.debug_engine()
+            l1 = launches_now()
+            launches = delta(l0, l1)
+            text = http_get(srv.mport, "/metrics")[1].decode()
+            print(f"pdp answers ({card}): {n_checked} held against the PdpOracle over the "
+                  f"served directory ({sum(len(v[1]) for v in tasks.values())} distinct bodies, "
+                  f"{oracle_out['seconds']:.1f} s in the oracle pool), flips {flips}", flush=True)
+            if flips:
+                problems.append(f"{flips} answers differ from the PdpOracle's")
+            mix = e1["authorization"]["pipeline"]["protocol_mix"]
+            if not any(set(sig.split(",")) == {"sar", "extauthz", "batch"} for sig in mix):
+                problems.append(f"no batch carried all three protocols: {json.dumps(mix)}")
+            n_ext = len(c1_checks) + PDP_MIX + 2
+            n_tup = 7 + PDP_BATCHES * PDP_TUPLES
+            by_proto = {}
+            for line in text.splitlines():
+                if line.startswith("cedar_authorizer_request_total{") and "protocol=" in line:
+                    proto = line.split('protocol="')[1].split('"')[0]
+                    by_proto[proto] = by_proto.get(proto, 0) + float(line.rsplit(" ", 1)[1])
+            if by_proto != {"extauthz": n_ext, "batch": n_tup}:
+                problems.append(f"cedar_authorizer_request_total by protocol {by_proto}, sent "
+                                f"{n_ext} checks and {n_tup} tuples")
+            audit_by = {}
+            with open(audit) as f:
+                for line in f:
+                    p = json.loads(line).get("protocol", "sar")
+                    audit_by[p] = audit_by.get(p, 0) + 1
+            n_sar = len(c1_sars) + PDP_MIX + 2
+            if audit_by != {"extauthz": n_ext, "batch": n_tup, "sar": n_sar}:
+                problems.append(f"audit lines by protocol {audit_by}")
+            high = sum(classify("authorization", PdpBody(b, "extauthz")) == PRIORITY_HIGH
+                       for b in ext_bodies) + sum(
+                classify("authorization", PdpBody(b, "batch")) == PRIORITY_HIGH
+                for b in tup_bodies)
+            kubelet_named = sum(classify("authorization", b) == PRIORITY_HIGH for b in ext_bodies)
+            if high or not kubelet_named:
+                problems.append(f"classify: {high} PDP bodies high ({kubelet_named} kubelet-named "
+                                "checks would be high as SARs)")
+            gated = metric_values(text, "cedar_authorizer_row_routing_total", "row_class",
+                                  "authorization").get("gated", 0)
+            if not all(launches.values()) or not gated:
+                problems.append(f"launches {launches}, gated rows {gated}")
+            problems += resilience_quiet("pdp", text)
+
+            # ---- prints
+            lat = {k: v[1] for k, v in mixed.items()}
+            rps = {k: len(groups[k][1]) / v[0] for k, v in mixed.items()}
+            st0, st1 = stage_totals(text0, "authorization"), stage_totals(text, "authorization")
+            stage_ms = {k: round((st1[k][0] - st0.get(k, [0, 0])[0]) * 1e3
+                                 / max(st1[k][1] - st0.get(k, [0, 0])[1], 1), 3) for k in st1}
+            dm = e1["authorization"]["engine"].get("device_memory", {})
+            eng = e1["authorization"]["engine"]
+            print(f"pdp server ({card}): ready in {ready_s:.1f} s; {mesh.n} policies, L "
+                  f"{eng.get('L')} x R {eng.get('R')}, {eng.get('fallback_policies')} fallback "
+                  f"policy; c=1 p50 / p99 ms: checks "
+                  f"{pct(lat_c1_ext, 50) * 1e3:.3f} / {pct(lat_c1_ext, 99) * 1e3:.3f}, SARs "
+                  f"{pct(lat_c1_sar, 50) * 1e3:.3f} / {pct(lat_c1_sar, 99) * 1e3:.3f}; launches "
+                  f"c=1 checks {json.dumps(ext_c1_launches)}, c=1 SARs "
+                  f"{json.dumps(sar_c1_launches)}", flush=True)
+            print(f"pdp mixed window ({card}): {wall_mix:.3f} s; requests/s SAR "
+                  f"{rps['sar']:.1f}, ext_authz {rps['extauthz']:.1f}, batch POSTs "
+                  f"{rps['batch']:.1f} ({rps['batch'] * PDP_TUPLES:.1f} tuples/s); p50 / p99 ms "
+                  + ", ".join(f"{k} {pct(v, 50) * 1e3:.3f} / {pct(v, 99) * 1e3:.3f}"
+                              for k, v in lat.items())
+                  + f"; mean batch {mean_batch:.2f}; stage means per batch, ms "
+                  f"{json.dumps(stage_ms)}; protocol_mix {json.dumps(mix)}", flush=True)
+            print(f"pdp server ({card}): launches {json.dumps(launches)}; gated rows {gated:g}; "
+                  f"requests by protocol {json.dumps(by_proto)}, audit lines "
+                  f"{json.dumps(audit_by)}; twin cache hits/misses {k0} -> {k1} -> {k2}; "
+                  f"allocator peak {dm.get('peak_allocated', 0) / 2**20:.1f} MiB, allocated "
+                  f"{dm.get('allocated', 0) / 2**20:.1f} MiB", flush=True)
+            took, rss = srv.terminate()
+            print(f"pdp webhook: SIGTERM -> exit code 0 in {took:.2f} s; server peak RSS "
+                  f"({card}): {rss}", flush=True)
+        finally:
+            srv.kill()
+    if problems:
+        fail("pdp: " + "; ".join(problems))
+    print(f"pdp phase wall time ({card}): {time.monotonic() - t_phase:.1f} s", flush=True)
     return launches
 
 

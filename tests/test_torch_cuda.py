@@ -308,6 +308,36 @@ def test_fastpath_launches_as_predicted(cuda):
 
 
 @pytest.mark.cuda
+def test_device_held_reads_the_cards_own_queue(cuda):
+    """device_held_s, the signal that spares the breaker a starved host's
+    expiries: 0.0 once the card finished every batch; a batch dispatched
+    behind a spin kernel on the dispatch thread's stream is held, longer
+    the longer the spin runs, until the decode has it; the answers stay
+    the CPU's. A CPU engine says None."""
+    import time
+
+    from cedar_tpu_torch.corpus.synth import synth_corpus
+
+    corpus = synth_corpus(400, seed=9)
+    gpu, cpu = _fast_paths(corpus.tiers())
+    bodies = corpus.sar_bodies(64, seed=10)
+    want = cpu.authorize_raw(bodies)
+    assert cpu.device_held_s() is None
+    assert gpu.authorize_raw(bodies) == want
+    assert gpu.device_held_s() == 0.0
+    ctx = gpu.pipeline_encode(bodies)
+    torch.cuda._sleep(2_000_000_000)  # about a second of cycles ahead of the batch
+    ctx = gpu.pipeline_dispatch(ctx)
+    time.sleep(0.1)
+    first = gpu.device_held_s()
+    time.sleep(0.1)
+    second = gpu.device_held_s()
+    assert 0.1 <= first < second
+    assert gpu.pipeline_decode(ctx) == want
+    assert gpu.device_held_s() == 0.0
+
+
+@pytest.mark.cuda
 def test_webhook_server_on_card_equals_cpu_engine(cuda):
     """The port's WebhookServer in-process on the card, behind its
     pipelined batcher: a few hundred synth SARs (gated, flagged and
@@ -1294,3 +1324,53 @@ def test_fused_tenant_batches_reuse_staging_on_card(cuda):
     assert gpu.engine.staging_stats()["outstanding"] == 0
     lost = gpu.authorize_raw([TenantBody(b, "zeta") for b in bodies[tenants[0]][:64]])
     assert all(a[0] == DECISION_NO_OPINION and not a[1] for a in lost if a[2] is None)
+
+
+# the three vocabularies of the PDP front end in one set: a k8s permit,
+# an ext_authz permit (http:<method> over a NonResourceURL path) and an
+# AVP-style permit (avp:<action>)
+_PDP_POLICIES = """
+permit (principal, action == k8s::Action::"get", resource is k8s::Resource)
+  when { principal.name == "controller-a" && resource.resource == "pods" };
+permit (principal, action == k8s::Action::"http:get", resource is k8s::NonResourceURL)
+  when { principal.name == "alice" && resource.path == "/shop/cart" };
+permit (principal, action == k8s::Action::"avp:view", resource is k8s::NonResourceURL)
+  when { principal.name == "App::User::alice" && resource.path == "/docs/d1" };
+"""
+
+
+@pytest.mark.cuda
+def test_sar_extauthz_and_batch_rows_share_one_words_launch(cuda):
+    """A SAR, a mapped ext_authz check and a mapped batch tuple in one
+    batch on a card engine: one match_words_kernel launch answers all
+    three (each allowed by its own vocabulary's permit), the answers equal
+    the CPU fast path's, and the card's words for their encoded rows equal
+    the plain version's."""
+    import json
+
+    from cedar_tpu_torch.lang import PolicySet
+    from cedar_tpu_torch.pdp import PdpConfig
+    from cedar_tpu_torch.pdp.extauthz import check_body
+    from cedar_tpu_torch.pdp.mapper import PROTOCOL_BATCH, batch_tuple_to_sar, encode_pdp_body
+
+    gpu, cpu = _fast_paths([PolicySet.from_source(_PDP_POLICIES, "pdp")])
+    cfg = PdpConfig()
+    sar = json.dumps({
+        "apiVersion": "authorization.k8s.io/v1", "kind": "SubjectAccessReview",
+        "spec": {"user": "controller-a", "uid": "u", "groups": [],
+                 "resourceAttributes": {"verb": "get", "version": "v1", "resource": "pods",
+                                        "namespace": "default"}}}).encode()
+    check = check_body("GET", "/shop/cart", {"x-forwarded-user": "alice"}, cfg)
+    tup = encode_pdp_body(batch_tuple_to_sar(
+        {"principal": "App::User::alice", "action": "view", "resource": "docs/d1"}, cfg),
+        PROTOCOL_BATCH, cfg)
+    bodies = [sar, check, tup]
+    cuda_match.reset_launch_counts()
+    got = gpu.authorize_raw(bodies)
+    assert cuda_match.launch_counts() == {"match_groups_kernel": 0, "match_words_kernel": 1}
+    assert got == cpu.authorize_raw(bodies)
+    assert [a[0] for a in got] == ["allow"] * 3
+    codes, extras, _counts, flags = gpu._current_snapshot().encoder.encode_batch(bodies)
+    assert (flags == 0).all()
+    np.testing.assert_array_equal(gpu.engine.match_arrays(codes, extras)[0],
+                                  cpu.engine.match_arrays(codes, extras)[0])

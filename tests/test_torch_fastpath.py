@@ -639,9 +639,9 @@ def test_chip_smoke_encoder_fallback_counts():
     packed = t_pack(t_lower(corpus.tiers(), T_SCHEMA))
     enc = tnative.NativeEncoder.create(packed)
     # the smoke's batches: its --sars 300 bodies (seed + 1), its batch-4096
-    # bodies (seed + 2) and the 24578 more (2 at seed + 5, then the
-    # batch-4096 bodies six times over)
-    big = corpus.sar_bodies(4096, seed=2)
+    # bodies (2048 at seed + 2, each twice) and the 24578 more (2 at seed
+    # + 5, then the batch-4096 bodies six times over)
+    big = corpus.sar_bodies(2048, seed=2) * 2
     for label, rows in (("300", corpus.sar_bodies(300, seed=1)), ("4096", big),
                         ("24578", corpus.sar_bodies(2, seed=5) + big * 6)):
         _c, _e, _n, flags = enc.encode_batch(rows)

@@ -1057,3 +1057,56 @@ def test_cli_server_wires_gate_and_tuners(tmp_path):
         srv.stop()
         plain.stop()
     assert all(not t._thread.is_alive() for t in srv.tuners)
+
+
+def test_chip_smoke_storm_fires_only_once_every_client_connected():
+    """chip_smoke.py phase 16's open-loop load generator (storm): its schedule's
+    clock starts only once every client process has started and opened
+    its keep-alive pool, so a slow start delays the storm and not its
+    arrivals. Over a local HTTP server that stamps each accepted
+    connection and each request: every initial connection was accepted
+    before the first request came, every arrival is answered once, in
+    order, with its fire lag and whether it opened a connection."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    import chip_smoke
+
+    accepts, requests = [], []
+
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def setup(self):
+            accepts.append(time.monotonic())
+            super().setup()
+
+        def do_POST(self):
+            requests.append(time.monotonic())
+            self.rfile.read(int(self.headers["Content-Length"]))
+            body = json.dumps({"path": self.path}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    srv.daemon_threads = True
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        bodies = {"sar": ("/v1/authorize", b"{}"), "adm": ("/v1/admit", b"{}")}
+        schedule = [(i * 0.004, "sar" if i % 3 else "adm") for i in range(200)]
+        records, opened = chip_smoke.storm(srv.server_address[1], schedule, bodies,
+                                           n_procs=2, n_conns=4)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert opened >= 8 and len(accepts) == opened
+    assert sorted(accepts)[7] < min(requests)
+    assert [r[0] for r in records] == list(range(len(schedule)))
+    for (_due, key), rec in zip(schedule, records):
+        assert len(rec) == 9 and rec[1] == 200 and rec[6] is None
+        assert json.loads(rec[2]) == {"path": bodies[key][0]}
+        assert isinstance(rec[8], bool)

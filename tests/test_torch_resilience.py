@@ -927,6 +927,40 @@ def test_only_device_held_expiries_feed_the_breaker(pair_engines, queued):
         t_srv.stop()
 
 
+@pytest.mark.parametrize("held,want", [(None, "open"), (0.0, "closed"), (14.999, "closed"),
+                                       (15.0, "open"), (60.0, "open")])
+def test_a_card_that_holds_no_batch_spares_the_breaker(pair_engines, held, want):
+    """A claimed request's expiry feeds the breaker unless the card says
+    it held no batch for half the budget (30 s here) or longer
+    (``device_held_s``): then the budget burned on a starved host, the
+    request answers the deadline and the breaker stays closed. None (a
+    CPU engine, no event tells) feeds it, as the JAX package does."""
+    from cedar_tpu_torch.engine.batcher import DeadlineExceeded
+
+    clock = FakeClock()
+    j_srv, t_srv, brk = _pair(pair_engines, clock, threshold=1)
+    j_srv.stop()
+
+    def expire(*a, **k):
+        e = DeadlineExceeded("deadline of 0.100s exceeded waiting for batch result")
+        e.queued = False
+        raise e
+
+    try:
+        for fp in (t_srv.fastpath, t_srv.admission_fastpath):
+            assert fp.device_held_s() is None  # the CPU engines
+            fp.device_held_s = lambda: held
+        t_srv._batcher.submit = expire
+        t_srv._adm_raw_batcher.submit = expire
+        doc = t_srv.handle_authorize(sar())
+        assert "deadline" in doc["status"]["evaluationError"]
+        adm = t_srv.handle_admit(review())["response"]
+        assert adm["status"]["code"] == 500 and "deadline" in adm["status"]["message"]
+        assert brk["t", "authorization"].state == brk["t", "admission"].state == want
+    finally:
+        t_srv.stop()
+
+
 # ---------------------------------------------------- kill and revive
 
 

@@ -6,6 +6,10 @@ and store modules under it, against the JAX package's, on the CPU.
     own --device; each decision cache, observability and game-day flag
     parses as the JAX parser parses it; a JAX flag the port does not
     serve is rejected;
+  * --pdp-listen and --pdp-schema parse as the JAX parser parses them,
+    PDP is off by default, a bad schema file or address fails
+    build_server before any store starts, and [ADDR:]PORT binds the
+    listener where the JAX CLI binds it; the listener answers a check;
   * --device cuda (the default) without CUDA exits nonzero at start; a
     spawned --device cpu --insecure server (JAX blocked at import) answers
     a SAR and exits 0 on SIGTERM; build_server wires each backend and
@@ -65,12 +69,12 @@ PORTED_FLAGS = [
     "--artificial-deny-rate", "--enable-recording", "--recording-dir",
     "--lifecycle-spec-dir", "--lifecycle-journal-file", "--lifecycle-interval-seconds",
     "--profiling", "--tenant", "--tenant-header", "--tenant-host", "--tenant-default",
-    "--tenant-sources",
+    "--tenant-sources", "--pdp-listen", "--pdp-schema",
 ]
 # JAX flags of subsystems the port does not serve yet, each with a value
 UNPORTED_FLAGS = [
-    ["--pdp-schema", "/tmp/s.json"], ["--fleet-replicas", "2"], ["--partition-spec", "/tmp/p.json"],
-    ["--pdp-listen", "127.0.0.1:1"], ["--pallas", "on"], ["--hedge-delay-ms", "5"],
+    ["--pod-num-processes", "2"], ["--fleet-replicas", "2"], ["--partition-spec", "/tmp/p.json"],
+    ["--aot-cache-dir", "/tmp/aot"], ["--pallas", "on"], ["--hedge-delay-ms", "5"],
     ["--fanout-workers", "2"], ["--tpu-reload-seconds", "1"],
 ]
 POLICIES = """
@@ -573,3 +577,96 @@ def test_directory_store_equals_jax(tmp_path, scenario):
             j_quarantine_registry().is_quarantined("directory", name)
     assert quarantine_registry().is_quarantined("directory", good) == (scenario == "poison-after-good")
     assert t.name() == j.name() and t.initial_policy_load_complete()
+
+
+# --pdp-listen / --pdp-schema values, as the JAX CLI's tests and docs give them
+PDP_ARGV = [["--pdp-listen", "127.0.0.1:9191"], ["--pdp-listen", "9191"],
+            ["--pdp-listen", ":9191"], ["--pdp-schema", "/tmp/pdp.json"]]
+
+
+@pytest.mark.parametrize("argv", PDP_ARGV, ids=lambda a: "=".join(a))
+def test_pdp_flag_parses_as_jax(argv):
+    jp, tp = j_make_parser(), make_parser()
+    dest = tp._option_string_actions[argv[0]].dest
+    assert getattr(tp.parse_args(argv), dest) == getattr(jp.parse_args(argv), dest) == argv[1]
+
+
+def test_pdp_off_by_default(tmp_path):
+    args = make_parser().parse_args([])
+    assert (args.pdp_listen, args.pdp_schema) == ("", "")
+    cfg = _config(tmp_path)
+    srv = build_server(make_parser().parse_args(
+        ["--config", str(cfg), "--insecure", "--backend", "interpreter"]))
+    try:
+        assert srv.pdp is None
+    finally:
+        srv.stop_batchers()
+        srv.close_stores()
+
+
+# a --pdp-schema file that must fail the start, with what the JAX
+# PdpConfig.load raises for it
+BAD_PDP = {
+    "unknown-key": ('{"principal_headr": "x"}', ValueError),
+    "zero-cap": ('{"batch_max_tuples": 0}', ValueError),
+    "not-json": ("{nope", ValueError),
+    "missing-file": (None, OSError),
+    "bad-port": ("{}", ValueError),
+}
+
+
+@pytest.mark.parametrize("name", BAD_PDP)
+def test_bad_pdp_schema_fails_at_startup(tmp_path, monkeypatch, name):
+    """A bad schema file (or port) raises from build_server before any
+    store is built: the directory store's constructor is never reached."""
+    from cedar_tpu.pdp import PdpConfig as JPdpConfig
+    from cedar_tpu_torch.stores import config as t_config
+
+    text, exc = BAD_PDP[name]
+    schema = tmp_path / "pdp.json"
+    if text is not None:
+        schema.write_text(text)
+    if name != "bad-port":
+        with pytest.raises(exc):
+            JPdpConfig.load(str(schema))
+    built = []
+    real = t_config.cedar_config_stores
+    monkeypatch.setattr("cedar_tpu_torch.cli.webhook.cedar_config_stores",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    listen = "127.0.0.1:http" if name == "bad-port" else "127.0.0.1:0"
+    args = make_parser().parse_args(
+        ["--config", str(_config(tmp_path)), "--insecure", "--backend", "interpreter",
+         "--pdp-listen", listen, "--pdp-schema", str(schema)])
+    with pytest.raises(exc):
+        build_server(args)
+    assert built == []
+
+
+@pytest.mark.parametrize("listen,want", [
+    ("127.0.0.2:0", "127.0.0.2"), ("0", "127.0.0.1"), (":0", "127.0.0.1"),
+], ids=["addr-port", "port", "empty-addr"])
+def test_pdp_listen_binds_addr_port(tmp_path, listen, want):
+    """[ADDR:]PORT: ADDR defaults to --bind-address; the listener starts
+    with the server, answers an ext_authz check from the device backend
+    (on the CPU here) and stops with it."""
+    schema = tmp_path / "pdp.json"
+    schema.write_text(json.dumps({"principal_header": "x-user"}))
+    args = make_parser().parse_args(
+        ["--config", str(_config(tmp_path)), "--insecure", "--device", "cpu",
+         "--secure-port", "0", "--metrics-port", "0", "--bind-address", "127.0.0.1",
+         "--pdp-listen", listen, "--pdp-schema", str(schema)])
+    srv = build_server(args)
+    assert srv.pdp.address == want and srv.pdp.config.principal_header == "x-user"
+    srv.start()
+    try:
+        import http.client
+
+        conn = http.client.HTTPConnection(want, srv.pdp.bound_port, timeout=30)
+        conn.request("GET", "/healthz", headers={"x-user": "sam"})
+        r = conn.getresponse()
+        doc = json.loads(r.read())
+        conn.close()
+        # no policy speaks http:get: the PDP's abstention denies
+        assert (r.status, doc) == (403, {"decision": "deny", "reason": ""})
+    finally:
+        srv.stop()
