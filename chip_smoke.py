@@ -31,7 +31,7 @@ Phases, each a hard failure with a nonzero exit:
      engine/fastpath.py SARFastPath (the C++ encoder built with g++, pinned
      staging, one asynchronous match_words_kernel launch per pipeline
      chunk, one packed D2H) over the phase's 300 bodies, its batch-4096
-     bodies (2048 bodies, each twice) and 24578 more (2 new, then the
+     bodies (512 bodies, each eight times) and 24578 more (2 new, then the
      batch-4096 bodies six times over);
      launch counts reset before and read after each batch ({words 1,
      groups 0} up to 16384 rows; at 24578 three words launches: a chunk
@@ -46,7 +46,7 @@ Phases, each a hard failure with a nonzero exit:
      (--profile: the device's idle share and top kernels over each). Both kernels held
      against their plain versions on a native-encoded 16384-row chunk.
      Gated sub-phase: the corpus plus an interpreter-fallback and a
-     native-opaque policy, 4096 rows (2048 bodies, each twice) of traffic
+     native-opaque policy, 4096 rows (512 bodies, each eight times) of traffic
      that hits their scopes: gated rows re-run through evaluate_batch
      (match_groups_kernel), the rest take the words launch; 0 flips; both
      kernels held against their plain versions on that plane. The
@@ -78,9 +78,11 @@ Phases, each a hard failure with a nonzero exit:
      the expected answers from the library SARFastPath over a store built
      from the same directory, held against the interpreter's answers of
      phase 4b (decision and reason set, 0 flips); then the first 300
-     gated bodies POSTed one at a time on one keep-alive connection, all
-     4096 from 64 client threads, and phase 4's 4096 synth bodies (no
-     gated scope forced) from 64 threads, every response's status equal
+     gated bodies POSTed one at a time on one keep-alive connection, the
+     first 2048 from 64 client threads, and the first 2048 of phase 4's
+     batch-4096 synth bodies (no gated scope forced) from 64 threads (4096
+     each until the offline toolchain's slice needed the time), every
+     response's status equal
      to the expected one (a flip prints its body's latency and both
      answers). From the server's /debug/engine (launch counts 0 before
      the traffic: the server resets them after its start-up warm-up,
@@ -104,8 +106,8 @@ Phases, each a hard failure with a nonzero exit:
      admission policies (the forbid set of the JAX package's native
      admission tests, the repo demo's demo-require-owner-label, and an
      interpreter-fallback forbid whose scope the plane gates) in one
-     directory store, and 1,024 seeded AdmissionReview bodies, each sent
-     four times (4,096 rows; CREATE 50%,
+     directory store, and 256 seeded AdmissionReview bodies, each sent
+     four times (1,024 rows; CREATE 50%,
      UPDATE 30%, DELETE 15%, CONNECT 5%; ConfigMap, Secret, Deployment and
      Pod objects; about 10% in kube-system; every sixteenth in the
      fallback forbid's scope; every 25th matching two forbids; a few
@@ -115,9 +117,9 @@ Phases, each a hard failure with a nonzero exit:
      oracle pool (0 flips; a deny's reasons compared as a set). Then
      phase 10's server, at its version 0 (these files) and before phase
      10's traffic (phase 9 had a server of its own until phase 21 needed
-     the time), serves 300 bodies on /v1/admit at concurrency 1, all 4096
-     at concurrency 64, and a mixed window: 2048 admission bodies from 32
-     clients while 32 others POST 2048 of phase 8's SAR bodies, every
+     the time), serves 300 bodies on /v1/admit at concurrency 1, all 1024
+     at concurrency 64, and a mixed window: 512 admission bodies from 32
+     clients while 32 others POST 512 of phase 8's SAR bodies, every
      answer equal to its expected one. Over the admission-only windows
      (/debug/engine and /metrics before and after): both kernels
      launched, the admission rows routed gated, flagged, encoder_fallback
@@ -258,7 +260,7 @@ Phases, each a hard failure with a nonzero exit:
      after it (a plane the strict or partial gate admits holds no
      interpreter-fallback policy, so no served request takes the groups
      kernel; the phase's launches are both servers' served ones plus that
-     warm-up's). Every window: phase 8's first 512 gated SARs from 16 clients,
+     warm-up's). Every window: phase 8's first 256 gated SARs from 16 clients,
      each answer held against the port's interpreter over the tiers
      being served (version 0, or the trimmed edit: 0 flips). Prints the
      passes' seconds, every load's compile seconds with the gate's
@@ -270,7 +272,7 @@ Phases, each a hard failure with a nonzero exit:
      Policy objects on FakeApiServer, the CLI at its cache defaults
      (--decision-cache-size 65536, TTLs 300 / 30 / 5 s), both engines
      incremental over 64 buckets, --reload-seconds 1. A working set of
-     the first 1,024 SARs of phase 12's pool with distinct cache keys
+     the first 512 SARs of phase 12's pool with distinct cache keys
      (gated rows included), each answer held against the interpreter
      over the tiers live at that moment (canon: decision, reason set
      with positions, error): (a) a warm pass at concurrency 64 (every
@@ -278,7 +280,7 @@ Phases, each a hard failure with a nonzero exit:
      (0 misses, no launch); (c) 4 shuffled passes at concurrency 64
      (launches no more than the misses, which NoOpinion's 5 s TTL
      causes); (d) 300 allow hits at concurrency 1 (0 misses, no
-     launch); (e) phase 12's event 1 while 16 clients send 512 other
+     launch); (e) phase 12's event 1 while 16 clients send 256 other
      keys (every answer of a live version), until the authorization
      engine swaps; (f) the set again one request at a time, /debug/cache
      read after each: no key decided in a dirty shard, no NoOpinion or
@@ -298,7 +300,7 @@ Phases, each a hard failure with a nonzero exit:
      behind --confirm-non-prod-inject-errors at 2 errors and 3 denies per
      second (unequal rates: with equal ones both token buckets refill in
      step and the deny, consulted second, hides every error). Traffic:
-     (a) phase 14's 1,024 distinct-key SARs at concurrency 64 (misses)
+     (a) 1,024 distinct-key SARs of phase 12's pool at concurrency 64 (misses)
      beside 256 admission_bodies(seed + 9) at concurrency 16; (a') 100
      other keys at concurrency 1 (misses); (b) 300 allow hits at
      concurrency 1, the keys injected in (a) first. Every 16th SAR and 8th
@@ -338,7 +340,7 @@ Phases, each a hard failure with a nonzero exit:
      The storm, on a second server with the gate, --max-inflight 64,
      and --client-qps at 5% of C: the
      port's flash_crowd_schedule (seed, base 0.5 C, peak 3 C, the crowd
-     at 2 s with a 3 s ramp, 16 s) then 4 s of Poisson arrivals at the
+     at 2 s with a 3 s ramp, 12 s) then 2 s of Poisson arrivals at the
      base; 25% kubelet SARs (system:node:node-<k>, system:nodes), 50%
      controller SARs of the SAR pool's 64 most frequent users (a third
      the first's, the hot user), 25% admission reviews of 64 service
@@ -423,8 +425,9 @@ Phases, each a hard failure with a nonzero exit:
      FakeApiServer (the store withholds them from live serving); POST
      /rollout/stage {"crd": true} compiles both candidate engines and
      they warm up to the live engines' top bucket. The shadow window:
-     384 fresh SARs and 96 reviews in two chunks (768 and 192 until
-     phase 21 needed the time; SARs at c=12,
+     192 fresh SARs and 48 reviews in two chunks (768 and 192 until
+     phase 21 needed the time, 384 and 96 until the offline toolchain's
+     slice did; SARs at c=12,
      reviews at c=4), each drained before the next, so nothing sheds:
      the report's counts per class (and its exemplars' classes) equal
      those the port's interpreter gives over the live and candidate
@@ -440,7 +443,7 @@ Phases, each a hard failure with a nonzero exit:
      are held against the interpreter after the last window, and the
      medians of the two windows alone and the two beside are printed (a
      whole run says the cost was not measured). Promote: the next
-     answer and a window of 384 SARs (c=16) and 96 reviews equal the
+     answer and a window of 192 SARs (c=16) and 48 reviews equal the
      candidate oracle's; no warm-up launch on either live engine, one
      native encoder built per path, at the adoption. Roll back: the same
      window equals the live oracle's; nothing built or warmed. Every
@@ -466,13 +469,13 @@ Phases, each a hard failure with a nonzero exit:
      halt at verifying and end rolled_back with nothing staged;
      tenant-good, the live set plus one permit for a user no traffic
      sends, with the analyze gate on (that user an allowed intent,
-     flip budget 0), shadow min_samples 256 and diff budget 0, manual
-     promotion. Two clients send a pool of 768 distinct SARs throughout;
+     flip budget 0), shadow min_samples 128 and diff budget 0, manual
+     promotion. Two clients send a pool of 384 distinct SARs throughout;
      /debug/lifecycle is polled (analyzing, shadowing and promoted seen
      in order, each with its evidence); one /debug/pprof/profile is
      taken while the candidate shadows (its top three stacks printed);
      once tenant-good awaits approval, POST /lifecycle/approve, then the
-     promotion and 4 s more traffic. Checks: the journal holds every
+     promotion and 2 s more traffic. Checks: the journal holds every
      transition of both walks (pending -> verifying -> analyzing ->
      shadowing -> promoting -> promoted, with one awaiting_approval and
      one approved record; pending -> verifying -> halted -> rolled_back),
@@ -509,10 +512,10 @@ Phases, each a hard failure with a nonzero exit:
      their plain versions on the fused plane's own operands (native codes
      of every tenant's bodies, each row stamped with its tenant's code).
      Then: c=1 library calls of the fused and the standalone engines;
-     c=1 over HTTP per tenant (32 fresh SARs each); 960 fresh SARs at
+     c=1 over HTTP per tenant (16 fresh SARs each); 480 fresh SARs at
      c=64, tenants interleaved; from 8 clients, tenants interleaved,
-     each tenant's 128 SARs (tenant-00's first 16 through the
-     x-cedar-tenant header, tenant-09's through Host) and 32 reviews, and
+     each tenant's 64 SARs (tenant-00's first 16 through the
+     x-cedar-tenant header, tenant-09's through Host) and 16 reviews, and
      a SAR aimed at each tenant's org-wide policies sent to it and to its
      neighbor; an unknown and a missing tenant on both endpoints. Checks:
      every answer equals the interpreter's over that tenant's own
@@ -547,8 +550,8 @@ Phases, each a hard failure with a nonzero exit:
      a malformed tuple answered for itself beside answered neighbours);
      64 fresh ext_authz checks at c=1 (the joiners' POSTs take the gated
      lane), then 64 fresh SARs at c=1 (none gated); a mixed window of
-     4,096 SARs from 32 webhook clients, 4,096 checks from 32 ext_authz
-     clients and 128 batch bodies of 32 tuples from 4 clients at once,
+     2,048 SARs from 32 webhook clients, 2,048 checks from 32 ext_authz
+     clients and 64 batch bodies of 32 tuples from 4 clients at once,
      every draw Zipf-skewed over its principal pool; one check and the
      SAR of the same bytes, each sent twice. Checks: every answer equals
      the PdpOracle's (0 flips); a formed batch's protocol_mix signature
@@ -1685,9 +1688,10 @@ def main() -> None:
                 for b in bodies]
     _, _, lit300 = engine_lit(engine, cs, items300, pad=True)
     parity("serving", lit300, *serve_plane, need_mix=False, maps=cs.plane_maps)
-    # the batch-4096 traffic: 2048 bodies, each twice (4096 distinct until
-    # phase 21 needed the time: the interpreter answers each body once)
-    big = corpus.sar_bodies(2048, seed=args.seed + 2) * 2
+    # the batch-4096 traffic: 512 bodies, each eight times (4096 distinct
+    # until phase 21 needed the time, 2048 twice until the offline
+    # toolchain's slice did: the interpreter answers each body once)
+    big = corpus.sar_bodies(512, seed=args.seed + 2) * 8
     items4096 = [record_to_cedar_resource(get_authorizer_attributes(json.loads(b)))
                  for b in big]
     codes, extras, serve_lit = engine_lit(engine, cs, items4096, pad=False)
@@ -1844,7 +1848,7 @@ def main() -> None:
         TieredPolicyStores([MemoryStore("gated", g_ps)]), evaluate_batch=g_engine.evaluate_batch)
     g_fast = SARFastPath(g_engine, g_authz)
     # 2048 bodies, each twice, as the batch-4096 traffic above
-    g_batch = gated_bodies(corpus, 2048, seed=args.seed + 6) * 2
+    g_batch = gated_bodies(corpus, 512, seed=args.seed + 6) * 8
     cuda_match.reset_launch_counts()
     g_res = g_fast.authorize_raw(g_batch)
     torch.cuda.synchronize()
@@ -2446,10 +2450,11 @@ def webhook_phase(args, card: str, corpus, bodies: list, oracle, clean: list) ->
             print(f"webhook start-up warm-up launches: "
                   f"{json.dumps(doc['engine']['warmup_launches'])}", flush=True)
             flips = 0
+            n64 = 2048
             for label, win_bodies, win_expected, conc in (
                 ("concurrency 1", bodies[:300], expected[:300], 1),
-                ("concurrency 64", bodies, expected, 64),
-                ("concurrency 64, no gated body", clean, expected_clean, 64),
+                ("concurrency 64", bodies[:n64], expected[:n64], 64),
+                ("concurrency 64, no gated body", clean[:n64], expected_clean[:n64], 64),
             ):
                 wall, lat, n_flips = run_window(port, win_bodies, win_expected, conc)
                 flips += n_flips
@@ -2570,9 +2575,10 @@ def metric_values(text: str, family: str, label: str, path: str) -> dict:
 
 
 # phase 9's review pool: ADMISSION_DISTINCT bodies, each served
-# ADMISSION_REPEAT times (4096 distinct until phase 21 needed the time: the
-# interpreter answers each body once)
-ADMISSION_DISTINCT, ADMISSION_REPEAT = 1024, 4
+# ADMISSION_REPEAT times (4096 distinct until phase 21 needed the time,
+# 1024 until the offline toolchain's slice did: the interpreter answers
+# each body once)
+ADMISSION_DISTINCT, ADMISSION_REPEAT = 256, 4
 
 
 def admission_prep(args, pol_dir: str) -> dict:
@@ -2637,7 +2643,7 @@ def admission_phase(args, card: str, srv, prep: dict, oracle: list, sars: list,
         fail(f"admission engine before traffic: {doc0['admission']['engine']}")
     flips = 0
     doc, text = doc0, text0
-    for label, n, conc in (("concurrency 1", 300, 1), ("concurrency 64", 4096, 64)):
+    for label, n, conc in (("concurrency 1", 300, 1), ("concurrency 64", len(bodies), 64)):
         wall, lat, n_flips = run_window(port, bodies[:n], expected[:n], conc, "/v1/admit")
         flips += n_flips
         doc2, text2 = snapshot()
@@ -2681,7 +2687,7 @@ def admission_phase(args, card: str, srv, prep: dict, oracle: list, sars: list,
         fail("; ".join(quiet))
 
     # the mixed window: both endpoints at once, from 32 clients each
-    n_mix = 2048
+    n_mix = 512
     out = {}
 
     def one(key, path, win):
@@ -2759,7 +2765,9 @@ def reload_phase(args, card: str, sars: list, then=None, first=None):
 
     t_phase = time.monotonic()
     grace = 5.0
-    n_pool = 512
+    # distinct bodies a path (512 until the offline toolchain's slice
+    # needed the time: the interpreter answers each once a version)
+    n_pool = 256
     sars = sars[:n_pool]
     adms = admission_bodies(n_pool, args.seed + 10)
     with tempfile.TemporaryDirectory(prefix="cedar-reload-") as tmp:
@@ -3746,7 +3754,7 @@ def crd_phase(args, card: str, sars: list) -> dict:
     (its served counts: they start at 0, warm-ups count apart)."""
     t_phase = time.monotonic()
     grace = 5.0
-    n_pool = 512
+    n_pool = 256  # 512 until the offline toolchain's slice needed the time
     pools = {"/v1/authorize": sars[:n_pool], "/v1/admit": admission_bodies(n_pool, args.seed + 10)}
     base = crd_objects(args.policies, args.seed)
     _head, rest = base[CRD_EDITED].split("\n", 1)
@@ -4073,7 +4081,7 @@ def gate_phase(args, card: str, corpus, sars: list) -> dict:
     t_phase = time.monotonic()
     gate_cost(card, corpus)
     grace = 5.0
-    n_pool = 512
+    n_pool = 256  # 512 until the offline toolchain's slice needed the time
     sars = sars[:n_pool]
     base = {"synth.cedar": synth_source(args.policies, seed=args.seed),
             "gated.cedar": NATIVE_OPAQUE_POLICY}
@@ -4420,7 +4428,8 @@ def cache_phase(args, card: str, sars: list, flags=()) -> dict:
     pool. Returns the server's served kernel launches over the phase."""
     t_phase = time.monotonic()
     grace = 5.0
-    n_keys, n_side, buckets = 1024, 512, 64
+    # 1024 and 512 until the offline toolchain's slice needed the time
+    n_keys, n_side, buckets = 512, 256, 64
     distinct = cache_working_set(sars, n_keys + n_side)
     # the working set, and the other keys the clients send during the
     # edit (entries they make after the swap are fresh, not survivors)
@@ -5567,8 +5576,8 @@ def explain_split(card: str, engine, bodies: list, reps: int = 50) -> None:
 # --only-rollout, the misses (fresh keys) of each of the four live-cost
 # windows at c=1 and at c=64 (alone, beside the shadow at its default
 # duty cycle, beside it again, alone again)
-ROLLOUT_CHUNKS, ROLLOUT_CHUNK_SARS, ROLLOUT_CHUNK_REVIEWS = 2, 192, 48
-ROLLOUT_SWAP_SARS, ROLLOUT_SWAP_REVIEWS = 384, 96
+ROLLOUT_CHUNKS, ROLLOUT_CHUNK_SARS, ROLLOUT_CHUNK_REVIEWS = 2, 96, 24
+ROLLOUT_SWAP_SARS, ROLLOUT_SWAP_REVIEWS = 192, 48
 ROLLOUT_C1, ROLLOUT_C64 = 400, 2000
 ROLLOUT_COST_WINDOWS = ("alone", "beside", "beside", "alone")
 # the candidate: phase 12's objects as candidate-labelled copies named
@@ -6111,13 +6120,14 @@ def load_mix(pool: dict, seed, hot_share: float = 1 / 3):
 
 def load_schedule(C: float, pool: dict, seed: int) -> list:
     """[(due s, body key)]: the port's flash_crowd_schedule (base 0.5 C,
-    peak 3 C, the crowd at 2 s with a 3 s ramp, 16 s), then 4 s of
-    Poisson arrivals at the base, each arrival drawn from the full mix
-    (load_mix)."""
+    peak 3 C, the crowd at 2 s with a 3 s ramp, 12 s), then 2 s of
+    Poisson arrivals at the base (16 s and 4 s until the offline
+    toolchain's slice needed the time), each arrival drawn from the full
+    mix (load_mix)."""
     from cedar_tpu_torch.load import flash_crowd_schedule, poisson_schedule
 
-    due = flash_crowd_schedule(0.5 * C, 3 * C, 2.0, 3.0, 16.0, seed=seed)
-    due += [16.0 + t for t in poisson_schedule(0.5 * C, 4.0, seed=f"{seed}:tail")]
+    due = flash_crowd_schedule(0.5 * C, 3 * C, 2.0, 3.0, 12.0, seed=seed)
+    due += [12.0 + t for t in poisson_schedule(0.5 * C, 2.0, seed=f"{seed}:tail")]
     draw = load_mix(pool, seed)
     return [(t, draw()) for t in due]
 
@@ -6671,9 +6681,12 @@ LIFECYCLE_ADDED_POLICY = (f'permit (principal == k8s::User::"{LIFECYCLE_NEWCOMER
                           "        resource is k8s::Resource);\n")
 LIFECYCLE_GOOD, LIFECYCLE_BREACH = "tenant-good", "tenant-breach"
 LIFECYCLE_WALK = ["pending", "verifying", "analyzing", "shadowing", "promoting", "promoted"]
-LIFECYCLE_POOL = 768  # distinct SARs the phase's traffic cycles through
-LIFECYCLE_MIN_SAMPLES = 256
-LIFECYCLE_AFTER_S = 4.0  # traffic kept up after the promotion
+# distinct SARs the phase's traffic cycles through (768 until the offline
+# toolchain's slice needed the time: the interpreter answers each twice)
+LIFECYCLE_POOL = 384
+# 256 and 4 s until the offline toolchain's slice needed the time
+LIFECYCLE_MIN_SAMPLES = 128
+LIFECYCLE_AFTER_S = 2.0  # traffic kept up after the promotion
 
 
 def lifecycle_objects(n_policies: int, seed: int) -> dict:
@@ -7255,7 +7268,8 @@ TENANCY_HEADER = "tenant-00"  # a sample routed by the x-cedar-tenant header
 TENANCY_HOST_TENANT, TENANCY_HOST = "tenant-09", "tenant-09.authz.example"  # and by Host
 TENANCY_STANDALONE = ("tenant-00", TENANCY_FALLBACK)  # held to standalone card engines
 TENANCY_EDIT = "tenant-05"  # one policy of it edited
-TENANCY_SARS, TENANCY_REVIEWS, TENANCY_C1, TENANCY_C64 = 128, 32, 32, 96
+# 128, 32, 32 and 96 until the offline toolchain's slice needed the time
+TENANCY_SARS, TENANCY_REVIEWS, TENANCY_C1, TENANCY_C64 = 64, 16, 16, 48
 TENANCY_SAMPLE = 16  # main bodies of the header and host tenants sent that way
 TENANCY_MIN_CROSS = 32
 
@@ -7980,9 +7994,11 @@ class MeshCorpus:
 
 
 PDP_C1 = 64  # fresh ext_authz checks, then fresh SARs, at c=1
-PDP_MIX = 4096  # SARs and checks of the mixed window, each
+PDP_MIX = 2048  # SARs and checks of the mixed window, each (4096 until
+# the offline toolchain's slice needed the time)
 PDP_MIX_CLIENTS = 32  # webhook clients and ext_authz clients, each
-PDP_BATCHES, PDP_TUPLES, PDP_BATCH_CLIENTS = 128, 32, 4
+# PDP_BATCHES 128 until the offline toolchain's slice needed the time
+PDP_BATCHES, PDP_TUPLES, PDP_BATCH_CLIENTS = 64, 32, 4
 PDP_CAP = 64  # the schema's batch_max_tuples
 PDP_SCHEMA = {"context_headers": [PDP_HEADER], "batch_max_tuples": PDP_CAP}
 JSON_HEADERS = {"Content-Type": "application/json"}
